@@ -1,0 +1,29 @@
+"""Carry parameters over from the JAX package as numpy.
+
+``params_from_numpy`` takes the JAX package's params as a nested dict of
+numpy arrays (e.g. ``jax.tree.map(np.asarray, T.init_params(...))`` on the
+JAX side) and returns the port's tensors with the same keys and layouts:
+``x @ W`` orientation, layers stacked on dim 0. This module itself imports
+neither JAX nor the JAX package.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# Leaves the reference keeps in fp32 whatever the model dtype.
+FP32_LEAVES = ("router",)
+
+
+def params_from_numpy(tree, device="cpu", dtype: torch.dtype | None = None,
+                      _key: str = ""):
+    """Nested dict of numpy arrays -> nested dict of tensors on ``device``.
+    ``dtype`` casts the floating leaves (except the fp32 router); None keeps
+    each array's own dtype."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device, dtype, k) for k, v in tree.items()}
+    t = torch.tensor(np.asarray(tree), device=device)
+    if dtype is not None and t.is_floating_point() and _key not in FP32_LEAVES:
+        t = t.to(dtype)
+    return t

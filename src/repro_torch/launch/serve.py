@@ -1,0 +1,90 @@
+"""Serving driver: batched generation with the NI-Balancer active.
+
+Runs on the card by default; ``--device cpu`` takes the plain PyTorch path.
+
+Example (CPU, smoke size):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx-132b --smoke \
+      --device cpu --requests 4 --prompt-len 16 --gen 8 --virtual-ep 4 --slots 3
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from repro_torch.configs import get_config, smoke as smoke_cfg
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer as T
+from repro_torch.parallel.ctx import ParallelCtx
+from repro_torch.runtime.data import request_stream
+from repro_torch.runtime.serve import ServeConfig, Server
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def parse_use_kernels(value: str) -> str | bool:
+    """CLI tri-state ("auto"|"on"|"off") -> ``ParallelCtx.use_kernels``."""
+    return {"on": True, "off": False}.get(value, "auto")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (widths unchanged)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu; cuda without a card raises")
+    ap.add_argument("--dtype", default="float32", choices=tuple(DTYPES))
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--batches", type=int, default=3)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--max-seq", type=int, default=256)
+    ap.add_argument("--slots", type=int, default=2)
+    ap.add_argument("--virtual-ep", type=int, default=4)
+    ap.add_argument("--alpha", type=float, default=0.5)
+    ap.add_argument("--page-size", type=int, default=128)
+    ap.add_argument("--pool-pages", type=int, default=None)
+    ap.add_argument("--ep-chunks", type=int, default=1)
+    ap.add_argument("--use-kernels", default="auto", choices=("auto", "on", "off"),
+                    help="CUDA kernels: auto = for CUDA tensors, on = always "
+                    "(raises on the CPU), off = plain PyTorch paths")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = smoke_cfg(cfg)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    ctx = ParallelCtx(capacity_factor=2.0, use_kernels=parse_use_kernels(args.use_kernels))
+    params = T.init_params(cfg, seed=args.seed, dtype=DTYPES[args.dtype], device=device)
+    scfg = ServeConfig(
+        max_seq=args.max_seq, batch=args.requests, slots_per_device=args.slots,
+        alpha=args.alpha, paged=True, page_size=args.page_size,
+        pool_pages=args.pool_pages, virtual_ep=args.virtual_ep,
+        ep_chunks=args.ep_chunks,
+    )
+    server = Server(cfg, ctx, params, scfg, device=device)
+    stream = request_stream(cfg.vocab_size, args.requests, args.prompt_len, args.seed)
+    for i, prompt in zip(range(args.batches), stream):
+        t0 = time.perf_counter()
+        out = server.generate(prompt, args.gen)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        dt = time.perf_counter() - t0
+        print(
+            f"batch {i}: generated {tuple(out.shape)} on {device} in {dt:.2f}s "
+            f"({args.requests * args.gen / dt:.1f} tok/s), migrations so far: "
+            f"{server.migrations}"
+        )
+    print("done")
+
+
+if __name__ == "__main__":
+    main()

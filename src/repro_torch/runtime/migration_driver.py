@@ -1,0 +1,160 @@
+"""Live stepped expert migration, driven through the decode loop (PyTorch
+port of ``repro.runtime.migration_driver``, without the device-death
+handling, which comes with the fault-tolerance slice).
+
+Lifecycle of one migration ``(expert, src_device, dst_device)``:
+
+1. **submit** — reserve a destination slot in the shared
+   :class:`~repro_torch.parallel.placement.PlacementTable` (pending:
+   visible to the balancer's planning view, invisible to routing) and
+   decompose the move into Local/Global hops; the hop count floors the
+   slice count.
+2. **tick** (one per decode step) — copy one slice of rows ``[lo, lo+rows)``
+   of every expert weight from the source slot into the reserved slot, as
+   an in-place ``copy_`` on the live parameter tensors, queued on the
+   current stream before the step's kernels. Only those rows move: never
+   the whole weight (tens of GB at full width).
+3. **commit** — at the first tick after the final slice was issued, the
+   table commit publishes the replica to the routing view. Stream order
+   guarantees the copy landed before any kernel that reads the new routing
+   view; that single host-side table swap is the atomic commit point.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core.er_mapping import Mapping, baseline_mapping
+from repro_torch.core.migration import Migration, MigStep, decompose
+from repro_torch.core.topology import MeshTopology
+from repro_torch.parallel.placement import PlacementTable
+
+MOE_WEIGHTS = ("w_gate", "w_up", "w_down")
+
+
+def _copy_row_slice(w: torch.Tensor, src_slot: int, dst_slot: int, lo: int,
+                    rows: int) -> None:
+    """Copy rows ``[lo, lo+rows)`` of slot ``src_slot`` onto ``dst_slot`` of
+    ``w`` ``(L, n_slots, rows_total, cols)``, in place."""
+    w[:, dst_slot, lo : lo + rows].copy_(w[:, src_slot, lo : lo + rows])
+
+
+@dataclasses.dataclass
+class InFlightMigration:
+    mig: Migration
+    src_slot: int
+    dst_slot: int
+    n_slices: int
+    hops: list[MigStep]
+    submitted: int                 # server tick at submission
+    next_slice: int = 0
+    issue_ticks: list[int] = dataclasses.field(default_factory=list)
+
+    @property
+    def expert(self) -> int:
+        return self.mig[0]
+
+    @property
+    def copied(self) -> bool:
+        return self.next_slice >= self.n_slices
+
+    def record(self, committed: int | None) -> dict:
+        return {
+            "mig": tuple(self.mig),
+            "expert": self.expert,
+            "src_slot": self.src_slot,
+            "dst_slot": self.dst_slot,
+            "n_slices": self.n_slices,
+            "hops": [(h.kind, h.src, h.dst) for h in self.hops],
+            "submitted": self.submitted,
+            "issue_ticks": list(self.issue_ticks),
+            "committed": committed,
+        }
+
+
+class MigrationDriver:
+    """Owns the in-flight migrations; the Server ticks it once per decode
+    step."""
+
+    def __init__(self, table: PlacementTable, min_slices: int = 4,
+                 mapping: Mapping | None = None):
+        self.table = table
+        self.min_slices = max(1, int(min_slices))
+        # Virtual EP has no physical mesh: a 1-D mesh where every device
+        # shares one FTD (decompose then yields one Local hop).
+        self.mapping = mapping or baseline_mapping(
+            MeshTopology(1, table.n_devices), table.n_devices, 1
+        )
+        self.expert_bytes: float | None = None
+        self.in_flight: list[InFlightMigration] = []
+        self.history: list[dict] = []
+
+    def _slot_bytes(self, moe: dict) -> float:
+        if self.expert_bytes is None:
+            self.expert_bytes = float(
+                sum(
+                    moe[w].element_size() * moe[w].numel() / moe[w].shape[1]
+                    for w in MOE_WEIGHTS
+                )
+            )
+        return self.expert_bytes
+
+    def submit(self, plan: list[Migration], moe: dict, t: int) -> list[Migration]:
+        """Reserve destination slots for a balancer plan and build each
+        migration's slice schedule; unplaceable entries are skipped.
+        Returns the accepted migrations."""
+        accepted: list[Migration] = []
+        nbytes = self._slot_bytes(moe)
+        for mig in plan:
+            e, src, dst = mig
+            src_slot = self.table.slot_on_device(e, src)
+            if src_slot is None:
+                continue
+            dst_slot = self.table.try_reserve(e, dst)
+            if dst_slot is None:
+                continue
+            hops = decompose(mig, self.mapping, nbytes)
+            self.in_flight.append(
+                InFlightMigration(
+                    mig=mig, src_slot=src_slot, dst_slot=dst_slot,
+                    n_slices=max(self.min_slices, len(hops)), hops=hops,
+                    submitted=t,
+                )
+            )
+            accepted.append(mig)
+        return accepted
+
+    def _issue_slice(self, moe: dict, fl: InFlightMigration, t: int) -> None:
+        i = fl.next_slice
+        for name in MOE_WEIGHTS:
+            w = moe[name]
+            total = w.shape[2]
+            chunk = min(total, -(-total // fl.n_slices))
+            lo = max(0, min(i * chunk, total - chunk))
+            _copy_row_slice(w, fl.src_slot, fl.dst_slot, lo, chunk)
+        fl.next_slice += 1
+        fl.issue_ticks.append(t)
+
+    def tick(self, moe: dict, t: int) -> list[dict]:
+        """Commit migrations whose last slice was issued on a previous tick
+        (the atomic table swap, at the step boundary), then issue this
+        tick's slice for the rest. Returns the committed records."""
+        committed: list[dict] = []
+        remaining: list[InFlightMigration] = []
+        for fl in self.in_flight:
+            if fl.copied:
+                self.table.commit(fl.expert, fl.dst_slot)
+                rec = fl.record(committed=t)
+                self.history.append(rec)
+                committed.append(rec)
+            else:
+                self._issue_slice(moe, fl, t)
+                remaining.append(fl)
+        self.in_flight = remaining
+        return committed
+
+    @property
+    def pending(self) -> int:
+        return len(self.in_flight)
