@@ -359,6 +359,7 @@ def main_path(torch, card: str):
         raise AssertionError("non-finite prefill logits")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     decode_s = max(gen_s - ttft_s, 1e-9)
+    profile = profile_decode(torch, srv, prompt, card)
     log(
         f"main path: dbrx-132b width, {n_layers} layers, bf16, {batch} x "
         f"{prompt_len}-token prompts -> {n_new} tokens: setup {setup_s:.2f}s, "
@@ -368,7 +369,41 @@ def main_path(torch, card: str):
         f"{[r['mig'] for r in srv.driver.history]}), launches {launches} [{card}]"
     )
     return launches, {"ttft_ms": ttft_s * 1e3, "decode_tok_s": batch * n_new / decode_s,
-                      "peak_gb": peak_gb, "migrations": srv.migrations}
+                      "peak_gb": peak_gb, "migrations": srv.migrations, **profile}
+
+
+def profile_decode(torch, srv, prompt, card: str, steps: int = 8) -> dict:
+    """Device busy share and time by kernel over ``steps`` decode steps of
+    the main-path server (a separate window from the timed run)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    logits, cache = srv.prefill(prompt)
+    tok = torch.argmax(logits[:, -1:], dim=-1)
+    for _ in range(2):
+        logits, cache = srv.decode(tok, cache)
+        tok = torch.argmax(logits[:, -1:], dim=-1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, cache = srv.decode(tok, cache)
+            tok = torch.argmax(logits[:, -1:], dim=-1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
+    busy_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log(f"profile: {steps} decode steps in {wall_ms:.1f} ms wall, device busy "
+        f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%); by kernel: "
+        + "; ".join(f"{name[:48]} {ms:.2f} ms" for name, ms in top) + f" [{card}]")
+    return {"profile_step_ms": wall_ms / steps, "device_busy_share": busy_ms / wall_ms}
 
 
 # ---------------------------------------------------------------------------

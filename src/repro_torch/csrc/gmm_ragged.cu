@@ -18,16 +18,27 @@
 // bandwidth (3.35 TB/s). At prefill (capacity 820) it is bound by
 // operations, 2 * sum(gs) * D * F per product.
 //
-// What the design does about it: the grid is (ceil(F/BN), ceil(C/BM), G)
-// and each block reads gs[g] itself; a block whose row tile starts at or
-// past the count writes its zero tile and exits without touching the
-// weights, so weight traffic tracks live groups and live row tiles. The
-// row-tile height is chosen from C: 8 rows at decode capacity (one tile,
-// so each weight panel is read once), 64 rows otherwise (weights reused
-// across 64 rows from shared memory). Weight tiles are read with 16-byte
-// vector loads along F. This first version multiplies on the CUDA cores
-// from fp32 shared-memory tiles; tensor cores (wgmma) and a TMA pipeline
-// are later work.
+// What the design does about it: every block reads gs[g] itself; a group
+// (or row tile) with no live rows writes its zeros and exits without
+// touching the weights, so weight traffic tracks live groups. Three
+// bodies, chosen from the bucket capacity C and the dtype:
+//
+// * C <= 8 (decode): a skinny kernel. Each thread streams 16-byte weight
+//   vectors from HBM straight into registers and multiplies them by the
+//   (at most 8) live rows of x, read as warp-wide broadcasts; the block's
+//   warps split D and reduce once through shared memory. Each weight byte
+//   is read once and no shared-memory load sits in the inner loop, so the
+//   kernel streams weights at close to the HBM rate.
+// * C > 8, bf16 (prefill): 128 x 128 output tiles on the tensor cores
+//   (WMMA 16x16x16, fp32 accumulate), bf16 tiles staged in shared memory.
+// * C > 8, fp32: 64 x 128 tiles of fp32 FMAs on the CUDA cores (TF32
+//   would change the numbers; fp32 is the comparison dtype).
+//
+// wgmma, TMA and multi-stage pipelines are later work.
+#include <mma.h>
+
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -155,6 +166,226 @@ gmm_ragged_kernel(const T* __restrict__ x, const T* __restrict__ wa,
   }
 }
 
+// ---------------------------------------------------------------------------
+// decode: skinny GEMM, C <= SKINNY_ROWS rows per group
+// ---------------------------------------------------------------------------
+
+constexpr int SKINNY_ROWS = 8;
+constexpr int SKINNY_WARPS = 8;
+
+template <typename T, bool DUAL>
+__global__ void __launch_bounds__(SKINNY_WARPS * 32)
+gmm_skinny_kernel(const T* __restrict__ x, const T* __restrict__ wa,
+                  const T* __restrict__ wb, const int* __restrict__ gs,
+                  T* __restrict__ out, int C, int D, int F, int gpw) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int COLS = 32 * VEC;          // output columns per block
+  constexpr int NT = SKINNY_WARPS * 32;
+  __shared__ float red_a[SKINNY_WARPS][COLS];
+  __shared__ float red_b[DUAL ? SKINNY_WARPS : 1][DUAL ? COLS : 1];
+
+  const int g = blockIdx.y;
+  const int n0 = blockIdx.x * COLS;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int count = max(0, min(gs[g], C));
+  T* og = out + (size_t)g * C * F;
+  if (count == 0) {
+    for (int i = tid; i < C * COLS; i += NT) {
+      const int m = i / COLS, n = n0 + i % COLS;
+      if (n < F) og[(size_t)m * F + n] = from_f<T>(0.f);
+    }
+    return;
+  }
+  const T* xg = x + (size_t)g * C * D;
+  const size_t wofs = (size_t)(g / gpw) * D * F;
+  const T* ag = wa + wofs;
+  const T* bg = DUAL ? wb + wofs : nullptr;
+  const int n = n0 + lane * VEC;
+  const bool n_ok = n < F;                 // F % VEC == 0: whole vectors
+  const int kper = (D + SKINNY_WARPS - 1) / SKINNY_WARPS;
+  const int k_lo = warp * kper, k_hi = min(D, k_lo + kper);
+
+  float acc_a[SKINNY_ROWS][VEC];
+  float acc_b[DUAL ? SKINNY_ROWS : 1][DUAL ? VEC : 1];
+#pragma unroll
+  for (int r = 0; r < SKINNY_ROWS; ++r)
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) {
+      acc_a[r][v] = 0.f;
+      if constexpr (DUAL) acc_b[r][v] = 0.f;
+    }
+
+  if (n_ok) {
+#pragma unroll 4
+    for (int k = k_lo; k < k_hi; ++k) {
+      float wv[VEC], uv[VEC];
+      load_vec16(ag + (size_t)k * F + n, wv);
+      if constexpr (DUAL) load_vec16(bg + (size_t)k * F + n, uv);
+#pragma unroll
+      for (int r = 0; r < SKINNY_ROWS; ++r) {
+        // rows at or past the count are never read (count is uniform
+        // across the block, so this branch does not diverge)
+        const float xr = r < count ? to_f(xg[(size_t)r * D + k]) : 0.f;
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) {
+          acc_a[r][v] = fmaf(xr, wv[v], acc_a[r][v]);
+          if constexpr (DUAL) acc_b[r][v] = fmaf(xr, uv[v], acc_b[r][v]);
+        }
+      }
+    }
+  }
+
+  // reduce the warps' K slices, one row at a time
+#pragma unroll
+  for (int r = 0; r < SKINNY_ROWS; ++r) {
+    if (r >= C) break;
+    __syncthreads();
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) {
+      red_a[warp][lane * VEC + v] = acc_a[r][v];
+      if constexpr (DUAL) red_b[warp][lane * VEC + v] = acc_b[r][v];
+    }
+    __syncthreads();
+    for (int c = tid; c < COLS; c += NT) {
+      const int col = n0 + c;
+      if (col >= F) continue;
+      float v = 0.f;
+      if (r < count) {
+        float a = 0.f, b = 0.f;
+#pragma unroll
+        for (int w = 0; w < SKINNY_WARPS; ++w) {
+          a += red_a[w][c];
+          if constexpr (DUAL) b += red_b[w][c];
+        }
+        if constexpr (DUAL) v = a / (1.f + expf(-a)) * b;
+        else v = a;
+      }
+      og[(size_t)r * F + col] = from_f<T>(v);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// prefill, bf16: tensor-core tiles (WMMA 16x16x16, fp32 accumulate)
+// ---------------------------------------------------------------------------
+
+namespace wmma = nvcuda::wmma;
+using bf16 = __nv_bfloat16;
+constexpr int WM_BM = 128, WM_BN = 128, WM_BK = 32;
+constexpr int WM_LDA = WM_BK + 8, WM_LDB = WM_BN + 8;   // 16-byte row padding
+
+template <bool DUAL>
+__global__ void __launch_bounds__(256)
+gmm_wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wa,
+                const bf16* __restrict__ wb, const int* __restrict__ gs,
+                bf16* __restrict__ out, int C, int D, int F, int gpw) {
+  using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
+  using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
+  using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+  __shared__ __align__(128) bf16 as[WM_BM][WM_LDA];
+  __shared__ __align__(128) bf16 bs_a[WM_BK][WM_LDB];
+  __shared__ __align__(128) bf16 bs_b[DUAL ? WM_BK : 1][DUAL ? WM_LDB : 8];
+  __shared__ __align__(128) float stage[8][DUAL ? 2 : 1][16 * 16];
+
+  const int g = blockIdx.z;
+  const int m0 = blockIdx.y * WM_BM, n0 = blockIdx.x * WM_BN;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / 2, wn = warp % 2;   // warp tile: rows wm*32, cols wn*64
+  const int count = max(0, min(gs[g], C));
+  bf16* og = out + (size_t)g * C * F;
+  if (m0 >= count) {
+    for (int i = tid; i < WM_BM * WM_BN; i += 256) {
+      const int m = m0 + i / WM_BN, n = n0 + i % WM_BN;
+      if (m < C && n < F) og[(size_t)m * F + n] = __float2bfloat16(0.f);
+    }
+    return;
+  }
+  const bf16* xg = x + (size_t)g * C * D;
+  const size_t wofs = (size_t)(g / gpw) * D * F;
+  const bf16* ag = wa + wofs;
+  const bf16* bg = DUAL ? wb + wofs : nullptr;
+
+  FragC fa[2][4], fb[DUAL ? 2 : 1][DUAL ? 4 : 1];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      wmma::fill_fragment(fa[i][j], 0.f);
+      if constexpr (DUAL) wmma::fill_fragment(fb[i][j], 0.f);
+    }
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+
+  for (int k0 = 0; k0 < D; k0 += WM_BK) {
+    // x tile (128 x 32): rows at or past the count load as zeros
+    for (int i = tid; i < WM_BM * (WM_BK / 8); i += 256) {
+      const int r = i / (WM_BK / 8), kk = (i % (WM_BK / 8)) * 8;
+      const int m = m0 + r, k = k0 + kk;
+      *reinterpret_cast<uint4*>(&as[r][kk]) =
+          (m < count && k < D)
+              ? __ldg(reinterpret_cast<const uint4*>(xg + (size_t)m * D + k))
+              : zero;
+    }
+    // weight tiles (32 x 128)
+    for (int i = tid; i < WM_BK * (WM_BN / 8); i += 256) {
+      const int kk = i / (WM_BN / 8), nn = (i % (WM_BN / 8)) * 8;
+      const int k = k0 + kk, n = n0 + nn;
+      const bool ok = k < D && n < F;
+      *reinterpret_cast<uint4*>(&bs_a[kk][nn]) =
+          ok ? __ldg(reinterpret_cast<const uint4*>(ag + (size_t)k * F + n)) : zero;
+      if constexpr (DUAL)
+        *reinterpret_cast<uint4*>(&bs_b[kk][nn]) =
+            ok ? __ldg(reinterpret_cast<const uint4*>(bg + (size_t)k * F + n)) : zero;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < WM_BK; kk += 16) {
+      FragA af[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(af[i], &as[wm * 32 + i * 16][kk], WM_LDA);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        FragB bfr;
+        wmma::load_matrix_sync(bfr, &bs_a[kk][wn * 64 + j * 16], WM_LDB);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) wmma::mma_sync(fa[i][j], af[i], bfr, fa[i][j]);
+        if constexpr (DUAL) {
+          wmma::load_matrix_sync(bfr, &bs_b[kk][wn * 64 + j * 16], WM_LDB);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) wmma::mma_sync(fb[i][j], af[i], bfr, fb[i][j]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // epilogue: through a per-warp 16 x 16 fp32 staging tile
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      wmma::store_matrix_sync(stage[warp][0], fa[i][j], 16, wmma::mem_row_major);
+      if constexpr (DUAL)
+        wmma::store_matrix_sync(stage[warp][1], fb[i][j], 16, wmma::mem_row_major);
+      __syncwarp();
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        const int e = lane * 8 + t, r = e / 16, c = e % 16;
+        const int m = m0 + wm * 32 + i * 16 + r, n = n0 + wn * 64 + j * 16 + c;
+        if (m < C && n < F) {
+          float v = 0.f;
+          if (m < count) {
+            const float a = stage[warp][0][e];
+            if constexpr (DUAL) v = a / (1.f + expf(-a)) * stage[warp][1][e];
+            else v = a;
+          }
+          og[(size_t)m * F + n] = __float2bfloat16(v);
+        }
+      }
+      __syncwarp();
+    }
+}
+
 template <typename T, int BM, int BN, int BK, int TM, int TN, bool DUAL>
 void launch(const void* x, const void* wa, const void* wb, const int* gs,
             void* out, int G, int C, int D, int F, int gpw, cudaStream_t st) {
@@ -168,9 +399,17 @@ void launch(const void* x, const void* wa, const void* wb, const int* gs,
 template <typename T, bool DUAL>
 void dispatch(const void* x, const void* wa, const void* wb, const int* gs,
               void* out, int G, int C, int D, int F, int gpw, cudaStream_t st) {
-  if (C <= 8) {
-    // decode capacity: one 8-row tile, each weight panel read once.
-    launch<T, 8, 128, 32, 1, 8, DUAL>(x, wa, wb, gs, out, G, C, D, F, gpw, st);
+  if (C <= SKINNY_ROWS) {
+    constexpr int COLS = 32 * (16 / sizeof(T));
+    dim3 grid((F + COLS - 1) / COLS, G);
+    gmm_skinny_kernel<T, DUAL><<<grid, SKINNY_WARPS * 32, 0, st>>>(
+        static_cast<const T*>(x), static_cast<const T*>(wa),
+        static_cast<const T*>(wb), gs, static_cast<T*>(out), C, D, F, gpw);
+  } else if constexpr (std::is_same<T, bf16>::value) {
+    dim3 grid((F + WM_BN - 1) / WM_BN, (C + WM_BM - 1) / WM_BM, G);
+    gmm_wmma_kernel<DUAL><<<grid, 256, 0, st>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(wa),
+        static_cast<const bf16*>(wb), gs, static_cast<bf16*>(out), C, D, F, gpw);
   } else {
     launch<T, 64, 128, 16, 4, 8, DUAL>(x, wa, wb, gs, out, G, C, D, F, gpw, st);
   }

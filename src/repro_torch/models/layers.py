@@ -41,6 +41,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype=torch.float32,
+             device="cpu") -> dict:
+    return {
+        "w_gate": normal_init(gen, (d_model, d_ff), dtype=dtype, device=device),
+        "w_up": normal_init(gen, (d_model, d_ff), dtype=dtype, device=device),
+        "w_down": normal_init(gen, (d_ff, d_model), dtype=dtype, device=device),
+    }
+
+
 def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     h = x @ p["w_gate"]
     u = x @ p["w_up"]

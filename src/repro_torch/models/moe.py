@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import normal_init
 from repro_torch.parallel.collectives import (
+    bucket_counts,
     ep_moe_local,
     tiled_placement,
     uniform_placement,
@@ -63,9 +64,8 @@ def zero_aux(cfg: ModelConfig, device="cpu") -> dict:
 
 
 def _aux(loss, ids, cfg: ModelConfig) -> dict:
-    n = max(cfg.n_experts, 1)
-    # jnp.bincount(length=n) drops the masked-token sentinel id n.
-    counts = torch.bincount(ids.reshape(-1), minlength=n)[:n].float()
+    # drops the masked-token sentinel id E, as jnp.bincount(length=E) does
+    counts = bucket_counts(ids, max(cfg.n_experts, 1)).float()
     return {"loss": loss, "counts": counts}
 
 

@@ -17,13 +17,14 @@ from repro_torch.device import resolve_device
 from repro_torch.models.attention import (
     PAGE_SIZE,
     attention,
+    attn_init,
     decode_attention,
     is_paged,
     paged_cache_init,
     paged_prefill_fill,
 )
-from repro_torch.models.layers import mlp_apply, rms_norm
-from repro_torch.models.moe import moe_apply, zero_aux
+from repro_torch.models.layers import mlp_apply, mlp_init, normal_init, rms_norm
+from repro_torch.models.moe import moe_apply, moe_init, zero_aux
 from repro_torch.parallel.ctx import NO_MESH, ParallelCtx
 
 
@@ -35,16 +36,32 @@ def _check_pattern(cfg: ModelConfig) -> None:
         )
 
 
-def _fill_normal(out: torch.Tensor, gen: torch.Generator, scale: float = 0.02):
-    """Fill ``out`` with N(0, scale^2) draws from ``gen``; stacked (3-D and
-    up) weights one layer at a time, so the fp32 draw never exceeds one
-    layer's worth of memory."""
-    parts = out if out.dim() >= 3 else out[None]
-    for part in parts:
-        w = torch.randn(part.shape, generator=gen, dtype=torch.float32,
-                        device=out.device)
-        part.copy_(w.mul_(scale))
-    return out
+def _attn_block_init(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> dict:
+    p = {
+        "ln1": torch.ones(cfg.d_model, dtype=dtype, device=device),
+        "ln2": torch.ones(cfg.d_model, dtype=dtype, device=device),
+        "attn": attn_init(gen, cfg, dtype, device),
+    }
+    if cfg.is_moe:
+        p["moe"] = moe_init(gen, cfg, dtype, device)
+    else:
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device)
+    return p
+
+
+def _stack_into(stacked: dict | None, one: dict, l: int, n: int) -> dict:
+    """Copy layer ``l``'s tree into the ``(n, ...)`` stacked tree (allocated
+    on first use), so only one layer's fresh weights exist at a time."""
+    if stacked is None:
+        stacked = {}
+    for k, v in one.items():
+        if isinstance(v, dict):
+            stacked[k] = _stack_into(stacked.get(k), v, l, n)
+        else:
+            if k not in stacked:
+                stacked[k] = v.new_empty((n, *v.shape))
+            stacked[k][l].copy_(v)
+    return stacked
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
@@ -57,46 +74,17 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     _check_pattern(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    d, L, h = cfg.d_model, cfg.n_layers, cfg.head_dim_
-
-    def normal(shape, dt=dtype):
-        return _fill_normal(torch.empty(shape, dtype=dt, device=dev), gen)
-
+    d = cfg.d_model
     params: dict = {
-        "embed": normal((cfg.vocab_size, d)),
+        "embed": normal_init(gen, (cfg.vocab_size, d), dtype=dtype, device=dev),
         "final_norm": torch.ones(d, dtype=dtype, device=dev),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = normal((d, cfg.vocab_size))
-    attn = {
-        "wq": normal((L, d, cfg.n_heads * h)),
-        "wk": normal((L, d, cfg.n_kv_heads * h)),
-        "wv": normal((L, d, cfg.n_kv_heads * h)),
-        "wo": normal((L, cfg.n_heads * h, d)),
-    }
-    if cfg.qkv_bias:
-        for name, width in (("bq", cfg.n_heads), ("bk", cfg.n_kv_heads),
-                            ("bv", cfg.n_kv_heads)):
-            attn[name] = torch.zeros((L, width * h), dtype=dtype, device=dev)
-    layers = {
-        "ln1": torch.ones((L, d), dtype=dtype, device=dev),
-        "ln2": torch.ones((L, d), dtype=dtype, device=dev),
-        "attn": attn,
-    }
-    if cfg.is_moe:
-        e, f = cfg.n_experts, cfg.moe_d_ff_
-        layers["moe"] = {
-            "router": normal((L, d, e), torch.float32),
-            "w_gate": normal((L, e, d, f)),
-            "w_up": normal((L, e, d, f)),
-            "w_down": normal((L, e, f, d)),
-        }
-    else:
-        layers["mlp"] = {
-            "w_gate": normal((L, d, cfg.d_ff)),
-            "w_up": normal((L, d, cfg.d_ff)),
-            "w_down": normal((L, cfg.d_ff, d)),
-        }
+        params["lm_head"] = normal_init(gen, (d, cfg.vocab_size), dtype=dtype, device=dev)
+    layers = None
+    for l in range(cfg.n_layers):
+        layers = _stack_into(layers, _attn_block_init(gen, cfg, dtype, dev), l,
+                             cfg.n_layers)
     params["layers"] = layers
     return params
 

@@ -3,10 +3,11 @@
 comes with multi-GPU EP).
 
 JAX's out-of-range semantics have no torch default, so each is explicit
-here: ``jnp.bincount(length=n)`` drops ids ``>= n`` (torch's grows, so it
-is sliced to ``[:n]``); gathers at the decode sentinel ``total_slots + 1``
-clamp to the last row (torch would raise); ``.at[].set(mode="drop")``
-scatters only in-range rows; the sort is stable.
+here: ``jnp.bincount(length=n)`` drops ids ``>= n`` (``bucket_counts``
+counts into ``n + 1`` bins and cuts the last); gathers at the decode
+sentinel ``total_slots + 1`` clamp to the last row (torch would raise);
+``.at[].set(mode="drop")`` scatters only in-range rows; the sort is
+stable.
 """
 
 from __future__ import annotations
@@ -26,6 +27,16 @@ def bucket_capacity(n_tok: int, k: int, capacity_factor: float, n_buckets: int) 
     return max(math.ceil(n_tok * k * capacity_factor / n_buckets), 8)
 
 
+def bucket_counts(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """Occurrences of each id in ``[0, n)`` (int64); ids ``>= n`` are
+    dropped, as ``jnp.bincount(length=n)`` drops them. A scatter-add into a
+    fixed ``n + 1`` bins, unlike ``torch.bincount``, whose output size
+    depends on the data and which therefore waits for the device."""
+    idx = ids.reshape(-1).long().clamp(max=n)
+    bins = torch.zeros(n + 1, dtype=torch.long, device=idx.device)
+    return bins.scatter_add_(0, idx, torch.ones_like(idx))[:n]
+
+
 def dispatch_metadata(bucket_ids: torch.Tensor, n_buckets: int, capacity: int):
     """Sort/position math of the bucket dispatch without writing buffers.
 
@@ -38,7 +49,7 @@ def dispatch_metadata(bucket_ids: torch.Tensor, n_buckets: int, capacity: int):
     flat_b = bucket_ids.reshape(-1).long()
     order = torch.argsort(flat_b, stable=True)
     b_sorted = flat_b[order]
-    counts_all = torch.bincount(flat_b, minlength=n_buckets)[:n_buckets]
+    counts_all = bucket_counts(flat_b, n_buckets)
     offsets = torch.cat([counts_all.new_zeros(1), torch.cumsum(counts_all, 0)[:-1]])
     # Sentinel ids read the last bucket's offset (JAX clamps the gather).
     pos_sorted = torch.arange(n * k, device=flat_b.device) - offsets[
@@ -99,9 +110,7 @@ def kept_counts(bucket_ids: torch.Tensor, keep: torch.Tensor, n_buckets: int) ->
     """Per-bucket *kept* copy counts (capacity drops excluded), int32 —
     the ``group_sizes`` of the ragged GMM."""
     b = torch.where(keep, bucket_ids.long(), torch.full_like(bucket_ids.long(), n_buckets))
-    return torch.bincount(b.reshape(-1), minlength=n_buckets + 1)[:n_buckets].to(
-        torch.int32
-    )
+    return bucket_counts(b, n_buckets).to(torch.int32)
 
 
 def choose_slots(

@@ -243,6 +243,8 @@ class Server:
         # check must not force a device sync per token.
         self._written: np.ndarray | None = None
         self._pos: int | None = None
+        self._mask_key = None
+        self._mask: torch.Tensor | None = None
 
     # -- placement views -----------------------------------------------------
 
@@ -403,6 +405,17 @@ class Server:
             layers["tables"].copy_(self._stacked_tables(layers["tables"].shape[0]))
         return cache
 
+    def _slot_mask(self, batch: int) -> torch.Tensor:
+        """Live batch rows as a bool tensor on the device, rebuilt (one
+        host-to-device copy) only when the released set changes."""
+        key = (batch, frozenset(self._released))
+        if self._mask_key != key:
+            live = np.ones(batch, bool)
+            live[sorted(self._released)] = False
+            self._mask = torch.as_tensor(live, device=self.device)
+            self._mask_key = key
+        return self._mask
+
     def decode(self, token, cache: dict, chunk: dict | None = None):
         """One step: every live request consumes one token. ``cache`` is
         updated in place and returned."""
@@ -426,12 +439,9 @@ class Server:
             # queue this tick's weight slices ahead of the step's kernels.
             self.drain_migrations()
         placement = self.table.device_view(self.device) if self.use_balancer else None
-        live = np.ones(token.shape[0], bool)
-        live[sorted(self._released)] = False
-        slot_mask = torch.as_tensor(live, device=self.device)
         logits, cache, stats = T.decode_step(
             self.params, self._tokens(token), cache, self.cfg, self.ctx,
-            placement=placement, slot_mask=slot_mask,
+            placement=placement, slot_mask=self._slot_mask(token.shape[0]),
         )
         if self._written is not None:
             for slot in range(len(self._written)):

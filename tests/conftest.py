@@ -18,9 +18,3 @@ def pytest_configure(config):
         "tier (scripts/check.sh) deselects them with -m 'not slow'; "
         "scripts/check.sh --all (and plain pytest) runs the full matrix.",
     )
-    config.addinivalue_line(
-        "markers",
-        "cuda: needs an NVIDIA GPU (the PyTorch port's CUDA kernels); skips "
-        "without one. On the card: PYTHONPATH=src python -m pytest -m cuda "
-        "tests/test_torch_*.py",
-    )

@@ -32,6 +32,10 @@ torch.set_num_threads(1)
 TOL = dict(rtol=1e-5, atol=1e-5)   # fp32: only summation order differs
 
 
+def _t(a):
+    return torch.tensor(np.asarray(a))
+
+
 # ---------------------------------------------------------------------------
 # ragged grouped matmul pair
 # ---------------------------------------------------------------------------

@@ -191,3 +191,24 @@ def test_serve_config_validation_and_unported_paths(jparams):
         Server(small, ParallelCtx(), _bridge(jparams),
                ServeConfig(paged=True, **dict(base, slots_per_device=1, virtual_ep=2)),
                device="cpu")
+
+
+def test_paged_decode_freezes_at_capacity(jparams):
+    """A full-attention request at capacity stops writing (freeze on
+    overflow), exactly as the reference: the pool and the logits match."""
+    bs, nb = 4, 2
+    cap = bs * nb
+    tokens = np.arange(1, 2 * cap + 1, dtype=np.int32).reshape(2, cap)
+    jlog, jcache = JT.prefill(jparams, jnp.asarray(tokens), JCFG, JCtx(), max_seq=cap,
+                              paged=True, page_size=bs)
+    params = _bridge(jparams)
+    log, cache = T.prefill(params, torch.tensor(tokens), CFG, ParallelCtx(), max_seq=cap,
+                           paged=True, page_size=bs)
+    pool_before = cache["layers"]["pool_k"].clone()
+    tok = np.ones((2, 1), np.int32)
+    jlog, jcache, _ = JT.decode_step(jparams, jnp.asarray(tok), jcache, JCFG, JCtx())
+    log, cache, _ = T.decode_step(params, torch.tensor(tok), cache, CFG, ParallelCtx())
+    np.testing.assert_allclose(log.numpy(), np.asarray(jlog), **TOL)
+    assert torch.equal(cache["layers"]["pool_k"], pool_before)
+    np.testing.assert_array_equal(cache["layers"]["lengths"].numpy(),
+                                  np.asarray(jcache["layers"]["lengths"]))
