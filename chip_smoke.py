@@ -19,7 +19,8 @@ Phases (one line each; any failure raises and the exit code is non-zero):
 4. the main path: ``Server.generate`` at dbrx-132b width (4 layers, bf16,
    8 requests x 256-token prompts, 32 new tokens) with the NI-Balancer
    live and one stepped migration forced through ``apply_plan``; every
-   kernel's launch count must equal what the layer count predicts;
+   kernel's launch count must equal what the layer count predicts; then
+   8 more decode steps under ``torch.profiler`` for the device busy share;
 5. a ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, "device": {...}}`` line.
 
@@ -32,7 +33,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import math
 import subprocess
 import sys
 import time

@@ -30,11 +30,12 @@
 //   is read once and no shared-memory load sits in the inner loop, so the
 //   kernel streams weights at close to the HBM rate.
 // * C > 8, bf16 (prefill): 128 x 128 output tiles on the tensor cores
-//   (WMMA 16x16x16, fp32 accumulate), bf16 tiles staged in shared memory.
+//   (WMMA 16x16x16, fp32 accumulate), bf16 tiles double-buffered in shared
+//   memory with cp.async so the next tile's loads overlap the products.
 // * C > 8, fp32: 64 x 128 tiles of fp32 FMAs on the CUDA cores (TF32
 //   would change the numbers; fp32 is the comparison dtype).
 //
-// wgmma, TMA and multi-stage pipelines are later work.
+// wgmma, TMA and deeper pipelines are later work.
 #include <mma.h>
 
 #include <type_traits>
@@ -273,6 +274,24 @@ namespace wmma = nvcuda::wmma;
 using bf16 = __nv_bfloat16;
 constexpr int WM_BM = 128, WM_BN = 128, WM_BK = 32;
 constexpr int WM_LDA = WM_BK + 8, WM_LDB = WM_BN + 8;   // 16-byte row padding
+// one pipeline stage: x tile (BM x LDA) + two weight tiles (BK x LDB), bf16
+constexpr int WM_STAGE = WM_BM * WM_LDA + 2 * WM_BK * WM_LDB;
+constexpr size_t WM_SMEM =
+    2 * WM_STAGE * sizeof(bf16) + 8 * 2 * 16 * 16 * sizeof(float);
+
+// 16-byte global -> shared copy that bypasses registers; with pred false
+// it reads nothing and fills zeros (src must still be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(pred ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
 
 template <bool DUAL>
 __global__ void __launch_bounds__(256)
@@ -282,10 +301,10 @@ gmm_wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wa,
   using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
   using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
   using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-  __shared__ __align__(128) bf16 as[WM_BM][WM_LDA];
-  __shared__ __align__(128) bf16 bs_a[WM_BK][WM_LDB];
-  __shared__ __align__(128) bf16 bs_b[DUAL ? WM_BK : 1][DUAL ? WM_LDB : 8];
-  __shared__ __align__(128) float stage[8][DUAL ? 2 : 1][16 * 16];
+  extern __shared__ __align__(128) unsigned char wm_smem[];
+  bf16* const smem = reinterpret_cast<bf16*>(wm_smem);
+  // epilogue staging: a 16 x 16 fp32 tile (two for the dual form) per warp
+  float* const stage = reinterpret_cast<float*>(wm_smem + 2 * WM_STAGE * sizeof(bf16));
 
   const int g = blockIdx.z;
   const int m0 = blockIdx.y * WM_BM, n0 = blockIdx.x * WM_BN;
@@ -305,6 +324,27 @@ gmm_wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wa,
   const bf16* ag = wa + wofs;
   const bf16* bg = DUAL ? wb + wofs : nullptr;
 
+  // Stage s: x tile at smem + s*WM_STAGE, weight tiles after it.
+  auto load_stage = [&](int s, int k0) {
+    bf16* xs = smem + s * WM_STAGE;
+    bf16* wsa = xs + WM_BM * WM_LDA;
+    bf16* wsb = wsa + WM_BK * WM_LDB;
+    for (int i = tid; i < WM_BM * (WM_BK / 8); i += 256) {
+      const int r = i / (WM_BK / 8), kk = (i % (WM_BK / 8)) * 8;
+      const int m = m0 + r, k = k0 + kk;
+      const bool ok = m < count && k < D;   // rows past the count: zeros
+      cp_async16(xs + r * WM_LDA + kk, ok ? xg + (size_t)m * D + k : xg, ok);
+    }
+    for (int i = tid; i < WM_BK * (WM_BN / 8); i += 256) {
+      const int kk = i / (WM_BN / 8), nn = (i % (WM_BN / 8)) * 8;
+      const int k = k0 + kk, n = n0 + nn;
+      const bool ok = k < D && n < F;
+      const size_t off = ok ? (size_t)k * F + n : 0;
+      cp_async16(wsa + kk * WM_LDB + nn, ag + off, ok);
+      if constexpr (DUAL) cp_async16(wsb + kk * WM_LDB + nn, bg + off, ok);
+    }
+  };
+
   FragC fa[2][4], fb[DUAL ? 2 : 1][DUAL ? 4 : 1];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
@@ -313,60 +353,55 @@ gmm_wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wa,
       wmma::fill_fragment(fa[i][j], 0.f);
       if constexpr (DUAL) wmma::fill_fragment(fb[i][j], 0.f);
     }
-  const uint4 zero = make_uint4(0, 0, 0, 0);
 
-  for (int k0 = 0; k0 < D; k0 += WM_BK) {
-    // x tile (128 x 32): rows at or past the count load as zeros
-    for (int i = tid; i < WM_BM * (WM_BK / 8); i += 256) {
-      const int r = i / (WM_BK / 8), kk = (i % (WM_BK / 8)) * 8;
-      const int m = m0 + r, k = k0 + kk;
-      *reinterpret_cast<uint4*>(&as[r][kk]) =
-          (m < count && k < D)
-              ? __ldg(reinterpret_cast<const uint4*>(xg + (size_t)m * D + k))
-              : zero;
-    }
-    // weight tiles (32 x 128)
-    for (int i = tid; i < WM_BK * (WM_BN / 8); i += 256) {
-      const int kk = i / (WM_BN / 8), nn = (i % (WM_BN / 8)) * 8;
-      const int k = k0 + kk, n = n0 + nn;
-      const bool ok = k < D && n < F;
-      *reinterpret_cast<uint4*>(&bs_a[kk][nn]) =
-          ok ? __ldg(reinterpret_cast<const uint4*>(ag + (size_t)k * F + n)) : zero;
-      if constexpr (DUAL)
-        *reinterpret_cast<uint4*>(&bs_b[kk][nn]) =
-            ok ? __ldg(reinterpret_cast<const uint4*>(bg + (size_t)k * F + n)) : zero;
+  // Two-stage pipeline: tile t+1's copies are in flight while tile t
+  // feeds the tensor cores.
+  const int nk = (D + WM_BK - 1) / WM_BK;
+  load_stage(0, 0);
+  cp_async_commit();
+  for (int t = 0; t < nk; ++t) {
+    if (t + 1 < nk) {
+      load_stage((t + 1) & 1, (t + 1) * WM_BK);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const bf16* xs = smem + (t & 1) * WM_STAGE;
+    const bf16* wsa = xs + WM_BM * WM_LDA;
+    const bf16* wsb = wsa + WM_BK * WM_LDB;
 #pragma unroll
     for (int kk = 0; kk < WM_BK; kk += 16) {
       FragA af[2];
 #pragma unroll
       for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(af[i], &as[wm * 32 + i * 16][kk], WM_LDA);
+        wmma::load_matrix_sync(af[i], xs + (wm * 32 + i * 16) * WM_LDA + kk, WM_LDA);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         FragB bfr;
-        wmma::load_matrix_sync(bfr, &bs_a[kk][wn * 64 + j * 16], WM_LDB);
+        wmma::load_matrix_sync(bfr, wsa + kk * WM_LDB + wn * 64 + j * 16, WM_LDB);
 #pragma unroll
         for (int i = 0; i < 2; ++i) wmma::mma_sync(fa[i][j], af[i], bfr, fa[i][j]);
         if constexpr (DUAL) {
-          wmma::load_matrix_sync(bfr, &bs_b[kk][wn * 64 + j * 16], WM_LDB);
+          wmma::load_matrix_sync(bfr, wsb + kk * WM_LDB + wn * 64 + j * 16, WM_LDB);
 #pragma unroll
           for (int i = 0; i < 2; ++i) wmma::mma_sync(fb[i][j], af[i], bfr, fb[i][j]);
         }
       }
     }
-    __syncthreads();
+    __syncthreads();   // every warp is done with this stage before it refills
   }
 
-  // epilogue: through a per-warp 16 x 16 fp32 staging tile
+  // epilogue: through the warp's 16 x 16 fp32 staging tiles
+  float* sa = stage + warp * 2 * 256;
+  float* sb = sa + 256;
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(stage[warp][0], fa[i][j], 16, wmma::mem_row_major);
-      if constexpr (DUAL)
-        wmma::store_matrix_sync(stage[warp][1], fb[i][j], 16, wmma::mem_row_major);
+      wmma::store_matrix_sync(sa, fa[i][j], 16, wmma::mem_row_major);
+      if constexpr (DUAL) wmma::store_matrix_sync(sb, fb[i][j], 16, wmma::mem_row_major);
       __syncwarp();
 #pragma unroll
       for (int t = 0; t < 8; ++t) {
@@ -375,8 +410,8 @@ gmm_wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wa,
         if (m < C && n < F) {
           float v = 0.f;
           if (m < count) {
-            const float a = stage[warp][0][e];
-            if constexpr (DUAL) v = a / (1.f + expf(-a)) * stage[warp][1][e];
+            const float a = sa[e];
+            if constexpr (DUAL) v = a / (1.f + expf(-a)) * sb[e];
             else v = a;
           }
           og[(size_t)m * F + n] = __float2bfloat16(v);
@@ -407,7 +442,11 @@ void dispatch(const void* x, const void* wa, const void* wb, const int* gs,
         static_cast<const T*>(wb), gs, static_cast<T*>(out), C, D, F, gpw);
   } else if constexpr (std::is_same<T, bf16>::value) {
     dim3 grid((F + WM_BN - 1) / WM_BN, (C + WM_BM - 1) / WM_BM, G);
-    gmm_wmma_kernel<DUAL><<<grid, 256, 0, st>>>(
+    // > 48 KB of dynamic shared memory needs the opt-in; a failure here is
+    // reported through cudaGetLastError like a refused launch.
+    cudaFuncSetAttribute(gmm_wmma_kernel<DUAL>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)WM_SMEM);
+    gmm_wmma_kernel<DUAL><<<grid, 256, WM_SMEM, st>>>(
         static_cast<const bf16*>(x), static_cast<const bf16*>(wa),
         static_cast<const bf16*>(wb), gs, static_cast<bf16*>(out), C, D, F, gpw);
   } else {

@@ -99,6 +99,7 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(path))
 
 
+@functools.lru_cache(maxsize=None)
 def entry(lib_name: str, fn_name: str, n_ptrs: int, n_ints: int):
     """A C entry point ``int fn(void* x n_ptrs, int x n_ints, void* stream)``
     with its ctypes signature declared (pointers as ``c_void_p`` so they

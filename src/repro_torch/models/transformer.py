@@ -19,7 +19,6 @@ from repro_torch.models.attention import (
     attention,
     attn_init,
     decode_attention,
-    is_paged,
     paged_cache_init,
     paged_prefill_fill,
 )
@@ -210,8 +209,6 @@ def prefill(
         z = rms_norm(x, p_l["ln1"], cfg.norm_eps)
         o, (k, v) = attention(p_l["attn"], z, cfg, ctx, positions, return_kv=True)
         x = x + o
-        if not is_paged(c_l):
-            raise NotImplementedError("prefill fills paged caches only")
         c_new = paged_prefill_fill(c_l, k, v, s, lengths)
         cache["layers"]["lengths"][l].copy_(c_new["lengths"])
         z2 = rms_norm(x, p_l["ln2"], cfg.norm_eps)

@@ -34,10 +34,6 @@ class ParallelCtx:
                 f"use_kernels={self.use_kernels!r}: want 'auto', True or False"
             )
 
-    @property
-    def n_model(self) -> int:
-        return 1
-
     def kernels_on(self, t: torch.Tensor) -> bool:
         """Does a hot-path call on ``t`` take the CUDA kernel?"""
         if self.use_kernels is False:

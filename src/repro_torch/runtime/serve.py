@@ -177,9 +177,7 @@ class Server:
         self.ctx = ctx
         self.scfg = serve_cfg
         self.params = params
-        self.ep = ctx.n_model
-        if self.ep == 1 and serve_cfg.virtual_ep:
-            self.ep = serve_cfg.virtual_ep
+        self.ep = serve_cfg.virtual_ep or 1
         self.use_balancer = cfg.is_moe and self.ep > 1
         self.distance = distance or (lambda a, b: abs(a - b))
         self.t = 0
@@ -247,14 +245,6 @@ class Server:
         self._mask: torch.Tensor | None = None
 
     # -- placement views -----------------------------------------------------
-
-    @property
-    def slot_of(self):
-        return None if self.table is None else self.table.device_view(self.device)[0]
-
-    @property
-    def n_replicas(self):
-        return None if self.table is None else self.table.device_view(self.device)[1]
 
     def _moe(self) -> dict:
         return self.params["layers"]["moe"]

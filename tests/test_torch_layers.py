@@ -4,7 +4,6 @@ summation order differs)."""
 
 import dataclasses
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
