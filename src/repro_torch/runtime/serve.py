@@ -244,7 +244,7 @@ class Server:
         self._mask_key = None
         self._mask: torch.Tensor | None = None
 
-    # -- placement views -----------------------------------------------------
+    # -- helpers -------------------------------------------------------------
 
     def _moe(self) -> dict:
         return self.params["layers"]["moe"]

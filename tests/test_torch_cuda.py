@@ -18,6 +18,7 @@ from repro_torch.kernels.flash_decode.paged import flash_decode_paged
 from repro_torch.kernels.gmm import ref as gmm_ref
 from repro_torch.kernels.gmm.ragged import gmm_dual_act_ragged, gmm_ragged
 
+torch.set_num_threads(1)
 DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
 
 
