@@ -1,16 +1,18 @@
-"""Kernel dispatch layer: the one place model code asks for hot-path math.
+"""Kernel entry points: the one place model code asks for hot-path kernels.
 
-Each entry point takes ``enabled`` — resolved by the caller from
-``ParallelCtx.kernels_on(tensor)`` — and either launches the hand-written
-CUDA kernels or runs the plain PyTorch version:
+Model code decides once, with ``ParallelCtx.kernels_on(tensor)``, whether
+a call takes a kernel; when it does, it calls these names:
 
-* ``expert_ffn``         — count-aware grouped SwiGLU FFN
+* ``expert_ffn``          — count-aware grouped SwiGLU FFN
   (``gmm_dual_act_ragged`` + ``gmm_ragged``);
-* ``attend``             — causal/bidirectional GQA flash attention;
-* ``decode_attend_paged``— one-token decode over a paged KV pool.
+* ``attend``              — causal/bidirectional GQA flash attention
+  (the ``flash_attention`` wrapper);
+* ``decode_attend_paged`` — one-token decode over a paged KV pool (the
+  ``flash_decode_paged`` wrapper).
 
-There is no fallback on the card: with ``enabled`` the kernel runs or the
-call raises (shape outside a ``can_*`` gate, a CPU tensor). The gates are
+Each wrapper launches its hand-written CUDA kernel on CUDA tensors (or
+raises on a shape outside its ``can_*`` gate) and runs its plain PyTorch
+version on CPU tensors; there is no fallback on the card. The gates are
 derived for Hopper from what each kernel's tiles take (head dim, dtype,
 16-byte vectors), not from the TPU's (8, 128) tiling.
 """
@@ -23,14 +25,11 @@ from repro_torch.kernels.flash_attention.flash_attention import (
     can_flash_attend,
     flash_attention,
 )
-from repro_torch.kernels.flash_attention.ref import mha
 from repro_torch.kernels.flash_decode.paged import (
     can_flash_decode_paged,
     flash_decode_paged,
 )
-from repro_torch.kernels.flash_decode.ref import paged_decode
 from repro_torch.kernels.gmm.ragged import can_gmm, gmm_dual_act_ragged, gmm_ragged
-from repro_torch.kernels.gmm.ref import expert_ffn_ragged
 
 __all__ = [
     "attend",
@@ -41,13 +40,8 @@ __all__ = [
     "expert_ffn",
 ]
 
-
-def _require_cuda(t: torch.Tensor, what: str) -> None:
-    if not t.is_cuda:
-        raise RuntimeError(
-            f"{what}: kernels requested for a tensor on {t.device}; the CUDA "
-            f"kernels run only on CUDA tensors"
-        )
+attend = flash_attention
+decode_attend_paged = flash_decode_paged
 
 
 def expert_ffn(
@@ -56,46 +50,9 @@ def expert_ffn(
     wu: torch.Tensor,                 # (G/gpw, D, F)
     wd: torch.Tensor,                 # (G/gpw, F, D)
     group_sizes: torch.Tensor,        # (G,) int32 valid-row counts
-    *,
     groups_per_weight: int = 1,
-    enabled: bool = True,
 ) -> torch.Tensor:
     """Grouped SwiGLU expert FFN; rows past each group's count are zero and
-    cost no weight traffic on the kernel path."""
-    if not enabled:
-        return expert_ffn_ragged(x, wg, wu, wd, group_sizes, groups_per_weight)
-    _require_cuda(x, "expert_ffn")
+    cost no weight traffic on the card."""
     h = gmm_dual_act_ragged(x, wg, wu, group_sizes, groups_per_weight)
     return gmm_ragged(h, wd, group_sizes, groups_per_weight)
-
-
-def attend(
-    q: torch.Tensor,       # (B, S, H, hd)
-    k: torch.Tensor,       # (B, T, K, hd)
-    v: torch.Tensor,       # (B, T, K, hd)
-    *,
-    causal: bool = True,
-    window: int = 0,
-    enabled: bool = True,
-) -> torch.Tensor:
-    """GQA attention, queries at the tail of the key range."""
-    if not enabled:
-        return mha(q, k, v, causal=causal, window=window)
-    _require_cuda(q, "attend")
-    return flash_attention(q, k, v, causal=causal, window=window)
-
-
-def decode_attend_paged(
-    q: torch.Tensor,             # (B, H, hd)
-    pool_k: torch.Tensor,        # (P, bs, K, hd)
-    pool_v: torch.Tensor,
-    block_tables: torch.Tensor,  # (B, NB) int32
-    lengths: torch.Tensor,       # (B,) int32 live context per request
-    *,
-    enabled: bool = True,
-) -> torch.Tensor:
-    """Paged decode over ``ceil(lengths / bs)`` live pages per request."""
-    if not enabled:
-        return paged_decode(q, pool_k, pool_v, block_tables, lengths)
-    _require_cuda(q, "decode_attend_paged")
-    return flash_decode_paged(q, pool_k, pool_v, block_tables, lengths)

@@ -143,7 +143,7 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: ParallelCtx,
         k = apply_rope(k, positions, cfg.rope_theta)
     window = cfg.sliding_window if causal else 0
     if ctx.kernels_on(q):
-        o = registry.attend(q, k, v, causal=causal, window=window, enabled=True)
+        o = registry.attend(q, k, v, causal=causal, window=window)
     elif s > CHUNKED_KV_THRESHOLD:
         o = chunked_gqa_attend(q, k, v, causal, cfg.sliding_window)
     else:
@@ -277,7 +277,7 @@ def _paged_decode_attention(p: dict, x: torch.Tensor, cache: dict,
 
     if ctx.kernels_on(q):
         o = registry.decode_attend_paged(
-            q[:, 0].contiguous(), pool_k, pool_v, tables, live, enabled=True
+            q[:, 0].contiguous(), pool_k, pool_v, tables, live
         )[:, None]
     else:
         k_all = gather_pages(pool_k, tables)

@@ -17,6 +17,7 @@ import math
 import torch
 
 from repro_torch.kernels import registry
+from repro_torch.kernels.gmm.ref import expert_ffn_ragged
 from repro_torch.parallel.ctx import ParallelCtx
 from repro_torch.parallel.placement import PlacementTable
 
@@ -199,15 +200,14 @@ def ep_moe_local(
     if kc > 1:
         validate_ep_chunks(kc, total_slots, where="ep_moe_local total_slots")
     spt = total_slots // kc
-    enabled = ctx.kernels_on(x)
+    ffn = registry.expert_ffn if ctx.kernels_on(x) else expert_ffn_ragged
     ys = [
-        registry.expert_ffn(
+        ffn(
             bufs[c * spt : (c + 1) * spt],
             slot_weights["w_gate"][c * spt : (c + 1) * spt],
             slot_weights["w_up"][c * spt : (c + 1) * spt],
             slot_weights["w_down"][c * spt : (c + 1) * spt],
             counts[c * spt : (c + 1) * spt],
-            enabled=enabled,
         )
         for c in range(kc)
     ]

@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, smoke
-from repro_torch.kernels import build, registry
+from repro_torch.kernels import build
 from repro_torch.models import transformer as T
 from repro_torch.parallel.ctx import ParallelCtx
 from repro_torch.runtime.serve import ServeConfig, Server
@@ -97,16 +97,15 @@ def test_kernel_request_on_cpu_tensor_raises():
         ParallelCtx(use_kernels=True).kernels_on(x)
     assert ParallelCtx().kernels_on(x) is False
     assert ParallelCtx(use_kernels=False).kernels_on(x) is False
-    w = torch.zeros((2, 16, 8))
-    gs = torch.zeros(2, dtype=torch.int32)
+    # Model code asks the context before it calls a kernel, so a served
+    # step that requests kernels for CPU tensors raises there.
+    cfg = smoke(get_config("dbrx-132b"))
+    srv = Server(cfg, ParallelCtx(capacity_factor=8.0, use_kernels=True),
+                 T.init_params(cfg, seed=0, device="cpu"),
+                 ServeConfig(max_seq=32, batch=2, slots_per_device=3, virtual_ep=4,
+                             paged=True, page_size=8), device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
-        registry.expert_ffn(x, w, w, w.transpose(1, 2).contiguous(), gs, enabled=True)
-    q = torch.zeros((1, 4, 4, 32))
-    with pytest.raises(RuntimeError, match="CUDA"):
-        registry.attend(q, q, q, enabled=True)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        registry.decode_attend_paged(q[:, 0], q, q, torch.zeros((1, 1), dtype=torch.int32),
-                                     torch.ones(1, dtype=torch.int32), enabled=True)
+        srv.generate(torch.ones((2, 5), dtype=torch.long), 1)
 
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):

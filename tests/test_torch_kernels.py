@@ -20,7 +20,7 @@ from repro.kernels.flash_decode.ref import paged_decode_ref
 from repro.kernels.gmm.ragged import gmm_dual_act_ragged as pallas_dual
 from repro.kernels.gmm.ragged import gmm_ragged as pallas_gmm
 from repro.kernels.gmm.ref import expert_ffn_ragged_ref, gmm_ragged_ref
-from repro_torch.kernels import registry
+from repro_torch.kernels import registry, tolerance
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import ref as fd_ref
@@ -87,8 +87,7 @@ def test_expert_ffn_plain_matches_jax(gpw):
     gs = np.asarray([8, 0, 3, 6], np.int32)
     want = np.asarray(expert_ffn_ragged_ref(jnp.asarray(x), *map(jnp.asarray, ws),
                                             jnp.asarray(gs), gpw))
-    got = registry.expert_ffn(_t(x), *map(_t, ws), _t(gs), groups_per_weight=gpw,
-                              enabled=False)
+    got = registry.expert_ffn(_t(x), *map(_t, ws), _t(gs), gpw)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
     same = gmm_ref.expert_ffn_ragged(_t(x), *map(_t, ws), _t(gs), gpw)
     assert torch.equal(got, same)
@@ -124,10 +123,7 @@ def test_paged_decode_plain_matches_jax_and_pallas(lengths):
     got = flash_decode_paged(_t(q), _t(pk_bad), _t(pv_bad), _t(tables), _t(ln)).numpy()
     np.testing.assert_allclose(got, want, **TOL)
     np.testing.assert_allclose(got, kern, **TOL)
-    via_registry = registry.decode_attend_paged(
-        _t(q), _t(pk_bad), _t(pv_bad), _t(tables), _t(ln), enabled=False
-    )
-    assert torch.equal(via_registry, torch.tensor(got))
+    assert registry.decode_attend_paged is flash_decode_paged
 
 
 def test_dense_decode_masks_with_where():
@@ -164,9 +160,8 @@ def test_mha_plain_matches_jax_and_pallas(s, t, window, causal):
     got = flash_attention(_t(q), _t(k), _t(v), causal=causal, window=window).numpy()
     np.testing.assert_allclose(got, want, **TOL)
     np.testing.assert_allclose(got, kern, **TOL)
-    via_registry = registry.attend(_t(q), _t(k), _t(v), causal=causal,
-                                   window=window, enabled=False)
-    assert torch.equal(via_registry, fa_ref.mha(_t(q), _t(k), _t(v), causal, window))
+    assert registry.attend is flash_attention
+    assert torch.equal(torch.tensor(got), fa_ref.mha(_t(q), _t(k), _t(v), causal, window))
 
 
 def test_gates_take_every_serving_shape():
@@ -178,3 +173,25 @@ def test_gates_take_every_serving_shape():
     assert not registry.can_gmm(6144, 10752, torch.float16)
     assert not registry.can_flash_decode_paged(128, 48, 8, 100, torch.float32)
     assert not registry.can_flash_attend(256, 128, 48, 8, 128, torch.float32)
+
+
+def test_tolerance_is_elementwise_and_exact_on_dead_rows():
+    """The on-card limit: each element against rtol |want| + atol rms(row);
+    an all-zero (dead) row must match exactly; NaN never passes."""
+    want = torch.tensor([[1.0, -2.0, 0.0, 4.0], [0.0, 0.0, 0.0, 0.0]])
+    rtol, atol = tolerance.PLAIN[torch.bfloat16]
+    rms = float(want[0].square().mean().sqrt())
+    near = want.clone()
+    near[0, 2] = 0.9 * atol * rms          # a zero of the row, within the rms term
+    near[0, 3] = 4.0 * (1 + 0.9 * rtol)
+    assert tolerance.excess(near, want, rtol, atol) <= 1.0
+    assert tolerance.excess(want, want, rtol, atol) == 0.0
+    off = want.clone()
+    off[0, 1] = -2.2                       # 10% off one element
+    assert tolerance.excess(off, want, rtol, atol) > 1.0
+    dead = want.clone()
+    dead[1, 0] = 1e-6
+    assert tolerance.excess(dead, want, rtol, atol) == float("inf")
+    nan = want.clone()
+    nan[0, 0] = float("nan")
+    assert tolerance.excess(nan, want, rtol, atol) == float("inf")
