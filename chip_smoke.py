@@ -9,23 +9,34 @@ Phases (one line each; any failure raises and the exit code is non-zero):
 
 1. the card's name and power limit (``nvidia-smi``); build the CUDA kernels
    from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel);
-2. a small fp32 model served on the card with the kernels and with the
-   plain path: the greedy tokens must agree;
-3. the main path: ``Server.generate`` at dbrx-132b width (4 layers, bf16,
-   8 requests x 256-token prompts, 32 new tokens) with the NI-Balancer
-   live and one stepped migration forced through ``apply_plan``, after a
-   short warm-up run of the same server. Prefill (TTFT) and the decode loop
-   are timed apart with CUDA events. Every kernel's launch count must equal
-   what the layer count predicts. Then the expert groups' row counts of one
-   prefill and one decode tick are kept for phase 4, and 8 more decode
-   steps run under ``torch.profiler`` for the device busy share;
-4. every kernel at the main path's shapes and row counts, in bf16 and in
+2. small fp32 models served on the card with the kernels and with the
+   plain path: the greedy tokens must agree. One serves EP with the
+   balancer on the paged cache, the other ESP on the dense cache with its
+   sliding window kept and wrapped (it takes ``gmm_fused_ffn`` and
+   ``flash_decode``);
+3. the main paths, each after a short warm-up run of its server, with
+   prefill (TTFT) and the decode loop timed apart with CUDA events and 8
+   more decode steps under ``torch.profiler`` for the device busy share.
+   Every kernel's launch count is set to 0 just before the timed run and
+   must equal what the layer count predicts just after it:
+   a. ``Server.generate`` at dbrx-132b width (4 layers, bf16, 8 requests x
+      256-token prompts, 32 new tokens) with the NI-Balancer live and one
+      stepped migration forced through ``apply_plan``, on the paged cache;
+   b. ``Server.generate`` at mixtral-8x22b width (4 layers, bf16, the same
+      traffic) with ESP on the dense cache;
+   The expert groups' row counts (and offsets) of layer 0 in one prefill
+   and one decode tick of each are kept for phase 4;
+4. every kernel at the main paths' shapes and row counts, in bf16 and in
    fp32 (TF32 off), held elementwise against its plain PyTorch version
-   (``repro_torch.kernels.tolerance``) with dead rows and dead pages
-   poisoned with NaN; the bf16 GMMs also against the fp32 product of the
-   same bf16 inputs; deliberate faults (a dropped K tile, a dropped live
-   row, a dropped key) must fail the bf16 limit. Then each kernel is timed
-   beside its plain version and a PyTorch library call the port never
+   (``repro_torch.kernels.tolerance``) with dead rows, gap rows of dropped
+   copies, dead pages and invalid keys poisoned with NaN, and flat outputs
+   filled with NaN first (rows outside the live segments must stay NaN);
+   the bf16 GMMs also against the fp32 product of the same bf16 inputs;
+   ``gmm_fused_ffn`` at the widest shape its gate admits (D = D_out =
+   4096) with mixtral's F, also against the kernel pair; deliberate faults
+   (a dropped K tile, a dropped live row, offsets one row off, a dropped
+   key, an invalid key read) must fail the bf16 limit. Then each kernel is
+   timed beside its plain version and a PyTorch library call the port never
    makes, with its roofline bound;
 5. a ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, "device": {...}}`` line.
@@ -327,6 +338,246 @@ def attention_cell(torch, dtype, timer, time_it: bool):
     return cell
 
 
+def _flat_live(torch, offsets, counts, n_rows):
+    """(R,) mask of the rows inside live bucket segments."""
+    live = torch.zeros(n_rows, dtype=torch.bool, device="cuda")
+    for o, c in zip(offsets.tolist(), counts.tolist()):
+        live[o : o + c] = True
+    return live
+
+
+def _nan_rows(torch, shape, dt):
+    return torch.full(shape, float("nan"), dtype=dt, device="cuda")
+
+
+def esp_gmm_cells(torch, rows, dtype, timer, time_it: bool):
+    """gmm_dual_act_gather and gmm_scatter at mixtral's expert shapes (8
+    experts, D=6144, F=16384) and the flat-row layouts the ESP main path
+    served (``rows``: phase -> (R, capacity, offsets, counts)). Gap rows of
+    the flat input and every row of the flat output outside the live
+    segments start as NaN; the latter must still be NaN after the scatter."""
+    from repro_torch.kernels.gmm import ragged as K
+    from repro_torch.kernels.gmm import ref as R
+    from repro_torch.kernels.tolerance import PLAIN, ROUNDING
+
+    dt = getattr(torch, dtype)
+    tol = PLAIN[dt]
+    G, D, F = 8, 6144, 16384
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    wg = (torch.randn((G, D, F), generator=gen, device="cuda") * 0.02).to(dt)
+    wu = (torch.randn((G, D, F), generator=gen, device="cuda") * 0.02).to(dt)
+    wd = (torch.randn((G, F, D), generator=gen, device="cuda") * 0.02).to(dt)
+    results = {}
+    for phase, (n_rows, cap, offsets, counts) in rows.items():
+        off = torch.as_tensor(offsets, dtype=torch.int32, device="cuda")
+        gs = torch.as_tensor(counts, dtype=torch.int32, device="cuda")
+        live = _flat_live(torch, off, gs, n_rows)
+        x = torch.randn((n_rows, D), generator=gen, device="cuda").to(dt)
+        x[~live] = float("nan")
+        what = f"{phase} {dtype}"
+        h = K.gmm_dual_act_gather(x, wg, wu, off, gs, cap)
+        h_ref = R.gmm_dual_act_gather(x, wg, wu, off, gs, cap)
+        hin = h_ref.clone()
+        dead = torch.arange(cap, device="cuda")[None, :] >= gs[:, None]
+        hin[dead] = float("nan")
+        y = K.gmm_scatter(hin, wd, off, gs, n_rows, out=_nan_rows(torch, (n_rows, D), dt))
+        y_ref = R.gmm_scatter(hin, wd, off, gs, n_rows)
+        if not bool(torch.isnan(y[~live]).all()):
+            raise AssertionError(f"gmm_scatter {what}: a row outside the live segments was written")
+        cell = {"gmm_dual_act_gather": held(torch, h, h_ref, tol, f"gmm_dual_act_gather {what}"),
+                "gmm_scatter": held(torch, y[live], y_ref[live], tol, f"gmm_scatter {what}")}
+        if dt == torch.bfloat16:
+            ref32 = R.gmm_dual_act_gather(x.float(), wg.float(), wu.float(), off, gs, cap)
+            cell["gmm_dual_act_gather"]["excess_fp32_product"] = held(
+                torch, h, ref32, ROUNDING, f"gmm_dual_act_gather {what} vs fp32")["excess"]
+            ref32 = R.gmm_scatter(hin.float(), wd.float(), off, gs, n_rows)
+            cell["gmm_scatter"]["excess_fp32_product"] = held(
+                torch, y[live], ref32[live], ROUNDING, f"gmm_scatter {what} vs fp32")["excess"]
+            del ref32
+            short = (gs - 1).clamp(min=0).to(torch.int32)
+            off1 = (off + 1).to(torch.int32)
+            cell["gmm_dual_act_gather"]["faults"] = caught(tol, {
+                f"{phase}: K tile of {GMM_BK} dropped":
+                    (lambda: R.gmm_dual_act_gather(_drop_k_tile(x), wg, wu, off, gs, cap), h_ref),
+                f"{phase}: last live row dropped":
+                    (lambda: R.gmm_dual_act_gather(x, wg, wu, off, short, cap), h_ref),
+                f"{phase}: offsets one row off":
+                    (lambda: R.gmm_dual_act_gather(x, wg, wu, off1, gs, cap), h_ref),
+            }, f"gmm_dual_act_gather {what}")
+            cell["gmm_scatter"]["faults"] = caught(tol, {
+                f"{phase}: K tile of {GMM_BK} dropped":
+                    (lambda: R.gmm_scatter(_drop_k_tile(hin), wd, off, gs, n_rows)[live],
+                     y_ref[live]),
+                f"{phase}: last live row dropped":
+                    (lambda: R.gmm_scatter(hin, wd, off, short, n_rows)[live], y_ref[live]),
+                f"{phase}: offsets one row off":
+                    (lambda: R.gmm_scatter(hin, wd, off1, gs, n_rows)[live], y_ref[live]),
+            }, f"gmm_scatter {what}")
+        if time_it:
+            reps = 10 if phase == "decode" else 3
+            xz = torch.nan_to_num(x)
+            hz = torch.nan_to_num(hin)
+            buckets = R.gather_buckets(xz, off, gs, cap)
+            wgu = torch.cat([wg, wu], dim=2)
+            isz = x.element_size()
+            live_rows = int(gs.sum())
+            live_groups = int((gs > 0).sum())
+            for name, fn, plain, lib, nbytes, ops in (
+                ("gmm_dual_act_gather",
+                 lambda: K.gmm_dual_act_gather(xz, wg, wu, off, gs, cap),
+                 lambda: R.gmm_dual_act_gather(xz, wg, wu, off, gs, cap),
+                 lambda: torch.bmm(buckets, wgu),
+                 isz * (live_rows * D + 2 * live_groups * D * F + G * cap * F),
+                 2 * 2 * live_rows * D * F),
+                ("gmm_scatter",
+                 lambda: K.gmm_scatter(hz, wd, off, gs, n_rows),
+                 lambda: R.gmm_scatter(hz, wd, off, gs, n_rows),
+                 lambda: torch.bmm(hz, wd),
+                 isz * (live_rows * F + live_groups * F * D + live_rows * D),
+                 2 * live_rows * F * D),
+            ):
+                b_ms, b_by = bound(nbytes, ops, dtype)
+                cell[name].update(
+                    ms=timer(fn, reps), plain_ms=timer(plain, reps),
+                    library_ms=timer(lib, reps), bound_ms=b_ms, bound_by=b_by,
+                    shape=f"G={G} cap={cap} R={n_rows} D={D if name != 'gmm_scatter' else F} "
+                          f"F={F if name != 'gmm_scatter' else D} sum(gs)={live_rows} "
+                          f"live groups={live_groups}",
+                )
+            del xz, hz, buckets, wgu
+        results[phase] = cell
+        del x, h, h_ref, hin, y, y_ref
+    del wg, wu, wd
+    torch.cuda.empty_cache()
+    return results
+
+
+def fused_cells(torch, rows, dtype, timer, time_it: bool):
+    """gmm_fused_ffn at the widest shape its gate admits (D = D_out = 4096)
+    with mixtral's F = 16384 and the ESP main path's flat-row layouts:
+    against its plain version and against the kernel pair, live rows only;
+    every other output row must still be NaN."""
+    from repro_torch.kernels.gmm import ragged as K
+    from repro_torch.kernels.gmm import ref as R
+    from repro_torch.kernels.registry import FUSED_FFN_MAX_DOWN_DIM, can_gmm_fused
+    from repro_torch.kernels.tolerance import PLAIN
+
+    dt = getattr(torch, dtype)
+    tol = PLAIN[dt]
+    G, D, F = 8, FUSED_FFN_MAX_DOWN_DIM, 16384
+    if not can_gmm_fused(8, D, F, dt):
+        raise AssertionError(f"the fused gate refuses D={D}, F={F}")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    wg = (torch.randn((G, D, F), generator=gen, device="cuda") * 0.02).to(dt)
+    wu = (torch.randn((G, D, F), generator=gen, device="cuda") * 0.02).to(dt)
+    wd = (torch.randn((G, F, D), generator=gen, device="cuda") * 0.02).to(dt)
+    results = {}
+    for phase, (n_rows, cap, offsets, counts) in rows.items():
+        off = torch.as_tensor(offsets, dtype=torch.int32, device="cuda")
+        gs = torch.as_tensor(counts, dtype=torch.int32, device="cuda")
+        live = _flat_live(torch, off, gs, n_rows)
+        x = torch.randn((n_rows, D), generator=gen, device="cuda").to(dt)
+        x[~live] = float("nan")
+        what = f"gmm_fused_ffn {phase} {dtype}"
+        y = K.gmm_fused_ffn(x, wg, wu, wd, off, gs, cap, out=_nan_rows(torch, (n_rows, D), dt))
+        if not bool(torch.isnan(y[~live]).all()):
+            raise AssertionError(f"{what}: a row outside the live segments was written")
+        y_ref = R.gmm_fused_ffn(x, wg, wu, wd, off, gs, cap)
+        pair = K.gmm_scatter(K.gmm_dual_act_gather(x, wg, wu, off, gs, cap), wd, off, gs, n_rows)
+        cell = held(torch, y[live], y_ref[live], tol, what)
+        cell["excess_vs_pair"] = held(torch, y[live], pair[live], tol, f"{what} vs pair")["excess"]
+        del pair
+        if dt == torch.bfloat16:
+            short = (gs - 1).clamp(min=0).to(torch.int32)
+            off1 = (off + 1).to(torch.int32)
+            cell["faults"] = caught(tol, {
+                f"{phase}: K tile of {GMM_BK} dropped":
+                    (lambda: R.gmm_fused_ffn(_drop_k_tile(x), wg, wu, wd, off, gs, cap)[live],
+                     y_ref[live]),
+                f"{phase}: last live row dropped":
+                    (lambda: R.gmm_fused_ffn(x, wg, wu, wd, off, short, cap)[live], y_ref[live]),
+                f"{phase}: offsets one row off":
+                    (lambda: R.gmm_fused_ffn(x, wg, wu, wd, off1, gs, cap)[live], y_ref[live]),
+            }, what)
+        if time_it:
+            reps = 3 if phase == "decode" else 1
+            xz = torch.nan_to_num(x)
+            isz = x.element_size()
+            live_rows = int(gs.sum())
+            live_groups = int((gs > 0).sum())
+            b_ms, b_by = bound(isz * (2 * live_rows * D + 3 * live_groups * D * F),
+                               2 * 3 * live_rows * D * F, dtype)
+            cell.update(
+                ms=timer(lambda: K.gmm_fused_ffn(xz, wg, wu, wd, off, gs, cap), reps, warmup=1),
+                plain_ms=timer(lambda: R.gmm_fused_ffn(xz, wg, wu, wd, off, gs, cap), reps,
+                               warmup=1),
+                pair_ms=timer(lambda: K.gmm_scatter(K.gmm_dual_act_gather(
+                    xz, wg, wu, off, gs, cap), wd, off, gs, n_rows), reps, warmup=1),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                shape=f"G={G} cap={cap} R={n_rows} D=D_out={D} F={F} sum(gs)={live_rows} "
+                      f"live groups={live_groups}",
+            )
+            del xz
+        results[phase] = cell
+        del x, y, y_ref
+    del wg, wu, wd
+    torch.cuda.empty_cache()
+    return results
+
+
+def dense_decode_cell(torch, dtype, timer, time_it: bool):
+    """flash_decode at the ESP main path's decode shapes: 8 requests, 48
+    query heads over 8 KV heads of 128, a dense cache of max_seq 1024
+    slots, valid prefixes of the served lengths (257-288 keys); every
+    invalid K/V row holds NaN."""
+    import torch.nn.functional as Fn
+
+    from repro_torch.kernels.flash_decode import flash_decode as K
+    from repro_torch.kernels.flash_decode import ref as R
+    from repro_torch.kernels.tolerance import PLAIN
+
+    dt = getattr(torch, dtype)
+    tol = PLAIN[dt]
+    B, H, KV, hd, T = 8, 48, 8, 128, 1024
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    q = torch.randn((B, H, hd), generator=gen, device="cuda").to(dt)
+    k0 = torch.randn((B, T, KV, hd), generator=gen, device="cuda").to(dt)
+    v0 = torch.randn((B, T, KV, hd), generator=gen, device="cuda").to(dt)
+    lengths = torch.randint(257, 289, (B,), generator=gen, device="cuda")
+    valid = (torch.arange(T, device="cuda")[None, :] < lengths[:, None]).to(torch.int32)
+    k, v = k0.clone(), v0.clone()
+    k[valid == 0] = float("nan")
+    v[valid == 0] = float("nan")
+    want = R.decode(q, k, v, valid.bool())
+    cell = held(torch, K.flash_decode(q, k, v, valid), want, tol, f"flash_decode {dtype}")
+    if dt == torch.bfloat16:
+        dropped, extra = valid.clone(), valid.clone()
+        dropped[0, 100] = 0
+        extra[0, int(lengths[0])] = 1
+        cell["faults"] = caught(tol, {
+            "one valid key dropped": (lambda: R.decode(q, k, v, dropped.bool()), want),
+            "one invalid key read": (lambda: R.decode(q, k0, v0, extra.bool()), want),
+        }, f"flash_decode {dtype}")
+    if time_it:
+        isz = q.element_size()
+        live = int(lengths.sum())
+        nbytes = isz * (2 * B * H * hd + 2 * live * KV * hd) + 4 * B * T
+        b_ms, b_by = bound(nbytes, 4 * live * H * hd, dtype)
+        kz, vz = k0, v0
+        kd, vd = kz.transpose(1, 2).contiguous(), vz.transpose(1, 2).contiguous()
+        mask = valid.bool()[:, None, None, :]
+        q4 = q[:, :, None, :]
+        cell.update(
+            ms=timer(lambda: K.flash_decode(q, kz, vz, valid), 50),
+            plain_ms=timer(lambda: R.decode(q, kz, vz, valid.bool()), 20),
+            library_ms=timer(lambda: Fn.scaled_dot_product_attention(
+                q4, kd, vd, attn_mask=mask, enable_gqa=True), 50),
+            bound_ms=b_ms, bound_by=b_by,
+            shape=f"B={B} H={H} K={KV} hd={hd} T={T} sum(valid)={live}",
+        )
+    return cell
+
+
 # ---------------------------------------------------------------------------
 # phases 2-3: serving
 # ---------------------------------------------------------------------------
@@ -353,6 +604,42 @@ def small_parity(torch):
     if not torch.equal(outs[0][0], outs[1][0]):
         raise AssertionError(f"kernel vs plain tokens differ:\n{outs[0][0]}\n{outs[1][0]}")
     return outs[0][1]
+
+
+def small_esp_parity(torch) -> dict:
+    """A small fp32 mixtral-family model (window 32 kept) served with ESP on
+    the dense cache, kernels vs plain path: 12-token prompts and 24 new
+    tokens wrap the ring. Returns the kernel run's launches of the two
+    kernels only this path takes."""
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.kernels.flash_decode.flash_decode import flash_decode
+    from repro_torch.kernels.gmm.ragged import gmm_fused_ffn
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.ctx import ParallelCtx
+    from repro_torch.runtime.serve import ServeConfig, Server
+
+    cfg = dataclasses.replace(smoke(get_config("mixtral-8x22b")), head_dim=32)
+    prompt_len, n_new = 12, 24
+    if prompt_len + n_new <= cfg.sliding_window:
+        raise AssertionError("the small ESP run must wrap the window's ring")
+    prompt = torch.randint(0, cfg.vocab_size, (4, prompt_len),
+                           generator=torch.Generator().manual_seed(9))
+    outs, launched = [], {}
+    for uk in ("auto", False):
+        for k in (gmm_fused_ffn, flash_decode):
+            k.launches = 0
+        params = T.init_params(cfg, seed=10, device="cuda")
+        srv = Server(cfg, ParallelCtx(moe_impl="esp", capacity_factor=2.0, use_kernels=uk),
+                     params, ServeConfig(max_seq=64, batch=4, paged=False), device="cuda")
+        outs.append(srv.generate(prompt, n_new).cpu())
+        if uk == "auto":
+            launched = {k.__name__: k.launches for k in (gmm_fused_ffn, flash_decode)}
+    if not torch.equal(outs[0], outs[1]):
+        raise AssertionError(f"ESP kernel vs plain tokens differ:\n{outs[0]}\n{outs[1]}")
+    want = {"gmm_fused_ffn": cfg.n_layers * (1 + n_new), "flash_decode": cfg.n_layers * n_new}
+    if launched != want:
+        raise AssertionError(f"small ESP launches {launched} != {want}")
+    return launched
 
 
 def force_migration(srv) -> tuple[int, int, int]:
@@ -492,6 +779,95 @@ def main_path(torch, card: str):
         "peak_gb": peak_gb, "migrations": committed, **profile}
 
 
+def esp_rows(torch, srv, prompt) -> dict:
+    """Layer 0's flat-row layout in one prefill and one decode tick of the
+    ESP main-path server: phase -> (rows R, capacity, offsets, counts)."""
+    from repro_torch.kernels import registry
+
+    seen = []
+    ffn = registry.expert_ffn_from_rows
+
+    def spy(x, wg, wu, wd, offsets, group_sizes, *, capacity, **kw):
+        seen.append((x.shape[0], capacity, offsets.cpu().numpy(), group_sizes.cpu().numpy()))
+        return ffn(x, wg, wu, wd, offsets, group_sizes, capacity=capacity, **kw)
+
+    registry.expert_ffn_from_rows = spy
+    try:
+        logits, cache = srv.prefill(prompt)
+        n_prefill = len(seen)
+        srv.decode(torch.argmax(logits[:, -1:], dim=-1), cache)
+    finally:
+        registry.expert_ffn_from_rows = ffn
+    return {"decode": seen[n_prefill], "prefill": seen[0]}
+
+
+def esp_path(torch, card: str):
+    """The second main path: mixtral-8x22b width with ESP on the dense
+    cache. Returns the launches of every kernel, layer 0's row layouts and
+    the run's numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode.flash_decode import flash_decode
+    from repro_torch.kernels.flash_decode.paged import flash_decode_paged
+    from repro_torch.kernels.gmm import ragged as K
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.ctx import ParallelCtx
+    from repro_torch.runtime.data import request_stream
+    from repro_torch.runtime.serve import ServeConfig, Server
+
+    n_layers, batch, prompt_len, n_new = 4, 8, 256, 32
+    cfg = dataclasses.replace(get_config("mixtral-8x22b"), n_layers=n_layers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    scfg = ServeConfig(max_seq=1024, batch=batch, paged=False)
+    srv = Server(cfg, ParallelCtx(moe_impl="esp"), params, scfg, device="cuda")
+    del params
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    prompt = next(request_stream(cfg.vocab_size, batch, prompt_len, seed=0))
+    srv.generate(prompt, 2)     # warm-up: first-call costs stay out of the timed run
+    kernels = (K.gmm_dual_act_gather, K.gmm_scatter, K.gmm_fused_ffn, flash_decode,
+               flash_attention, K.gmm_dual_act_ragged, K.gmm_ragged, flash_decode_paged)
+    for k in kernels:
+        k.launches = 0
+    out, logits, ttft_s, decode_s = timed_generate(torch, srv, prompt, n_new)
+    launches = {k.__name__: k.launches for k in kernels}
+    predicted = {
+        # d_model 6144 > FUSED_FFN_MAX_DOWN_DIM: the pair, as the reference
+        "gmm_dual_act_gather": n_layers * (1 + n_new),
+        "gmm_scatter": n_layers * (1 + n_new),
+        "gmm_fused_ffn": 0,
+        "flash_decode": n_layers * n_new,
+        "flash_attention": n_layers,
+        "gmm_dual_act_ragged": 0, "gmm_ragged": 0, "flash_decode_paged": 0,
+    }
+    if launches != predicted:
+        raise AssertionError(f"ESP launch counts {launches} != predicted {predicted}")
+    out_cpu = out.cpu()
+    if out_cpu.shape != (batch, n_new) or int(out_cpu.min()) < 0 or \
+            int(out_cpu.max()) >= cfg.vocab_size:
+        raise AssertionError(f"ESP tokens out of range: shape {tuple(out_cpu.shape)}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("non-finite ESP prefill logits")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rows = esp_rows(torch, srv, prompt)
+    profile = profile_decode(torch, srv, prompt, card)
+    tok_s = batch * n_new / decode_s
+    log(
+        f"ESP path: mixtral-8x22b width, {n_layers} layers, bf16, dense cache (max_seq "
+        f"{scfg.max_seq}), {batch} x {prompt_len}-token prompts -> {n_new} decode steps "
+        f"(after a warm-up run): setup {setup_s:.2f}s, TTFT (prefill) {ttft_s * 1e3:.1f} ms, "
+        f"decode {decode_s * 1e3:.1f} ms = {tok_s:.1f} tok/s, peak memory {peak_gb:.2f} GB, "
+        f"launches {launches}, layer-0 expert rows prefill {rows['prefill'][3].tolist()} "
+        f"(R={rows['prefill'][0]}, cap={rows['prefill'][1]}) decode "
+        f"{rows['decode'][3].tolist()} (R={rows['decode'][0]}, cap={rows['decode'][1]}) [{card}]"
+    )
+    return launches, rows, {
+        "ttft_ms": ttft_s * 1e3, "decode_ms": decode_s * 1e3, "decode_tok_s": tok_s,
+        "peak_gb": peak_gb, **profile}
+
+
 def profile_decode(torch, srv, prompt, card: str, steps: int = 8) -> dict:
     """Device busy share and time by kernel over ``steps`` decode steps of
     the main-path server (a separate window from the timed run)."""
@@ -556,16 +932,25 @@ def main(argv=None) -> int:
     log(f"build: {time.perf_counter() - t0:.1f}s for {len(report)} libraries "
         f"({', '.join(f'{k} {v['seconds']:.1f}s' for k, v in report.items())})")
     for name, r in report.items():
+        entry = ""
         for line in r["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1][:72] if "'" in line else ""
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas {name} {entry}: {line.split(':', 1)[-1].strip()}")
 
     migs = small_parity(torch)
     log(f"small fp32 model on the card: kernel and plain greedy tokens agree "
         f"(migrations {migs})")
+    small_esp = small_esp_parity(torch)
+    log(f"small fp32 ESP model, dense cache, ring wrapped: kernel and plain greedy "
+        f"tokens agree (kernel run launches {small_esp})")
     torch.cuda.empty_cache()
 
     launches, groups, run = main_path(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    esp_launches, rows, esp_run = esp_path(torch, card)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -576,14 +961,24 @@ def main(argv=None) -> int:
         g = gmm_cells(torch, groups, dtype, timer, time_it)
         d = decode_cell(torch, dtype, timer, time_it)
         a = attention_cell(torch, dtype, timer, time_it)
-        cells[dtype] = {"gmm": g, "decode": d, "attn": a}
+        eg = esp_gmm_cells(torch, rows, dtype, timer, time_it)
+        fu = fused_cells(torch, rows, dtype, timer, time_it)
+        dd = dense_decode_cell(torch, dtype, timer, time_it)
+        cells[dtype] = {"gmm": g, "decode": d, "attn": a, "esp_gmm": eg, "fused": fu,
+                        "dense_decode": dd}
         log(f"kernels {dtype}, error over its limit (rtol, atol) = "
             f"{PLAIN[getattr(torch, dtype)]}: gmm_dual_act_ragged decode "
             f"{g['decode']['gmm_dual_act_ragged']['excess']:.3g} prefill "
             f"{g['prefill']['gmm_dual_act_ragged']['excess']:.3g}; gmm_ragged decode "
             f"{g['decode']['gmm_ragged']['excess']:.3g} prefill "
             f"{g['prefill']['gmm_ragged']['excess']:.3g}; flash_decode_paged "
-            f"{d['excess']:.3g}; flash_attention {a['excess']:.3g}")
+            f"{d['excess']:.3g}; flash_attention {a['excess']:.3g}; "
+            + "; ".join(f"{n} decode {eg['decode'][n]['excess']:.3g} prefill "
+                        f"{eg['prefill'][n]['excess']:.3g}"
+                        for n in ("gmm_dual_act_gather", "gmm_scatter"))
+            + f"; gmm_fused_ffn decode {fu['decode']['excess']:.3g} prefill "
+            f"{fu['prefill']['excess']:.3g} (vs the pair {fu['decode']['excess_vs_pair']:.3g}"
+            f" / {fu['prefill']['excess_vs_pair']:.3g}); flash_decode {dd['excess']:.3g}")
         torch.cuda.empty_cache()
 
     bf = cells["bfloat16"]
@@ -602,32 +997,91 @@ def main(argv=None) -> int:
             log(f"time {name} {phase} [{c['shape']}]: kernel {c['ms']:.3f} ms, plain "
                 f"{c['plain_ms']:.3f} ms, torch.bmm {c['library_ms']:.3f} ms, bound "
                 f"{c['bound_ms']:.3f} ms ({c['bound_by']}) [{card}]")
+    for name in ("gmm_dual_act_gather", "gmm_scatter"):
+        for phase in ("decode", "prefill"):
+            c = bf["esp_gmm"][phase][name]
+            log(f"{name} {phase} bf16 vs the fp32 product at {ROUNDING}: "
+                f"{c['excess_fp32_product']:.3f}; faults caught: "
+                + ", ".join(f"{k} {v:.2f}" for k, v in c["faults"].items()))
+    for phase in ("decode", "prefill"):
+        c = bf["fused"][phase]
+        log(f"gmm_fused_ffn {phase} bf16 faults caught: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in c["faults"].items()))
+    log("flash_decode bf16 faults caught: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in bf["dense_decode"]["faults"].items()))
     for name, c, lib in (("flash_decode_paged", bf["decode"], "sdpa"),
-                         ("flash_attention", bf["attn"], "sdpa")):
+                         ("flash_attention", bf["attn"], "sdpa"),
+                         ("flash_decode", bf["dense_decode"], "sdpa")):
         log(f"time {name} [{c['shape']}]: kernel {c['ms']:.4f} ms, plain "
             f"{c['plain_ms']:.4f} ms, {lib} {c['library_ms']:.4f} ms, bound "
             f"{c['bound_ms']:.4f} ms ({c['bound_by']}) [{card}]")
+    for name in ("gmm_dual_act_gather", "gmm_scatter"):
+        for phase in ("decode", "prefill"):
+            c = bf["esp_gmm"][phase][name]
+            log(f"time {name} {phase} [{c['shape']}]: kernel {c['ms']:.3f} ms, plain "
+                f"{c['plain_ms']:.3f} ms, torch.bmm {c['library_ms']:.3f} ms, bound "
+                f"{c['bound_ms']:.3f} ms ({c['bound_by']}) [{card}]")
+    for phase in ("decode", "prefill"):
+        c = bf["fused"][phase]
+        log(f"time gmm_fused_ffn {phase} [{c['shape']}]: kernel {c['ms']:.3f} ms, plain "
+            f"{c['plain_ms']:.3f} ms, kernel pair {c['pair_ms']:.3f} ms, no library call, "
+            f"bound {c['bound_ms']:.3f} ms ({c['bound_by']}) [{card}]")
 
     tpu = {
         "gmm_dual_act_ragged": "src/repro/kernels/gmm/ragged.py:223",
         "gmm_ragged": "src/repro/kernels/gmm/ragged.py:151",
         "flash_decode_paged": "src/repro/kernels/flash_decode/paged.py:140",
         "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:116",
+        "gmm_dual_act_gather": "src/repro/kernels/gmm/ragged.py:469",
+        "gmm_scatter": "src/repro/kernels/gmm/ragged.py:605",
+        "gmm_fused_ffn": "src/repro/kernels/gmm/ragged.py:790",
+        "flash_decode": "src/repro/kernels/flash_decode/flash_decode.py:151",
     }
     source = {
         "gmm_dual_act_ragged": "src/repro_torch/csrc/gmm_ragged.cu",
         "gmm_ragged": "src/repro_torch/csrc/gmm_ragged.cu",
         "flash_decode_paged": "src/repro_torch/csrc/flash_decode_paged.cu",
         "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+        "gmm_dual_act_gather": "src/repro_torch/csrc/gmm_ragged.cu",
+        "gmm_scatter": "src/repro_torch/csrc/gmm_ragged.cu",
+        "gmm_fused_ffn": "src/repro_torch/csrc/gmm_fused_ffn.cu",
+        "flash_decode": "src/repro_torch/csrc/flash_decode.cu",
     }
     fp = cells["float32"]
+    # launches on the main path that runs each kernel (the ESP path runs
+    # gmm_fused_ffn no time at d_model 6144; the small ESP model does)
+    path_launches = {**launches, **{k: esp_launches[k] for k in (
+        "gmm_dual_act_gather", "gmm_scatter", "gmm_fused_ffn", "flash_decode")}}
     entries = []
     for name in ("gmm_dual_act_ragged", "gmm_ragged", "flash_decode_paged",
-                 "flash_attention"):
-        if name.startswith("gmm"):
+                 "flash_attention", "gmm_dual_act_gather", "gmm_scatter",
+                 "gmm_fused_ffn", "flash_decode"):
+        if name in ("gmm_fused_ffn", "flash_decode"):
+            key = "fused" if name == "gmm_fused_ffn" else "dense_decode"
+            if name == "gmm_fused_ffn":
+                # timed at the prefill layout too, listed beside
+                c, pre, c32, pre32 = (bf[key]["decode"], bf[key]["prefill"],
+                                      fp[key]["decode"], fp[key]["prefill"])
+                err, ex = max(c["max_abs_err"], pre["max_abs_err"]), max(c["excess"], pre["excess"])
+                err32 = max(c32["max_abs_err"], pre32["max_abs_err"])
+                ex32 = max(c32["excess"], pre32["excess"])
+                extra = {"faults": {**c["faults"], **pre["faults"]},
+                         "excess_vs_pair": max(c["excess_vs_pair"], pre["excess_vs_pair"]),
+                         "pair_ms": c["pair_ms"], "prefill_ms": pre["ms"],
+                         "prefill_plain_ms": pre["plain_ms"], "prefill_pair_ms": pre["pair_ms"],
+                         "prefill_bound_ms": pre["bound_ms"], "prefill_bound_by": pre["bound_by"],
+                         "prefill_shape": pre["shape"],
+                         "launches_small_esp_model": small_esp["gmm_fused_ffn"]}
+            else:
+                c, c32 = bf[key], fp[key]
+                err, ex, err32, ex32 = (c["max_abs_err"], c["excess"], c32["max_abs_err"],
+                                        c32["excess"])
+                extra = {"faults": c["faults"]}
+        elif name.startswith("gmm"):
             # timed at the decode cell: the kernel's call on every decode tick
-            c, pre = bf["gmm"]["decode"][name], bf["gmm"]["prefill"][name]
-            both, both32 = (c, pre), (fp["gmm"]["decode"][name], fp["gmm"]["prefill"][name])
+            key = "gmm" if name in ("gmm_dual_act_ragged", "gmm_ragged") else "esp_gmm"
+            c, pre = bf[key]["decode"][name], bf[key]["prefill"][name]
+            both, both32 = (c, pre), (fp[key]["decode"][name], fp[key]["prefill"][name])
             err, ex, err32, ex32 = (max(x[key] for x in cs) for cs, key in (
                 (both, "max_abs_err"), (both, "excess"),
                 (both32, "max_abs_err"), (both32, "excess")))
@@ -645,7 +1099,7 @@ def main(argv=None) -> int:
             extra = {"faults": c["faults"]}
         entries.append({
             "name": name, "route": "cuda", "source": source[name],
-            "replaces": tpu[name], "launches": launches[name],
+            "replaces": tpu[name], "launches": path_launches[name],
             "max_abs_err": err, "max_abs_err_fp32": err32,
             "excess": ex, "excess_fp32": ex32,
             "tolerance": (f"|kernel - plain| <= rtol |plain| + atol rms(row): "
@@ -654,7 +1108,7 @@ def main(argv=None) -> int:
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
             "shape": c["shape"], **extra,
         })
-    print(json.dumps({"kernels": entries, "run": run}), flush=True)
+    print(json.dumps({"kernels": entries, "run": run, "run_esp": esp_run}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

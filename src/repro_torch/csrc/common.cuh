@@ -34,6 +34,40 @@ __device__ __forceinline__ void load_vec16(const T* __restrict__ src, float* dst
   for (int v = 0; v < VEC; ++v) dst[v] = to_f(e[v]);
 }
 
+// Where group g's rows of a grouped matmul live (gmm_ragged.cu,
+// gmm_fused_ffn.cu), fixed at compile time so that the padded layout
+// compiles to exactly the code it had before the flat layouts existed.
+// Padded: row m of group g at g * C + m, and (for the output) rows m in
+// [count, C) stored as zeros. GATHER: input row m at xofs[g] + m of a flat
+// array; SCATTER: output row m at oofs[g] + m, only rows m < count stored.
+// A flat layout is bounds-checked against its row count, so a malformed
+// offset can shorten a group but never reach outside the array.
+template <bool GATHER, bool SCATTER>
+struct Rows {
+  const int* xofs;   // gather input offsets (GATHER)
+  const int* oofs;   // scatter output offsets (SCATTER)
+  int in_rows, out_rows;
+
+  __device__ int count(const int* gs, int g, int C) const {
+    int n = min(gs[g], C);
+    if constexpr (GATHER) n = min(n, in_rows - xofs[g]);
+    if constexpr (SCATTER) n = min(n, out_rows - oofs[g]);
+    return max(n, 0);
+  }
+  template <typename T>
+  __device__ const T* in(const T* x, int g, int C, int D) const {
+    if constexpr (GATHER) return x + (size_t)xofs[g] * D;
+    else return x + (size_t)g * C * D;
+  }
+  template <typename T>
+  __device__ T* out(T* o, int g, int C, int F) const {
+    if constexpr (SCATTER) return o + (size_t)oofs[g] * F;
+    else return o + (size_t)g * C * F;
+  }
+  // output rows a group stores: all C (zero tails) or only its live rows
+  __device__ int stored(int C, int live) const { return SCATTER ? live : C; }
+};
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

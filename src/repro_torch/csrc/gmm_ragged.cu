@@ -8,9 +8,27 @@
 //
 // with rows m >= gs[g] stored as exact zeros (the combine reads them) and
 // never read on input (they may hold garbage; the tests poison them with
-// NaN). Accumulation is fp32; the dual form applies silu(g) * u to the two
-// fp32 accumulators and casts once to the I/O type, which is also the type
-// the hidden tensor is stored in between the two kernels.
+// NaN).
+//
+// The same bodies also replace ::gmm_dual_act_gather (_gather_dual_kernel)
+// and ::gmm_scatter (_scatter_kernel), which differ only in where a
+// group's rows live (struct Rows, common.cuh, a template parameter):
+//
+// * gather input: row m of group g is row xofs[g] + m of a flat (R, D)
+//   array (the dispatch order of collectives.dispatch_metadata) instead of
+//   row g * C + m of padded buckets, so the (G, C, D) dispatch buffer is
+//   never written;
+// * scatter output: row m of group g is stored at row oofs[g] + m of a
+//   flat (R, F) array, and ONLY rows m < count are stored. The TPU kernel
+//   stores whole row tiles in grid order and lets a partial tile's zero
+//   spill be overwritten by the next bucket; CUDA blocks have no store
+//   order, so nothing is spilled: rows outside every live segment keep
+//   whatever the output held (the gap rows of dropped copies, which the
+//   combine never reads).
+//
+// Accumulation is fp32; the dual form applies silu(g) * u to the two fp32
+// accumulators and casts once to the I/O type, which is also the type the
+// hidden tensor is stored in between the two kernels.
 //
 // What bounds it on an H100: at decode (8 tokens x top-4 over 20 slots,
 // capacity 8) every live group streams its whole (D, F) weight panel for a
@@ -44,11 +62,11 @@
 
 namespace {
 
-template <typename T, int BM, int BN, int BK, int TM, int TN, bool DUAL>
+template <typename T, int BM, int BN, int BK, int TM, int TN, bool DUAL, class RW>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 gmm_ragged_kernel(const T* __restrict__ x, const T* __restrict__ wa,
                   const T* __restrict__ wb, const int* __restrict__ gs,
-                  T* __restrict__ out, int C, int D, int F, int gpw) {
+                  T* __restrict__ out, int C, int D, int F, int gpw, RW rw) {
   constexpr int NX = BN / TN;            // threads along n
   constexpr int NT = (BM / TM) * NX;     // threads per block
   constexpr int VEC = 16 / sizeof(T);    // elements per 16-byte load
@@ -63,19 +81,20 @@ gmm_ragged_kernel(const T* __restrict__ x, const T* __restrict__ wa,
   const int n0 = blockIdx.x * BN;
   const int tid = threadIdx.x;
   const int ty = tid / NX, tx = tid % NX;
-  const int count = max(0, min(gs[g], C));
-  T* og = out + (size_t)g * C * F;
+  const int count = rw.count(gs, g, C);
+  const int n_out = rw.stored(C, count);
+  T* og = rw.out(out, g, C, F);
 
   if (m0 >= count) {
-    // Dead row tile: zero output, no weight reads.
+    // Dead row tile: zero output (padded layout only), no weight reads.
     for (int i = tid; i < BM * BN; i += NT) {
       const int m = m0 + i / BN, n = n0 + i % BN;
-      if (m < C && n < F) og[(size_t)m * F + n] = from_f<T>(0.f);
+      if (m < n_out && n < F) og[(size_t)m * F + n] = from_f<T>(0.f);
     }
     return;
   }
 
-  const T* xg = x + (size_t)g * C * D;
+  const T* xg = rw.in(x, g, C, D);
   const size_t wofs = (size_t)(g / gpw) * D * F;
   const T* ag = wa + wofs;
   const T* bg = DUAL ? wb + wofs : nullptr;
@@ -148,7 +167,7 @@ gmm_ragged_kernel(const T* __restrict__ x, const T* __restrict__ wa,
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int m = m0 + ty * TM + i;
-    if (m >= C) continue;
+    if (m >= n_out) continue;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int n = n0 + tx + j * NX;
@@ -174,11 +193,15 @@ gmm_ragged_kernel(const T* __restrict__ x, const T* __restrict__ wa,
 constexpr int SKINNY_ROWS = 8;
 constexpr int SKINNY_WARPS = 8;
 
-template <typename T, bool DUAL>
-__global__ void __launch_bounds__(SKINNY_WARPS * 32)
+// The single-product form must keep two blocks per SM (at most 128
+// registers a thread): it streams weights with little work per load, and
+// at one block per SM it runs at half the rate. The dual form holds two
+// accumulator sets and runs one block per SM either way.
+template <typename T, bool DUAL, class RW>
+__global__ void __launch_bounds__(SKINNY_WARPS * 32, DUAL ? 1 : 2)
 gmm_skinny_kernel(const T* __restrict__ x, const T* __restrict__ wa,
                   const T* __restrict__ wb, const int* __restrict__ gs,
-                  T* __restrict__ out, int C, int D, int F, int gpw) {
+                  T* __restrict__ out, int C, int D, int F, int gpw, RW rw) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int COLS = 32 * VEC;          // output columns per block
   constexpr int NT = SKINNY_WARPS * 32;
@@ -188,16 +211,16 @@ gmm_skinny_kernel(const T* __restrict__ x, const T* __restrict__ wa,
   const int g = blockIdx.y;
   const int n0 = blockIdx.x * COLS;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int count = max(0, min(gs[g], C));
-  T* og = out + (size_t)g * C * F;
+  const int count = rw.count(gs, g, C);
   if (count == 0) {
-    for (int i = tid; i < C * COLS; i += NT) {
+    T* og = rw.out(out, g, C, F);
+    for (int i = tid; i < rw.stored(C, 0) * COLS; i += NT) {
       const int m = i / COLS, n = n0 + i % COLS;
       if (n < F) og[(size_t)m * F + n] = from_f<T>(0.f);
     }
     return;
   }
-  const T* xg = x + (size_t)g * C * D;
+  const T* xg = rw.in(x, g, C, D);
   const size_t wofs = (size_t)(g / gpw) * D * F;
   const T* ag = wa + wofs;
   const T* bg = DUAL ? wb + wofs : nullptr;
@@ -236,10 +259,13 @@ gmm_skinny_kernel(const T* __restrict__ x, const T* __restrict__ wa,
     }
   }
 
-  // reduce the warps' K slices, one row at a time
+  // reduce the warps' K slices, one row at a time (the output's layout is
+  // read only now, so it holds no register through the loop above)
+  const int n_out = rw.stored(C, count);
+  T* og = rw.out(out, g, C, F);
 #pragma unroll
   for (int r = 0; r < SKINNY_ROWS; ++r) {
-    if (r >= C) break;
+    if (r >= n_out) break;   // block-uniform: the barriers below stay paired
     __syncthreads();
 #pragma unroll
     for (int v = 0; v < VEC; ++v) {
@@ -293,11 +319,11 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-template <bool DUAL>
+template <bool DUAL, class RW>
 __global__ void __launch_bounds__(256)
 gmm_wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wa,
                 const bf16* __restrict__ wb, const int* __restrict__ gs,
-                bf16* __restrict__ out, int C, int D, int F, int gpw) {
+                bf16* __restrict__ out, int C, int D, int F, int gpw, RW rw) {
   using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
   using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
   using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
@@ -310,16 +336,17 @@ gmm_wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wa,
   const int m0 = blockIdx.y * WM_BM, n0 = blockIdx.x * WM_BN;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp / 2, wn = warp % 2;   // warp tile: rows wm*32, cols wn*64
-  const int count = max(0, min(gs[g], C));
-  bf16* og = out + (size_t)g * C * F;
+  const int count = rw.count(gs, g, C);
+  const int n_out = rw.stored(C, count);
+  bf16* og = rw.out(out, g, C, F);
   if (m0 >= count) {
     for (int i = tid; i < WM_BM * WM_BN; i += 256) {
       const int m = m0 + i / WM_BN, n = n0 + i % WM_BN;
-      if (m < C && n < F) og[(size_t)m * F + n] = __float2bfloat16(0.f);
+      if (m < n_out && n < F) og[(size_t)m * F + n] = __float2bfloat16(0.f);
     }
     return;
   }
-  const bf16* xg = x + (size_t)g * C * D;
+  const bf16* xg = rw.in(x, g, C, D);
   const size_t wofs = (size_t)(g / gpw) * D * F;
   const bf16* ag = wa + wofs;
   const bf16* bg = DUAL ? wb + wofs : nullptr;
@@ -407,7 +434,7 @@ gmm_wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wa,
       for (int t = 0; t < 8; ++t) {
         const int e = lane * 8 + t, r = e / 16, c = e % 16;
         const int m = m0 + wm * 32 + i * 16 + r, n = n0 + wn * 64 + j * 16 + c;
-        if (m < C && n < F) {
+        if (m < n_out && n < F) {
           float v = 0.f;
           if (m < count) {
             const float a = sa[e];
@@ -421,58 +448,89 @@ gmm_wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wa,
     }
 }
 
-template <typename T, int BM, int BN, int BK, int TM, int TN, bool DUAL>
+template <typename T, int BM, int BN, int BK, int TM, int TN, bool DUAL, class RW>
 void launch(const void* x, const void* wa, const void* wb, const int* gs,
-            void* out, int G, int C, int D, int F, int gpw, cudaStream_t st) {
+            void* out, int G, int C, int D, int F, int gpw, RW rw,
+            cudaStream_t st) {
   dim3 grid((F + BN - 1) / BN, (C + BM - 1) / BM, G);
   dim3 block((BM / TM) * (BN / TN));
-  gmm_ragged_kernel<T, BM, BN, BK, TM, TN, DUAL><<<grid, block, 0, st>>>(
+  gmm_ragged_kernel<T, BM, BN, BK, TM, TN, DUAL, RW><<<grid, block, 0, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(wa),
-      static_cast<const T*>(wb), gs, static_cast<T*>(out), C, D, F, gpw);
+      static_cast<const T*>(wb), gs, static_cast<T*>(out), C, D, F, gpw, rw);
 }
 
-template <typename T, bool DUAL>
+template <typename T, bool DUAL, class RW>
 void dispatch(const void* x, const void* wa, const void* wb, const int* gs,
-              void* out, int G, int C, int D, int F, int gpw, cudaStream_t st) {
+              void* out, int G, int C, int D, int F, int gpw, RW rw,
+              cudaStream_t st) {
   if (C <= SKINNY_ROWS) {
     constexpr int COLS = 32 * (16 / sizeof(T));
     dim3 grid((F + COLS - 1) / COLS, G);
-    gmm_skinny_kernel<T, DUAL><<<grid, SKINNY_WARPS * 32, 0, st>>>(
+    gmm_skinny_kernel<T, DUAL, RW><<<grid, SKINNY_WARPS * 32, 0, st>>>(
         static_cast<const T*>(x), static_cast<const T*>(wa),
-        static_cast<const T*>(wb), gs, static_cast<T*>(out), C, D, F, gpw);
+        static_cast<const T*>(wb), gs, static_cast<T*>(out), C, D, F, gpw, rw);
   } else if constexpr (std::is_same<T, bf16>::value) {
     dim3 grid((F + WM_BN - 1) / WM_BN, (C + WM_BM - 1) / WM_BM, G);
     // > 48 KB of dynamic shared memory needs the opt-in; a failure here is
     // reported through cudaGetLastError like a refused launch.
-    cudaFuncSetAttribute(gmm_wmma_kernel<DUAL>,
+    cudaFuncSetAttribute(gmm_wmma_kernel<DUAL, RW>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)WM_SMEM);
-    gmm_wmma_kernel<DUAL><<<grid, 256, WM_SMEM, st>>>(
+    gmm_wmma_kernel<DUAL, RW><<<grid, 256, WM_SMEM, st>>>(
         static_cast<const bf16*>(x), static_cast<const bf16*>(wa),
-        static_cast<const bf16*>(wb), gs, static_cast<bf16*>(out), C, D, F, gpw);
+        static_cast<const bf16*>(wb), gs, static_cast<bf16*>(out), C, D, F, gpw,
+        rw);
   } else {
-    launch<T, 64, 128, 16, 4, 8, DUAL>(x, wa, wb, gs, out, G, C, D, F, gpw, st);
+    launch<T, 64, 128, 16, 4, 8, DUAL, RW>(x, wa, wb, gs, out, G, C, D, F, gpw, rw, st);
   }
 }
 
-}  // namespace
-
-// x (G, C, D), wa/wb (G/gpw, D, F), gs (G,) int32, out (G, C, F); all
-// contiguous, 16-byte aligned, D and F multiples of 16 / sizeof(T).
-// wb is read only when dual != 0. Returns cudaGetLastError() after launch.
-extern "C" int gmm_ragged_launch(const void* x, const void* wa, const void* wb,
-                                 const void* gs, void* out, int G, int C,
-                                 int D, int F, int gpw, int dtype, int dual,
-                                 void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* g = static_cast<const int*>(gs);
-  if (dtype == DT_F32) {
-    if (dual) dispatch<float, true>(x, wa, wb, g, out, G, C, D, F, gpw, st);
-    else dispatch<float, false>(x, wa, wb, g, out, G, C, D, F, gpw, st);
-  } else if (dtype == DT_BF16) {
-    if (dual) dispatch<__nv_bfloat16, true>(x, wa, wb, g, out, G, C, D, F, gpw, st);
-    else dispatch<__nv_bfloat16, false>(x, wa, wb, g, out, G, C, D, F, gpw, st);
+// The three forms the wrappers launch: padded (both products), gather (the
+// SwiGLU front half) and scatter (the single product of the down
+// projection).
+template <typename T>
+int dispatch_layout(const void* x, const void* wa, const void* wb, const int* gs,
+                    const int* xofs, const int* oofs, void* out, int G, int C,
+                    int D, int F, int gpw, int in_rows, int out_rows, bool dual,
+                    cudaStream_t st) {
+  if (!xofs && !oofs) {
+    const Rows<false, false> rw{nullptr, nullptr, 0, 0};
+    if (dual) dispatch<T, true>(x, wa, wb, gs, out, G, C, D, F, gpw, rw, st);
+    else dispatch<T, false>(x, wa, wb, gs, out, G, C, D, F, gpw, rw, st);
+  } else if (xofs && !oofs && dual) {
+    const Rows<true, false> rw{xofs, nullptr, in_rows, 0};
+    dispatch<T, true>(x, wa, wb, gs, out, G, C, D, F, gpw, rw, st);
+  } else if (!xofs && oofs && !dual) {
+    const Rows<false, true> rw{nullptr, oofs, 0, out_rows};
+    dispatch<T, false>(x, wa, wb, gs, out, G, C, D, F, gpw, rw, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// x (G, C, D) or, with xofs, flat (in_rows, D); wa/wb (G/gpw, D, F);
+// gs (G,) int32; out (G, C, F) or, with oofs, flat (out_rows, F); xofs and
+// oofs (G,) int32 or null: padded, gather (dual only) or scatter (single
+// product only). All contiguous, 16-byte aligned, D and F multiples of
+// 16 / sizeof(T). wb is read only when dual != 0. Returns
+// cudaGetLastError() after launch.
+extern "C" int gmm_ragged_launch(const void* x, const void* wa, const void* wb,
+                                 const void* gs, const void* xofs,
+                                 const void* oofs, void* out, int G, int C,
+                                 int D, int F, int gpw, int in_rows,
+                                 int out_rows, int dtype, int dual,
+                                 void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* g = static_cast<const int*>(gs);
+  const int* xo = static_cast<const int*>(xofs);
+  const int* oo = static_cast<const int*>(oofs);
+  if (dtype == DT_F32)
+    return dispatch_layout<float>(x, wa, wb, g, xo, oo, out, G, C, D, F, gpw,
+                                  in_rows, out_rows, dual != 0, st);
+  if (dtype == DT_BF16)
+    return dispatch_layout<__nv_bfloat16>(x, wa, wb, g, xo, oo, out, G, C, D, F,
+                                          gpw, in_rows, out_rows, dual != 0, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

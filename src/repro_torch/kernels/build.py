@@ -23,7 +23,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("gmm_ragged", "flash_decode_paged", "flash_attention")
+SOURCES = (
+    "gmm_ragged", "gmm_fused_ffn", "flash_decode", "flash_decode_paged",
+    "flash_attention",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

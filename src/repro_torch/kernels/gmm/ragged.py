@@ -1,6 +1,18 @@
-"""Wrappers for the ragged grouped-matmul CUDA kernels
-(``csrc/gmm_ragged.cu``), replacing the TPU kernels
-``repro/kernels/gmm/ragged.py::gmm_ragged`` and ``::gmm_dual_act_ragged``.
+"""Wrappers for the ragged grouped-matmul CUDA kernels, replacing the TPU
+kernels of ``repro/kernels/gmm/ragged.py``:
+
+* ``gmm_ragged``, ``gmm_dual_act_ragged`` (padded buckets in and out),
+  ``gmm_dual_act_gather`` (flat rows in) and ``gmm_scatter`` (flat rows
+  out) — one body per capacity in ``csrc/gmm_ragged.cu``, which differ only
+  in where a group's rows live;
+* ``gmm_fused_ffn`` — flat rows in, the hidden block on chip, flat rows out
+  (``csrc/gmm_fused_ffn.cu``).
+
+Flat layouts: group g's rows are ``[offsets[g], offsets[g] + count_g)`` of
+an (R, ·) array, ``count_g = min(group_sizes[g], capacity)``. The kernels
+read and write only those rows: a flat output keeps whatever its other rows
+held (pass ``out=`` to choose; by default they are zeros, as the plain
+version gives).
 
 On a CUDA tensor a wrapper launches its kernel (or raises on what the
 kernel does not take); on a CPU tensor it runs the plain version in
@@ -27,10 +39,17 @@ def can_gmm(d: int, f: int, dtype: torch.dtype) -> bool:
     return d % vec == 0 and f % vec == 0
 
 
-def _check(x, ws, group_sizes, gpw: int, name: str):
-    if x.dim() != 3:
-        raise ValueError(f"{name}: x must be (G, C, D), got {tuple(x.shape)}")
-    g, c, d = x.shape
+def _check(x, ws, group_sizes, gpw: int, name: str, g: int | None = None):
+    """Validate a grouped matmul's operands. ``x`` is (G, C, D) padded
+    buckets, or (R, D) flat rows when ``g`` (the group count) is given."""
+    if g is None:
+        if x.dim() != 3:
+            raise ValueError(f"{name}: x must be (G, C, D), got {tuple(x.shape)}")
+        g, c, d = x.shape
+    else:
+        if x.dim() != 2:
+            raise ValueError(f"{name}: x must be flat (R, D), got {tuple(x.shape)}")
+        c, d = x.shape
     f = ws[0].shape[-1]
     for w in ws:
         if w.shape != (g // gpw, d, f) or g % gpw:
@@ -58,19 +77,51 @@ def _check(x, ws, group_sizes, gpw: int, name: str):
     return g, c, d, f
 
 
-def _launch(x, wa, wb, group_sizes, gpw: int, dual: bool) -> torch.Tensor:
-    name = "gmm_dual_act_ragged" if dual else "gmm_ragged"
+def _launch(x, wa, wb, group_sizes, gpw: int, dual: bool, *, name: str,
+            capacity: int | None = None, offsets=None, out=None,
+            out_rows: int | None = None) -> torch.Tensor:
+    """One launch of ``gmm_ragged_launch``: padded buckets by default; a
+    flat (R, D) input with ``capacity`` (gather); a flat (out_rows, F)
+    output with ``out_rows`` (scatter)."""
     ws = (wa, wb) if dual else (wa,)
-    g, c, d, f = _check(x, ws, group_sizes, gpw, name)
-    out = torch.empty((g, c, f), dtype=x.dtype, device=x.device)
-    fn = build.entry("gmm_ragged", "gmm_ragged_launch", 5, 7)
+    gather, scatter = capacity is not None, out_rows is not None
+    g = offsets.shape[0] if gather else None
+    g, c, d, f = _check(x, ws, group_sizes, gpw, name, g)
+    cap = capacity if gather else c
+    if gather or scatter:
+        _check_offsets(offsets, g, x.device, name)
+    if scatter:
+        out = _flat_out(out, (out_rows, f), x, name)
+    else:
+        out = torch.empty((g, cap, f), dtype=x.dtype, device=x.device)
+    fn = build.entry("gmm_ragged", "gmm_ragged_launch", 7, 9)
     rc = fn(
         x.data_ptr(), wa.data_ptr(), (wb if dual else wa).data_ptr(),
-        group_sizes.data_ptr(), out.data_ptr(),
-        g, c, d, f, gpw, DTYPES[x.dtype], int(dual),
+        group_sizes.data_ptr(), offsets.data_ptr() if gather else None,
+        offsets.data_ptr() if scatter else None, out.data_ptr(),
+        g, cap, d, f, gpw, c if gather else 0, out_rows or 0,
+        DTYPES[x.dtype], int(dual),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(rc, name)
+    return out
+
+
+def _check_offsets(offsets, g: int, device, name: str) -> None:
+    if offsets.shape != (g,) or offsets.dtype != torch.int32:
+        raise ValueError(f"{name}: offsets must be int32 of shape ({g},)")
+    if offsets.device != device or not offsets.is_contiguous():
+        raise ValueError(f"{name}: offsets must be contiguous on {device}")
+
+
+def _flat_out(out, shape, x, name: str) -> torch.Tensor:
+    """The flat output: ``out`` checked, or a new zero array."""
+    if out is None:
+        return torch.zeros(shape, dtype=x.dtype, device=x.device)
+    if out.shape != shape or out.dtype != x.dtype or out.device != x.device:
+        raise ValueError(f"{name}: out must be {x.dtype} {shape} on {x.device}")
+    if not out.is_contiguous() or out.data_ptr() % 16:
+        raise ValueError(f"{name}: out must be contiguous and 16-byte aligned")
     return out
 
 
@@ -78,7 +129,8 @@ def gmm_ragged(x, w, group_sizes, groups_per_weight: int = 1) -> torch.Tensor:
     """y[g, :count_g] = x[g, :count_g] @ w[g // gpw]; tail rows zero."""
     if not x.is_cuda:
         return ref.gmm_ragged(x, w, group_sizes, groups_per_weight)
-    out = _launch(x, w, None, group_sizes, groups_per_weight, dual=False)
+    out = _launch(x, w, None, group_sizes, groups_per_weight, dual=False,
+                  name="gmm_ragged")
     gmm_ragged.launches += 1
     return out
 
@@ -89,10 +141,72 @@ def gmm_dual_act_ragged(
     """h[g] = silu(x@wg) * (x@wu) on the first count_g rows; tail zero."""
     if not x.is_cuda:
         return ref.gmm_dual_act_ragged(x, wg, wu, group_sizes, groups_per_weight)
-    out = _launch(x, wg, wu, group_sizes, groups_per_weight, dual=True)
+    out = _launch(x, wg, wu, group_sizes, groups_per_weight, dual=True,
+                  name="gmm_dual_act_ragged")
     gmm_dual_act_ragged.launches += 1
+    return out
+
+
+def gmm_dual_act_gather(x, wg, wu, offsets, group_sizes, capacity: int,
+                        groups_per_weight: int = 1) -> torch.Tensor:
+    """h[g, :count_g] = silu(rows_g @ wg) * (rows_g @ wu) with rows_g read
+    from the flat (R, D) array at ``offsets[g]``: (G, capacity, F), zero
+    tails (replaces ``ragged.py::gmm_dual_act_gather``)."""
+    if not x.is_cuda:
+        return ref.gmm_dual_act_gather(x, wg, wu, offsets, group_sizes, capacity,
+                                       groups_per_weight)
+    out = _launch(x, wg, wu, group_sizes, groups_per_weight, dual=True,
+                  name="gmm_dual_act_gather", capacity=capacity, offsets=offsets)
+    gmm_dual_act_gather.launches += 1
+    return out
+
+
+def gmm_scatter(x, w, offsets, group_sizes, out_rows: int,
+                groups_per_weight: int = 1, out=None) -> torch.Tensor:
+    """out[offsets[g] + i] = x[g, i] @ w[g // gpw] for i < count_g, into a
+    flat (out_rows, F) array; no other row is written (replaces
+    ``ragged.py::gmm_scatter``)."""
+    if not x.is_cuda:
+        return ref.gmm_scatter(x, w, offsets, group_sizes, out_rows,
+                               groups_per_weight, out)
+    out = _launch(x, w, None, group_sizes, groups_per_weight, dual=False,
+                  name="gmm_scatter", offsets=offsets, out=out, out_rows=out_rows)
+    gmm_scatter.launches += 1
+    return out
+
+
+def gmm_fused_ffn(x, wg, wu, wd, offsets, group_sizes, capacity: int,
+                  groups_per_weight: int = 1, out=None) -> torch.Tensor:
+    """out[offsets[g] + i] = (silu(r @ wg) * (r @ wu)) @ wd for the rows
+    r = x[offsets[g] + i], i < count_g, in one kernel: the hidden block is
+    cast to x.dtype on chip and never stored (replaces
+    ``ragged.py::gmm_fused_ffn``). (R, D) -> (R, D_out); no other row is
+    written."""
+    if not x.is_cuda:
+        return ref.gmm_fused_ffn(x, wg, wu, wd, offsets, group_sizes, capacity,
+                                 groups_per_weight, out)
+    name = "gmm_fused_ffn"
+    g = offsets.shape[0]
+    _, r, d, f = _check(x, (wg, wu), group_sizes, groups_per_weight, name, g)
+    d_out = wd.shape[-1]
+    # w_down as the weight of a flat (0, F) input: shape, dtype, gate, layout
+    _check(x.new_empty((0, f)), (wd,), group_sizes, groups_per_weight, name, g)
+    _check_offsets(offsets, g, x.device, name)
+    out = _flat_out(out, (r, d_out), x, name)
+    fn = build.entry("gmm_fused_ffn", "gmm_fused_ffn_launch", 7, 8)
+    rc = fn(
+        x.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
+        offsets.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),
+        g, capacity, d, f, d_out, groups_per_weight, r, DTYPES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check(rc, name)
+    gmm_fused_ffn.launches += 1
     return out
 
 
 gmm_ragged.launches = 0
 gmm_dual_act_ragged.launches = 0
+gmm_dual_act_gather.launches = 0
+gmm_scatter.launches = 0
+gmm_fused_ffn.launches = 0

@@ -66,3 +66,93 @@ def expert_ffn_ragged(
     hidden tensor in x.dtype between the two products."""
     h = gmm_dual_act_ragged(x, wg, wu, group_sizes, groups_per_weight)
     return gmm_ragged(h, wd, group_sizes, groups_per_weight)
+
+
+# ---------------------------------------------------------------------------
+# flat-row layouts: gather prologue, scatter epilogue, fused FFN
+# ---------------------------------------------------------------------------
+#
+# Bucket g's rows sit at [offsets[g], offsets[g] + count_g) of a flat (R, D)
+# array (count_g = min(group_sizes[g], capacity)). Rows between segments
+# (dropped copies) may hold anything, NaN included: they are never read,
+# and the scatter never writes them.
+
+def _segment_rows(offsets: torch.Tensor, group_sizes: torch.Tensor, capacity: int):
+    """(G, capacity) flat row of each bucket position, and its live mask."""
+    pos = torch.arange(capacity, device=offsets.device)
+    idx = offsets.long()[:, None] + pos[None, :]
+    live = pos[None, :] < group_sizes.long()[:, None]
+    return idx, live
+
+
+def gather_buckets(
+    x: torch.Tensor,             # (R, D) flat rows, bucket-contiguous
+    offsets: torch.Tensor,       # (G,) int32
+    group_sizes: torch.Tensor,   # (G,) int32
+    capacity: int,
+) -> torch.Tensor:
+    """The (G, capacity, D) buckets the gather kernels never write: live
+    positions hold their flat row, the rest are exact zeros."""
+    idx, live = _segment_rows(offsets, group_sizes, capacity)
+    buckets = x[idx.clamp(0, max(x.shape[0] - 1, 0))]
+    return torch.where(live[..., None], buckets,
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def scatter_rows(
+    y: torch.Tensor,             # (G, capacity, D) bucket-padded values
+    offsets: torch.Tensor,
+    group_sizes: torch.Tensor,
+    out_rows: int,
+    out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Inverse of :func:`gather_buckets`: bucket g's first count_g rows land
+    at ``[offsets[g], offsets[g] + count_g)`` of a flat ``(out_rows, D)``
+    array. Rows no live segment covers keep what ``out`` held (zeros when
+    ``out`` is None, as the JAX oracle gives)."""
+    g, cap, d = y.shape
+    idx, live = _segment_rows(offsets, group_sizes, cap)
+    flat = torch.where(live & (idx < out_rows), idx, out_rows)    # drop row
+    ext = y.new_zeros((out_rows + 1, d)) if out is None else torch.cat(
+        [out, out.new_zeros((1, d))])
+    ext[flat.reshape(-1)] = y.reshape(g * cap, d)
+    if out is None:
+        return ext[:out_rows]
+    out.copy_(ext[:out_rows])
+    return out
+
+
+def gmm_dual_act_gather(x, wg, wu, offsets, group_sizes, capacity: int,
+                        groups_per_weight: int = 1) -> torch.Tensor:
+    """:func:`gmm_dual_act_ragged` over the buckets gathered from flat rows:
+    (R, D) -> (G, capacity, F) with zero tails."""
+    buckets = gather_buckets(x, offsets, group_sizes, capacity)
+    return gmm_dual_act_ragged(buckets, wg, wu, group_sizes, groups_per_weight)
+
+
+def gmm_scatter(x, w, offsets, group_sizes, out_rows: int,
+                groups_per_weight: int = 1, out=None) -> torch.Tensor:
+    """:func:`gmm_ragged` whose live rows are stored at the bucket offsets of
+    a flat (out_rows, F) array (see :func:`scatter_rows`)."""
+    y = gmm_ragged(x, w, group_sizes, groups_per_weight)
+    return scatter_rows(y, offsets, group_sizes, out_rows, out)
+
+
+def expert_ffn_compact(x, wg, wu, wd, offsets, group_sizes, capacity: int,
+                       groups_per_weight: int = 1, out=None) -> torch.Tensor:
+    """The gather + scatter pair: flat rows in, flat rows out at the same
+    offsets, the hidden tensor in x.dtype between the two."""
+    h = gmm_dual_act_gather(x, wg, wu, offsets, group_sizes, capacity,
+                            groups_per_weight)
+    return gmm_scatter(h, wd, offsets, group_sizes, x.shape[0],
+                       groups_per_weight, out)
+
+
+def gmm_fused_ffn(x, wg, wu, wd, offsets, group_sizes, capacity: int,
+                  groups_per_weight: int = 1, out=None) -> torch.Tensor:
+    """Plain version of the one-kernel FFN: the fusion keeps the hidden
+    tensor out of device memory and changes no arithmetic (the hidden block
+    is cast to x.dtype as in the pair), so it is the pair composed. ``wd``
+    may have another output width than D: the result is (R, D_out)."""
+    return expert_ffn_compact(x, wg, wu, wd, offsets, group_sizes, capacity,
+                              groups_per_weight, out)

@@ -3,10 +3,15 @@
 Model code decides once, with ``ParallelCtx.kernels_on(tensor)``, whether
 a call takes a kernel; when it does, it calls these names:
 
-* ``expert_ffn``          — count-aware grouped SwiGLU FFN
-  (``gmm_dual_act_ragged`` + ``gmm_ragged``);
+* ``expert_ffn``          — count-aware grouped SwiGLU FFN over padded
+  buckets (``gmm_dual_act_ragged`` + ``gmm_ragged``);
+* ``expert_ffn_from_rows`` — the same FFN over flat dispatch-ordered rows
+  (``gmm_dual_act_gather`` + ``gmm_ragged``, or with ``compact_out`` +
+  ``gmm_scatter``, or with ``fused`` the one kernel ``gmm_fused_ffn``);
 * ``attend``              — causal/bidirectional GQA flash attention
   (the ``flash_attention`` wrapper);
+* ``decode_attend``       — one-token decode over a dense cache with a
+  validity mask (the ``flash_decode`` wrapper);
 * ``decode_attend_paged`` — one-token decode over a paged KV pool (the
   ``flash_decode_paged`` wrapper).
 
@@ -25,19 +30,33 @@ from repro_torch.kernels.flash_attention.flash_attention import (
     can_flash_attend,
     flash_attention,
 )
+from repro_torch.kernels.flash_decode.flash_decode import can_flash_decode, flash_decode
 from repro_torch.kernels.flash_decode.paged import (
     can_flash_decode_paged,
     flash_decode_paged,
 )
-from repro_torch.kernels.gmm.ragged import can_gmm, gmm_dual_act_ragged, gmm_ragged
+from repro_torch.kernels.gmm.ragged import (
+    can_gmm,
+    gmm_dual_act_gather,
+    gmm_dual_act_ragged,
+    gmm_fused_ffn,
+    gmm_ragged,
+    gmm_scatter,
+)
 
 __all__ = [
+    "FUSED_FFN_MAX_DOWN_DIM",
     "attend",
     "can_flash_attend",
+    "can_flash_decode",
     "can_flash_decode_paged",
     "can_gmm",
+    "can_gmm_fused",
+    "can_gmm_gather",
+    "decode_attend",
     "decode_attend_paged",
     "expert_ffn",
+    "expert_ffn_from_rows",
 ]
 
 attend = flash_attention
@@ -56,3 +75,79 @@ def expert_ffn(
     cost no weight traffic on the card."""
     h = gmm_dual_act_ragged(x, wg, wu, group_sizes, groups_per_weight)
     return gmm_ragged(h, wd, group_sizes, groups_per_weight)
+
+
+def can_gmm_gather(capacity: int, d: int, f: int, dtype: torch.dtype) -> bool:
+    """Can the gather/scatter pair take flat rows into (G, capacity)
+    buckets with (d, f) expert dims? The ragged kernels' gate both ways
+    (any capacity: row tiles are bounds-checked)."""
+    return can_gmm(d, f, dtype) and can_gmm(f, d, dtype)
+
+
+# The reference's bound for the one-kernel FFN: its (bm, d_out) output
+# accumulator, staging tile and w_down panel scale with d_out and must fit
+# VMEM, so wider models take the gather + scatter pair. Kept at the same
+# value so the port makes the same fused-or-pair decision at every shape
+# (the CUDA kernel tiles d_out over blocks and has no such limit itself).
+FUSED_FFN_MAX_DOWN_DIM = 4096
+
+
+def can_gmm_fused(capacity: int, d: int, f: int, dtype: torch.dtype,
+                  d_out: int | None = None) -> bool:
+    """Can ``gmm_fused_ffn`` take flat rows with (d, f, d_out) expert dims?
+    The pair's gates plus the reference's bound on ``d_out`` (default d)."""
+    d_out = d if d_out is None else d_out
+    return (can_gmm(d, f, dtype) and can_gmm(f, d_out, dtype)
+            and d_out <= FUSED_FFN_MAX_DOWN_DIM)
+
+
+def expert_ffn_from_rows(
+    x: torch.Tensor,             # (R, D) flat rows, bucket-contiguous
+    wg: torch.Tensor,            # (G/gpw, D, F)
+    wu: torch.Tensor,            # (G/gpw, D, F)
+    wd: torch.Tensor,            # (G/gpw, F, D_out)
+    offsets: torch.Tensor,       # (G,) int32 first row of each bucket
+    group_sizes: torch.Tensor,   # (G,) int32 rows of each bucket
+    *,
+    capacity: int,
+    groups_per_weight: int = 1,
+    compact_out: bool = False,
+    fused: bool = False,
+) -> torch.Tensor:
+    """Grouped SwiGLU FFN over flat rows: bucket g's tokens are rows
+    ``offsets[g] .. offsets[g] + count_g`` of ``x``, read in place (the
+    padded ``(G, capacity, D)`` dispatch buffer is never written).
+
+    By default the output is bucket-padded ``(G, capacity, D_out)`` with
+    zero tails. ``compact_out=True`` stores the result back at the same
+    offsets, a flat ``(R, D_out)`` array whose rows outside live segments
+    are unspecified (the caller combines through the dispatch metadata,
+    ``collectives.combine_from_rows``). ``fused=True`` (requires
+    ``compact_out``) runs the three products as one kernel when
+    :func:`can_gmm_fused` admits the shapes, and the gather + scatter pair
+    otherwise — the reference's decision at every shape."""
+    if fused and not compact_out:
+        raise ValueError(
+            "expert_ffn_from_rows: fused=True requires compact_out=True — the "
+            "one-kernel path always emits the flat compact layout"
+        )
+    gpw = groups_per_weight
+    offsets = offsets.to(torch.int32)
+    group_sizes = group_sizes.to(torch.int32)
+    if fused and can_gmm_fused(capacity, x.shape[-1], wg.shape[-1], x.dtype,
+                               wd.shape[-1]):
+        return gmm_fused_ffn(x, wg, wu, wd, offsets, group_sizes, capacity, gpw)
+    h = gmm_dual_act_gather(x, wg, wu, offsets, group_sizes, capacity, gpw)
+    if compact_out:
+        return gmm_scatter(h, wd, offsets, group_sizes, x.shape[0], gpw)
+    return gmm_ragged(h, wd, group_sizes, gpw)
+
+
+def decode_attend(
+    q: torch.Tensor,        # (B, H, hd) — the new token's queries
+    k: torch.Tensor,        # (B, T, K, hd)
+    v: torch.Tensor,        # (B, T, K, hd)
+    valid: torch.Tensor,    # (B, T) bool/int cache-slot validity
+) -> torch.Tensor:
+    """One-token GQA decode over a dense cache (``flash_decode``)."""
+    return flash_decode(q, k, v, valid.to(torch.int32).contiguous())

@@ -1,10 +1,15 @@
 """Serving driver: batched generation with the NI-Balancer active.
 
 Runs on the card by default; ``--device cpu`` takes the plain PyTorch path.
+The KV cache is dense unless ``--paged`` asks for the page pool, as in the
+reference's CLI.
 
-Example (CPU, smoke size):
+Examples (CPU, smoke size):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx-132b --smoke \
-      --device cpu --requests 4 --prompt-len 16 --gen 8 --virtual-ep 4 --slots 3
+      --device cpu --requests 4 --prompt-len 16 --gen 8 --virtual-ep 4 --slots 3 \
+      --paged
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b --smoke \
+      --device cpu --moe-impl esp --virtual-ep 1
 """
 
 from __future__ import annotations
@@ -48,6 +53,12 @@ def main(argv=None):
     ap.add_argument("--slots", type=int, default=2)
     ap.add_argument("--virtual-ep", type=int, default=4)
     ap.add_argument("--alpha", type=float, default=0.5)
+    ap.add_argument("--moe-impl", default="auto", choices=("auto", "dense", "ep", "esp"),
+                    help="MoE path; esp serves the experts' own weights, so "
+                    "pair it with --virtual-ep 1")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV cache: shared page pool + per-request block "
+                    "tables (default: one dense cache per layer)")
     ap.add_argument("--page-size", type=int, default=128)
     ap.add_argument("--pool-pages", type=int, default=None)
     ap.add_argument("--ep-chunks", type=int, default=1)
@@ -62,11 +73,12 @@ def main(argv=None):
         cfg = smoke_cfg(cfg)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
-    ctx = ParallelCtx(capacity_factor=2.0, use_kernels=parse_use_kernels(args.use_kernels))
+    ctx = ParallelCtx(moe_impl=args.moe_impl, capacity_factor=2.0,
+                      use_kernels=parse_use_kernels(args.use_kernels))
     params = T.init_params(cfg, seed=args.seed, dtype=DTYPES[args.dtype], device=device)
     scfg = ServeConfig(
         max_seq=args.max_seq, batch=args.requests, slots_per_device=args.slots,
-        alpha=args.alpha, paged=True, page_size=args.page_size,
+        alpha=args.alpha, paged=args.paged, page_size=args.page_size,
         pool_pages=args.pool_pages, virtual_ep=args.virtual_ep,
         ep_chunks=args.ep_chunks,
     )

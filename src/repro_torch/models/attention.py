@@ -1,12 +1,13 @@
-"""GQA attention: prefill over full sequences, decode against a paged KV
-cache (PyTorch port of ``repro.models.attention``, no-mesh subset).
+"""GQA attention: prefill over full sequences, decode against a dense or a
+paged KV cache (PyTorch port of ``repro.models.attention``, no-mesh subset).
 
 Layout conventions: activations ``(batch, seq, d_model)``; q ``(B,S,H,hd)``;
 k/v ``(B,S,K,hd)`` with ``K = n_kv_heads``; GQA in grouped form, softmax in
-fp32. The paged cache is a shared page pool plus per-request block tables;
-the port writes K/V into the pool *in place* (JAX returns new arrays), which
-keeps one copy of the pool resident. The dense (non-paged) decode cache and
-the chunked-prefill lane come with later slices.
+fp32. The dense cache is ``(B, L, K, hd)`` per layer, a ring of
+``L = cache_len`` slots under a sliding window; the paged cache is a shared
+page pool plus per-request block tables. The port writes K/V into either
+cache *in place* (JAX returns new arrays), which keeps one copy resident.
+The chunked-prefill lane comes with a later slice.
 """
 
 from __future__ import annotations
@@ -165,6 +166,31 @@ def cache_len(cfg: ModelConfig, max_seq: int) -> int:
     return min(max_seq, w) if w else max_seq
 
 
+def cache_init(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.float32,
+               device="cpu") -> dict:
+    """Dense decode cache ``{"k", "v"}`` of ``(B, cache_len, K, hd)``."""
+    shape = (batch, cache_len(cfg, max_seq), cfg.n_kv_heads, cfg.head_dim_)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def dense_prefill_fill(cache: dict, k: torch.Tensor, v: torch.Tensor,
+                       cfg: ModelConfig) -> dict:
+    """Write a prefill's K/V into a dense cache, in place: the last
+    ``cache_len`` positions, rolled under a sliding window so that slot
+    ``j`` holds the position ``p`` with ``p % L == j`` (the decode ring)."""
+    s = k.shape[1]
+    length = cache["k"].shape[1]
+    kk, vv = k[:, -length:], v[:, -length:]
+    if cfg.sliding_window and s >= length:
+        kk = torch.roll(kk, s % length, dims=1)
+        vv = torch.roll(vv, s % length, dims=1)
+    n = kk.shape[1]
+    cache["k"][:, :n] = kk.to(cache["k"].dtype)
+    cache["v"][:, :n] = vv.to(cache["v"].dtype)
+    return cache
+
+
 def paged_layout(cfg: ModelConfig, max_seq: int, page_size: int = PAGE_SIZE):
     """``(page_size, n_blocks)`` for a paged cache of ``max_seq`` context
     (a sliding-window ring shrinks the page to a divisor of its length)."""
@@ -232,14 +258,54 @@ def paged_prefill_fill(cache: dict, k: torch.Tensor, v: torch.Tensor, s: int,
     return {"pool_k": pool_k, "pool_v": pool_v, "tables": tables, "lengths": written}
 
 
-def decode_attention(p: dict, x: torch.Tensor, cache: dict, pos,
+def decode_attention(p: dict, x: torch.Tensor, cache: dict, pos: int,
                      cfg: ModelConfig, ctx: ParallelCtx):
-    if not is_paged(cache):
-        raise NotImplementedError(
-            "the dense (non-paged) decode cache is not ported yet; serve with "
-            "paged=True (ROADMAP: dense cache + flash_decode)"
-        )
-    return _paged_decode_attention(p, x, cache, cfg, ctx)
+    """One decode step: ``x`` (B, 1, d) against a dense ``{"k", "v"}`` cache
+    at the shared absolute position ``pos`` (a host int), or a paged cache
+    at each request's own length. Returns ``(out, cache)``; the cache is
+    updated in place."""
+    if is_paged(cache):
+        return _paged_decode_attention(p, x, cache, cfg, ctx)
+    b = x.shape[0]
+    q, k_new, v_new = qkv_proj(p, x, cfg)
+    if cfg.rope_theta > 0:
+        posb = torch.full((b, 1), pos, device=x.device)
+        q = apply_rope(q, posb, cfg.rope_theta)
+        k_new = apply_rope(k_new, posb, cfg.rope_theta)
+
+    k_cache, v_cache = cache["k"], cache["v"]
+    length = k_cache.shape[1]
+    w = cfg.sliding_window or 0
+    # Full attention at pos >= length: the cache is full. Freeze it (skip
+    # the write that would clobber the last slot) and clamp the mask, so
+    # slot j always holds position j; serving refuses such steps anyway.
+    if w > 0 or pos < length:
+        slot = pos % length if w > 0 else pos
+        k_cache[:, slot] = k_new[:, 0].to(k_cache.dtype)
+        v_cache[:, slot] = v_new[:, 0].to(v_cache.dtype)
+
+    j = torch.arange(length, device=x.device)
+    if w > 0:
+        # ring buffer: slot j holds absolute position pos - ((pos - j) % L);
+        # negative => never written yet
+        mask = pos - torch.remainder(pos - j, length) >= 0
+    else:
+        mask = j <= min(pos, length - 1)
+    if ctx.kernels_on(q):
+        o = _flash_decode(q, k_cache, v_cache, mask)
+    else:
+        o = gqa_attend(q, k_cache, v_cache, mask[None, None, None, None, :])
+    return out_proj(p, o), cache
+
+
+def _flash_decode(q, k_cache, v_cache, mask):
+    """q (B, 1, H, hd) against the dense cache through ``flash_decode``;
+    ``mask`` (L,) is every request's validity (they share ``pos``). With
+    no mesh every shape the kernel's gate takes is eligible (its wrapper
+    raises on the rest: no fallback on the card)."""
+    b = q.shape[0]
+    valid = mask[None, :].expand(b, mask.shape[0])
+    return registry.decode_attend(q[:, 0].contiguous(), k_cache, v_cache, valid)[:, None]
 
 
 def _paged_decode_attention(p: dict, x: torch.Tensor, cache: dict,

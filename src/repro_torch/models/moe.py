@@ -1,12 +1,14 @@
-"""MoE layer: router, dense oracle and no-mesh expert parallelism.
+"""MoE layer: router, dense oracle, ESP and no-mesh expert parallelism.
 
 * ``dense`` — every expert computed for every token, masked combine (the
   oracle, and the no-mesh default).
+* ``esp``   — expert-sharded FFN: tokens bucketed per expert locally (no
+  all-to-all); on one device it serves the experts' own weights through
+  the flat-row expert FFN (``registry.expert_ffn_from_rows``), the call
+  every rank of the multi-device EP path makes.
 * ``ep``    — fixed-capacity per-slot buckets over the placement table's
   routing view (``collectives.ep_moe_local``): the path the NI-Balancer
   serves on, with shadow replicas in extra slot rows.
-
-ESP (``moe_esp``) waits for the fused expert-FFN kernel.
 """
 
 from __future__ import annotations
@@ -15,12 +17,19 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import registry
 from repro_torch.models.layers import normal_init
 from repro_torch.parallel.collectives import (
+    bucket_capacity,
+    bucket_combine,
     bucket_counts,
+    bucket_dispatch,
+    combine_from_rows,
+    dispatch_metadata,
     ep_moe_local,
     tiled_placement,
     uniform_placement,
+    validate_ep_chunks,
 )
 from repro_torch.parallel.ctx import ParallelCtx
 from repro_torch.parallel.placement import PlacementTable
@@ -93,6 +102,72 @@ def moe_dense(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: ParallelCtx,
     return out, _aux(aux, ids, cfg)
 
 
+def moe_esp(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: ParallelCtx,
+            token_mask=None):
+    """ESP on one device: tokens are bucketed per expert (capacity
+    ``bucket_capacity(b*s, k, cf, E)``), each bucket runs its expert's
+    SwiGLU FFN, and the kept copies are combined with their router weights.
+
+    Unless the plain math is asked for (``use_kernels=False``), the buckets
+    are never written: ``dispatch_metadata`` orders the token copies by
+    expert, the FFN reads each bucket's rows in place and stores its output
+    back at the same rows (``compact_out``, and ``fused`` where
+    ``can_gmm_fused`` admits the shapes), and the combine gathers each kept
+    copy's row. On CPU tensors the same branch runs the kernels' plain
+    versions. ``ctx.ep_chunks = K`` splits the experts into K calls over
+    absolute offsets into the one flat array, merged per row by its owning
+    chunk (a select, no arithmetic), so the output is bit-identical to one
+    call. ``use_kernels=False`` takes the padded path: ``(E, cap, d)``
+    buckets, einsums, ``bucket_combine``."""
+    ids, w, aux = route(p, x, cfg)
+    ids = _mask_ids(ids, token_mask, cfg)
+    b, s, d = x.shape
+    k = cfg.experts_per_token
+    e = cfg.n_experts
+    n = b * s
+    kc = validate_ep_chunks(ctx.ep_chunks, where="moe_esp")
+    if kc > 1:
+        validate_ep_chunks(kc, e, where="moe_esp n_experts")
+    cap = bucket_capacity(n, k, ctx.capacity_factor, e)
+    ids2, w2 = ids.reshape(n, k), w.reshape(n, k)
+
+    if ctx.use_kernels is not False:
+        row_ids, offsets, counts, slots, keep = dispatch_metadata(ids2, e, cap)
+        rows = x.reshape(n, d)[row_ids.long()]
+        epc = e // kc
+
+        def chunk_ffn(c):
+            ws = slice(c * epc, (c + 1) * epc)
+            return registry.expert_ffn_from_rows(
+                rows, p["w_gate"][ws], p["w_up"][ws], p["w_down"][ws],
+                offsets[ws], counts[ws], capacity=cap, compact_out=True,
+                fused=True,
+            )
+
+        y = chunk_ffn(0)
+        if kc > 1:
+            # owning bucket of each flat row (offsets are the buckets' first
+            # rows); rows past the live span map to the last chunk and are
+            # never addressed by the combine
+            r_idx = torch.arange(rows.shape[0], dtype=torch.int32, device=x.device)
+            owner = torch.searchsorted(offsets, r_idx, right=True) - 1
+            owner_c = owner.clamp(0, e - 1) // epc
+            for c in range(1, kc):
+                y = torch.where((owner_c == c)[:, None], chunk_ffn(c), y)
+        # the masked-token sentinel E reads the last bucket's offset (JAX
+        # clamps the gather); its copy is never kept
+        flat_rows = offsets[ids2.long().clamp(max=e - 1)] + slots
+        out = combine_from_rows(y, flat_rows, keep, w2)
+        return out.reshape(b, s, d), _aux(aux, ids, cfg)
+
+    bufs, slots, keep = bucket_dispatch(x.reshape(n, d), ids2, e, cap)   # (E, cap, d)
+    h = torch.einsum("ecd,edf->ecf", bufs, p["w_gate"])
+    u = torch.einsum("ecd,edf->ecf", bufs, p["w_up"])
+    y = torch.einsum("ecf,efd->ecd", F.silu(h) * u, p["w_down"])
+    out = bucket_combine(y, ids2, slots, keep, w2)
+    return out.reshape(b, s, d), _aux(aux, ids, cfg)
+
+
 def moe_ep(
     p: dict,
     x: torch.Tensor,
@@ -158,11 +233,8 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: ParallelCtx,
         impl = "dense"           # no mesh
     if impl == "dense":
         return moe_dense(p, x, cfg, ctx, token_mask=token_mask)
+    if impl == "esp":
+        return moe_esp(p, x, cfg, ctx, token_mask=token_mask)
     if impl == "ep":
         return moe_ep(p, x, cfg, ctx, placement, token_mask=token_mask)
-    if impl == "esp":
-        raise NotImplementedError(
-            "moe_impl='esp' waits for the fused expert-FFN kernel "
-            "(ROADMAP: gmm_fused_ffn)"
-        )
     raise ValueError(f"unknown moe impl {impl!r}")

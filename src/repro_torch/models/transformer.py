@@ -1,5 +1,5 @@
 """Model assembly for the ``attn`` block pattern (decoder-only, dense or MoE
-FFN): init / prefill / one-token decode over a paged KV cache.
+FFN): init / prefill / one-token decode over a dense or a paged KV cache.
 
 PyTorch port of ``repro.models.transformer`` for the serving slice. Layers
 are stacked as ``(L, ...)`` tensors (so ``w[l]`` is a contiguous view) and
@@ -18,7 +18,10 @@ from repro_torch.models.attention import (
     PAGE_SIZE,
     attention,
     attn_init,
+    cache_init,
     decode_attention,
+    dense_prefill_fill,
+    is_paged,
     paged_cache_init,
     paged_prefill_fill,
 )
@@ -107,17 +110,17 @@ def _logits(params, x, cfg: ModelConfig):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.float32,
-               paged: bool = True, page_size: int = PAGE_SIZE,
+               paged: bool = False, page_size: int = PAGE_SIZE,
                n_pages: int | None = None, device="cpu") -> dict:
-    """Paged decode cache sized for ``max_seq`` context, one stacked leaf per
-    layer. ``pos`` is kept on the host (a Python int)."""
+    """Decode cache sized for ``max_seq`` context, one stacked leaf per
+    layer: dense ``(L, B, cache_len, K, hd)`` k/v, or with ``paged`` a
+    shared page pool + block tables. ``pos`` is kept on the host (a Python
+    int)."""
     _check_pattern(cfg)
-    if not paged:
-        raise NotImplementedError(
-            "the dense (non-paged) decode cache is not ported yet; use "
-            "paged=True (ROADMAP: dense cache + flash_decode)"
-        )
-    one = paged_cache_init(cfg, batch, max_seq, dtype, page_size, n_pages, device)
+    if paged:
+        one = paged_cache_init(cfg, batch, max_seq, dtype, page_size, n_pages, device)
+    else:
+        one = cache_init(cfg, batch, max_seq, dtype, device)
     layers = {
         k: v[None].expand(cfg.n_layers, *v.shape).clone() for k, v in one.items()
     }
@@ -164,7 +167,8 @@ def decode_step(
         c_l = _layer_cache(cache["layers"], l)
         z = rms_norm(x, p_l["ln1"], cfg.norm_eps)
         o, c_new = decode_attention(p_l["attn"], z, c_l, pos, cfg, ctx)
-        cache["layers"]["lengths"][l].copy_(c_new["lengths"])
+        if is_paged(c_new):
+            cache["layers"]["lengths"][l].copy_(c_new["lengths"])
         x = x + o
         z2 = rms_norm(x, p_l["ln2"], cfg.norm_eps)
         y, a = _block_ffn(p_l, z2, cfg, ctx, placement, token_mask)
@@ -181,17 +185,19 @@ def prefill(
     ctx: ParallelCtx = NO_MESH,
     max_seq: int | None = None,
     dtype=None,
-    paged: bool = True,
+    paged: bool = False,
     page_size: int = PAGE_SIZE,
     n_pages: int | None = None,
     tables: torch.Tensor | None = None,    # (B, NB) allocator block tables
     lengths: torch.Tensor | None = None,   # (B,) true prompt lengths
 ):
     """Process the prompts; return (last-position logits ``(B, 1, V)``,
-    primed paged cache). The cache takes the activations' dtype unless
-    ``dtype`` says otherwise. ``lengths`` marks true prompt lengths of
-    right-padded ragged batches (logits come from each request's last true
-    position)."""
+    primed cache, dense or with ``paged`` paged). The cache takes the
+    activations' dtype unless ``dtype`` says otherwise (the reference's
+    dense prefill caches in fp32 whatever the params' dtype). Paged mode:
+    ``tables`` are allocator block tables and ``lengths`` marks true prompt
+    lengths of right-padded ragged batches (logits come from each request's
+    last true position)."""
     _check_pattern(cfg)
     b, s = tokens.shape
     x = _embed(params, tokens)
@@ -209,8 +215,11 @@ def prefill(
         z = rms_norm(x, p_l["ln1"], cfg.norm_eps)
         o, (k, v) = attention(p_l["attn"], z, cfg, ctx, positions, return_kv=True)
         x = x + o
-        c_new = paged_prefill_fill(c_l, k, v, s, lengths)
-        cache["layers"]["lengths"][l].copy_(c_new["lengths"])
+        if paged:
+            c_new = paged_prefill_fill(c_l, k, v, s, lengths)
+            cache["layers"]["lengths"][l].copy_(c_new["lengths"])
+        else:
+            dense_prefill_fill(c_l, k, v, cfg)
         z2 = rms_norm(x, p_l["ln2"], cfg.norm_eps)
         y, _ = _block_ffn(p_l, z2, cfg, ctx, None, None)
         x = x + y

@@ -107,6 +107,26 @@ def bucket_combine(
     return torch.einsum("nkd,nk->nd", vals, w)
 
 
+def combine_from_rows(
+    y: torch.Tensor,        # (R, d) flat compact expert outputs
+    rows: torch.Tensor,     # (n, k) flat output row per copy (junk when dropped)
+    keep: torch.Tensor,     # (n, k) capacity-survival mask
+    weights: torch.Tensor,  # (n, k) router weights
+) -> torch.Tensor:
+    """Weighted sum of each token's kept copies, gathered from the compact
+    FFN output at their flat rows (no ``(n_buckets, capacity, d)`` buffer).
+    Rows between live segments are never written by the scatter and may
+    hold anything, NaN included, so a dropped copy selects zero with
+    ``where`` before any arithmetic (``0 * NaN`` would poison the token)."""
+    n, k = rows.shape
+    safe = rows.reshape(-1).long().clamp(0, y.shape[0] - 1)
+    vals = y[safe].reshape(n, k, -1)
+    vals = torch.where(keep[..., None], vals,
+                       torch.zeros((), dtype=vals.dtype, device=vals.device))
+    w = (weights * keep).to(vals.dtype)
+    return torch.einsum("nkd,nk->nd", vals, w)
+
+
 def kept_counts(bucket_ids: torch.Tensor, keep: torch.Tensor, n_buckets: int) -> torch.Tensor:
     """Per-bucket *kept* copy counts (capacity drops excluded), int32 —
     the ``group_sizes`` of the ragged GMM."""

@@ -21,7 +21,7 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class ParallelCtx:
-    moe_impl: str = "auto"           # auto | dense | ep
+    moe_impl: str = "auto"           # auto | dense | ep | esp
     capacity_factor: float = 2.0     # MoE dispatch capacity
     use_kernels: str | bool = "auto"
     # Split the expert groups into this many chunks for the grouped FFN

@@ -12,7 +12,8 @@ The ``Server`` owns
   per-step expert counts,
 * a :class:`~repro_torch.runtime.migration_driver.MigrationDriver`
   executing balancer plans as live stepped migrations,
-* a paged KV cache with a host-side :class:`PagePool` allocator.
+* a dense KV cache (the default), or a paged one with a host-side
+  :class:`PagePool` allocator.
 
 Every decode step: drain migrations (commit fully-copied replicas at the
 step boundary, then issue this tick's weight-row slices) -> route ->
@@ -20,9 +21,8 @@ dispatch -> observe counts -> (Eq. 2 trigger) -> plan with Algorithm 1 ->
 submit the plan to the driver. ``migration_slices=0`` keeps the
 instantaneous whole-expert copy as the parity baseline.
 
-Device failure handling (``mark_dead``/``revive``), snapshot restore, the
-chunked-prefill lane and the dense (non-paged) cache come with later
-slices.
+Device failure handling (``mark_dead``/``revive``), snapshot restore and
+the chunked-prefill lane come with later slices.
 """
 
 from __future__ import annotations
@@ -58,7 +58,8 @@ class ServeConfig:
     # Stepped migration: each planned migration copies its expert's weight
     # rows over this many decode ticks; 0 = instantaneous whole-expert copy.
     migration_slices: int = 4
-    # Paged KV cache (the only cache this port serves so far).
+    # Paged KV cache: shared page pool + per-request block tables (False =
+    # one dense (B, max_seq or window, K, hd) cache per layer).
     paged: bool = False
     page_size: int = A.PAGE_SIZE
     pool_pages: int | None = None  # None = fully backed (batch * NB)
@@ -166,11 +167,6 @@ class Server:
                 "ServeConfig(prefill_chunk=...) is not ported yet (ROADMAP: "
                 "chunk lane)"
             )
-        if not serve_cfg.paged:
-            raise NotImplementedError(
-                "the port serves the paged KV cache only; pass "
-                "ServeConfig(paged=True) (ROADMAP: dense cache + flash_decode)"
-            )
         self.cfg = cfg
         if serve_cfg.ep_chunks != ctx.ep_chunks:
             ctx = dataclasses.replace(ctx, ep_chunks=serve_cfg.ep_chunks)
@@ -187,6 +183,12 @@ class Server:
         if self.use_balancer:
             if ctx.moe_impl == "auto":
                 self.ctx = ctx = dataclasses.replace(ctx, moe_impl="ep")
+            if ctx.moe_impl != "ep":
+                raise ValueError(
+                    f"virtual_ep={self.ep} serves replica slots through "
+                    f"moe_impl='ep', not {ctx.moe_impl!r} (ESP serves the "
+                    f"experts' own weights: leave virtual_ep unset)"
+                )
             spd = serve_cfg.slots_per_device
             n_slots = self.ep * spd
             if n_slots < cfg.n_experts:
@@ -224,22 +226,24 @@ class Server:
             self.state = None
             self.driver = None
 
-        self.page_size, self.n_blocks = A.paged_layout(
-            cfg, serve_cfg.max_seq, serve_cfg.page_size
-        )
-        backed = serve_cfg.batch * self.n_blocks
-        self.n_pool_pages = serve_cfg.pool_pages or backed
-        self.page_pool = PagePool(self.n_pool_pages)
-        self.trash_page = self.n_pool_pages  # write-off page index
-        self._tables = np.full(
-            (serve_cfg.batch, self.n_blocks), self.trash_page, np.int32
-        )
-        self._pages: dict[int, list[int]] = {}
-        self._released: set[int] = set()
-        self._tables_dirty = False
-        # host mirror of per-request written counts: the block-boundary
-        # check must not force a device sync per token.
+        if serve_cfg.paged:
+            self.page_size, self.n_blocks = A.paged_layout(
+                cfg, serve_cfg.max_seq, serve_cfg.page_size
+            )
+            backed = serve_cfg.batch * self.n_blocks
+            self.n_pool_pages = serve_cfg.pool_pages or backed
+            self.page_pool = PagePool(self.n_pool_pages)
+            self.trash_page = self.n_pool_pages  # write-off page index
+            self._tables = np.full(
+                (serve_cfg.batch, self.n_blocks), self.trash_page, np.int32
+            )
+            self._pages: dict[int, list[int]] = {}
+            self._released: set[int] = set()
+            self._tables_dirty = False
+        # host mirror of per-request written counts (paged): the
+        # block-boundary check must not force a device sync per token.
         self._written: np.ndarray | None = None
+        # host mirror of cache["pos"]: the overflow guard reads no device.
         self._pos: int | None = None
         self._mask_key = None
         self._mask: torch.Tensor | None = None
@@ -249,7 +253,14 @@ class Server:
     def _moe(self) -> dict:
         return self.params["layers"]["moe"]
 
-    def _prefill(self, tokens, tables, lengths):
+    def _require_paged(self, what: str) -> None:
+        if not self.scfg.paged:
+            raise ValueError(f"{what} requires ServeConfig(paged=True)")
+
+    def _prefill(self, tokens, tables=None, lengths=None):
+        if not self.scfg.paged:
+            return T.prefill(self.params, tokens, self.cfg, self.ctx,
+                             max_seq=self.scfg.max_seq)
         return T.prefill(
             self.params, tokens, self.cfg, self.ctx,
             max_seq=self.scfg.max_seq, paged=True,
@@ -264,12 +275,16 @@ class Server:
     # -- request lifecycle ---------------------------------------------------
 
     def prefill(self, tokens, lengths=None):
-        """Prime a paged cache for a batch of prompts: allocate each
+        """Prime a cache for a batch of prompts. Paged: allocate each
         request's blocks from the shared pool (``lengths`` marks true prompt
-        lengths of right-padded ragged batches). Pages of a previously
+        lengths of right-padded ragged batches); pages of a previously
         prefilled batch are released first."""
         tokens = self._tokens(tokens)
         b, s = tokens.shape
+        if not self.scfg.paged:
+            logits, cache = self._prefill(tokens)
+            self._pos = s
+            return logits, cache
         lens = (
             np.full(b, s, np.int32) if lengths is None
             else np.asarray(lengths, np.int32)
@@ -295,6 +310,7 @@ class Server:
         also clear its table row and length now; without it, the device
         tables are refreshed on the next ``decode`` before any write.
         Raises :class:`SlotReleaseError` if the slot holds no pages."""
+        self._require_paged("release")
         if slot not in self._pages:
             raise SlotReleaseError(
                 f"release of slot {slot}, which holds no pages (already "
@@ -321,6 +337,7 @@ class Server:
         """A paged cache with every batch slot empty (the starting state for
         ``prefill_into_slot``); previously admitted pages go back to the
         pool."""
+        self._require_paged("empty_cache")
         b = self.scfg.batch
         for slot in list(self._pages):
             self.release(slot)
@@ -340,6 +357,7 @@ class Server:
         batch-1 prefill whose table indexes the same pool id space, then
         splice its pool pages, table row and length into ``cache`` (other
         rows untouched). Returns ``(logits (1, 1, V), cache)``."""
+        self._require_paged("prefill_into_slot")
         if slot in self._pages:
             raise RuntimeError(f"slot {slot} is still admitted; release it before reuse")
         if self._written is None:
@@ -414,26 +432,37 @@ class Server:
         if self._pos is None:
             self._pos = int(cache["pos"])
         pos = self._pos
-        cache = self._ensure_pages(cache)
-        if not self.cfg.sliding_window:
-            cap = self.n_blocks * self.page_size
-            live = self._pages or range(len(self._written))
-            full = [s for s in live if self._written[s] >= cap]
-            if full:
-                raise RuntimeError(
-                    f"decode past capacity={cap} for request(s) {full} "
-                    f"(cache full): release them or raise max_seq"
-                )
+        windowed = bool(self.cfg.sliding_window)
+        if self.scfg.paged:
+            cache = self._ensure_pages(cache)
+            if not windowed:
+                cap = self.n_blocks * self.page_size
+                live = self._pages or range(len(self._written))
+                full = [s for s in live if self._written[s] >= cap]
+                if full:
+                    raise RuntimeError(
+                        f"decode past capacity={cap} for request(s) {full} "
+                        f"(cache full): release them or raise max_seq"
+                    )
+        elif not windowed and pos >= self.scfg.max_seq:
+            # the dense cache freezes at capacity; serving refuses the step
+            raise RuntimeError(
+                f"decode past max_seq={self.scfg.max_seq} (cache full, "
+                f"pos={pos}): release the request or raise max_seq"
+            )
         if self.use_balancer:
             # Step boundary: commit migrations whose last slice landed, then
             # queue this tick's weight slices ahead of the step's kernels.
             self.drain_migrations()
         placement = self.table.device_view(self.device) if self.use_balancer else None
+        # paged serving masks released rows out of MoE routing; a dense
+        # batch is all live
+        slot_mask = self._slot_mask(token.shape[0]) if self.scfg.paged else None
         logits, cache, stats = T.decode_step(
             self.params, self._tokens(token), cache, self.cfg, self.ctx,
-            placement=placement, slot_mask=self._slot_mask(token.shape[0]),
+            placement=placement, slot_mask=slot_mask,
         )
-        if self._written is not None:
+        if self.scfg.paged and self._written is not None:
             for slot in range(len(self._written)):
                 if slot not in self._released:
                     self._written[slot] += 1

@@ -177,15 +177,20 @@ def test_serve_config_validation_and_unported_paths(jparams):
     with pytest.raises(ValueError, match="does not divide"):
         ServeConfig(slots_per_device=3, virtual_ep=4, ep_chunks=5)
     base = dict(max_seq=32, batch=2, slots_per_device=3, virtual_ep=4, page_size=8)
-    with pytest.raises(NotImplementedError, match="paged"):
-        Server(CFG, ParallelCtx(), _bridge(jparams), ServeConfig(**base), device="cpu")
+    # the dense cache (the default) serves, with the balancer live
+    srv = Server(CFG, ParallelCtx(), _bridge(jparams), ServeConfig(**base), device="cpu")
+    out = srv.generate(np.ones((2, 3), np.int32), 2)
+    assert out.shape == (2, 2) and srv.ctx.moe_impl == "ep"
     with pytest.raises(NotImplementedError, match="chunk lane"):
         Server(CFG, ParallelCtx(), _bridge(jparams),
                ServeConfig(paged=True, prefill_chunk=8, **base), device="cpu")
-    with pytest.raises(NotImplementedError, match="esp"):
+    # ESP serves the experts' own weights, on either cache
+    for paged in (False, True):
         srv = Server(CFG, ParallelCtx(moe_impl="esp"), _bridge(jparams),
-                     ServeConfig(paged=True, **base), device="cpu")
-        srv.generate(np.ones((2, 3), np.int32), 1)
+                     ServeConfig(paged=paged, max_seq=32, batch=2, page_size=8),
+                     device="cpu")
+        out = srv.generate(np.ones((2, 3), np.int32), 2)
+        assert out.shape == (2, 2) and not srv.use_balancer
     small = dataclasses.replace(CFG, n_experts=4)
     with pytest.raises(ValueError, match="not enough slots"):
         Server(small, ParallelCtx(), _bridge(jparams),
