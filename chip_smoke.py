@@ -14,6 +14,11 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    balancer on the paged cache, the other ESP on the dense cache with its
    sliding window kept and wrapped (it takes ``gmm_fused_ffn`` and
    ``flash_decode``);
+   A third small fp32 model is served under a 1 x 1 ``("data", "model")``
+   mesh over NCCL (a world of one): its greedy tokens with the kernels
+   must equal those of the plain path and of the same model's no-mesh EP
+   Server (it takes ``ep_moe_shardmap``'s all-to-all legs and the
+   sequence-parallel decode on ``flash_decode``'s partials mode);
 3. the main paths, each after a short warm-up run of its server, with
    prefill (TTFT) and the decode loop timed apart with CUDA events and 8
    more decode steps under ``torch.profiler`` for the device busy share.
@@ -24,8 +29,12 @@ Phases (one line each; any failure raises and the exit code is non-zero):
       stepped migration forced through ``apply_plan``, on the paged cache;
    b. ``Server.generate`` at mixtral-8x22b width (4 layers, bf16, the same
       traffic) with ESP on the dense cache;
+   c. ``Server.generate`` at dbrx-132b width (the same traffic) on the 1 x 1
+      NCCL mesh: EP through ``ep_moe_shardmap``, the dense cache of 1024
+      slots attended through the partials kernel and the LSE merge, the
+      balancer live with one forced migration;
    The expert groups' row counts (and offsets) of layer 0 in one prefill
-   and one decode tick of each are kept for phase 4;
+   and one decode tick of a and b are kept for phase 4;
 4. every kernel at the main paths' shapes and row counts, in bf16 and in
    fp32 (TF32 off), held elementwise against its plain PyTorch version
    (``repro_torch.kernels.tolerance``) with dead rows, gap rows of dropped
@@ -33,13 +42,16 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    filled with NaN first (rows outside the live segments must stay NaN);
    the bf16 GMMs also against the fp32 product of the same bf16 inputs;
    ``gmm_fused_ffn`` at the widest shape its gate admits (D = D_out =
-   4096) with mixtral's F, also against the kernel pair; deliberate faults
-   (a dropped K tile, a dropped live row, offsets one row off, a dropped
-   key, an invalid key read) must fail the bf16 limit. Then each kernel is
-   timed beside its plain version and a PyTorch library call the port never
-   makes, with its roofline bound;
-5. a ``{"kernels": [...]}`` line, the card line, and the final
-   ``{"ok": true, "device": {...}}`` line.
+   4096) with mixtral's F, also against the kernel pair; ``flash_decode``'s
+   partials mode with ``acc`` at the run's dtype limit and ``m``, ``l`` at
+   the fp32 limit, a slice with no valid key, and the merge of four slices
+   against the normalised kernel; deliberate faults (a dropped K tile, a
+   dropped live row, offsets one row off, a dropped key, an invalid key
+   read) must fail the bf16 limit. Then each kernel is timed beside its
+   plain version and a PyTorch library call the port never makes, with its
+   roofline bound;
+5. a ``{"kernels": [...]}`` line (nine entries, the partials mode apart),
+   the card line, and the final ``{"ok": true, "device": {...}}`` line.
 
 Without a CUDA device, or without the repository beside it, it exits
 non-zero and prints no result.
@@ -51,6 +63,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -578,6 +591,94 @@ def dense_decode_cell(torch, dtype, timer, time_it: bool):
     return cell
 
 
+def partials_cell(torch, dtype, timer, time_it: bool):
+    """flash_decode's partials mode at the mesh path's decode shapes: 8
+    requests, 48 query heads over 8 KV heads of 128, one rank's slice of a
+    1024-slot cache (all of it on the 1 x 1 mesh), valid prefixes of the
+    served lengths (257-288 keys); every invalid K/V row holds NaN. acc is
+    held at the run's dtype limit, m and l at the fp32 limit (every rank's
+    merge weight e^(m - m_max) depends on them); a request with no valid
+    key must give m = -1e30, l = 0, acc = 0; four slices merged must give
+    the normalised kernel's output."""
+    import torch.nn.functional as Fn
+
+    from repro_torch.kernels.flash_decode import flash_decode as K
+    from repro_torch.kernels.flash_decode import ref as R
+    from repro_torch.kernels.tolerance import PLAIN
+
+    dt = getattr(torch, dtype)
+    tol, tol32 = PLAIN[dt], PLAIN[torch.float32]
+    B, H, KV, hd, T = 8, 48, 8, 128, 1024
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    q = torch.randn((B, H, hd), generator=gen, device="cuda").to(dt)
+    k0 = torch.randn((B, T, KV, hd), generator=gen, device="cuda").to(dt)
+    v0 = torch.randn((B, T, KV, hd), generator=gen, device="cuda").to(dt)
+    lengths = torch.randint(257, 289, (B,), generator=gen, device="cuda")
+    valid = (torch.arange(T, device="cuda")[None, :] < lengths[:, None]).to(torch.int32)
+    k, v = k0.clone(), v0.clone()
+    k[valid == 0] = float("nan")
+    v[valid == 0] = float("nan")
+    what = f"flash_decode partials {dtype}"
+    acc, m, l = K.flash_decode_partials(q, k, v, valid)
+    acc_r, m_r, l_r = R.decode_partials(q, k, v, valid.bool())
+    cell = held(torch, acc, acc_r, tol, f"{what} acc")
+    cell["excess_m"] = held(torch, m, m_r, tol32, f"{what} m")["excess"]
+    cell["excess_l"] = held(torch, l, l_r, tol32, f"{what} l")["excess"]
+    empty = valid.clone()
+    empty[0] = 0
+    acc_e, m_e, l_e = K.flash_decode_partials(q, k, v, empty)
+    torch.cuda.synchronize()
+    if not (bool((m_e[0] == -1e30).all()) and bool((l_e[0] == 0).all())
+            and bool((acc_e[0] == 0).all())):
+        raise AssertionError(f"{what}: a request with no valid key is not (acc, m, l) = "
+                             f"(0, -1e30, 0)")
+    held(torch, acc_e[1:], acc_r[1:], tol, f"{what} beside an empty request")
+    slices = [K.flash_decode_partials(q, k[:, i:i + T // 4].contiguous(),
+                                      v[:, i:i + T // 4].contiguous(),
+                                      valid[:, i:i + T // 4].contiguous())
+              for i in range(0, T, T // 4)]
+    merged = R.merge_partials_local(slices).to(dt)
+    cell["excess_merge_vs_normalised"] = held(
+        torch, merged, K.flash_decode(q, k, v, valid), tol,
+        f"{what}: 4 slices merged vs the normalised kernel")["excess"]
+    if dt == torch.bfloat16:
+        dropped, extra = valid.clone(), valid.clone()
+        dropped[0, 100] = 0
+        extra[0, int(lengths[0])] = 1
+        cell["faults"] = caught(tol, {
+            "one valid key dropped (acc)":
+                (lambda: R.decode_partials(q, k, v, dropped.bool())[0], acc_r),
+            "one invalid key read (acc)":
+                (lambda: R.decode_partials(q, k0, v0, extra.bool())[0], acc_r),
+        }, f"{what} acc")
+        cell["faults"].update(caught(tol32, {
+            "one valid key dropped (l)":
+                (lambda: R.decode_partials(q, k, v, dropped.bool())[2], l_r),
+            "one invalid key read (l)":
+                (lambda: R.decode_partials(q, k0, v0, extra.bool())[2], l_r),
+        }, f"{what} l"))
+    if time_it:
+        isz = q.element_size()
+        live = int(lengths.sum())
+        nbytes = isz * (B * H * hd + 2 * live * KV * hd) + 4 * B * T + 4 * (B * H * hd + 2 * B * H)
+        b_ms, b_by = bound(nbytes, 4 * live * H * hd, dtype)
+        kd, vd = k0.transpose(1, 2).contiguous(), v0.transpose(1, 2).contiguous()
+        mask = valid.bool()[:, None, None, :]
+        q4 = q[:, :, None, :]
+        cell.update(
+            ms=timer(lambda: K.flash_decode_partials(q, k0, v0, valid), 50),
+            plain_ms=timer(lambda: R.decode_partials(q, k0, v0, valid.bool()), 20),
+            normalised_ms=timer(lambda: K.flash_decode(q, k0, v0, valid), 50),
+            library_ms=timer(lambda: Fn.scaled_dot_product_attention(
+                q4, kd, vd, attn_mask=mask, enable_gqa=True), 50),
+            library_note="SDPA's normalised output at the same shape: no PyTorch call "
+                         "returns the (m, l) partials",
+            bound_ms=b_ms, bound_by=b_by,
+            shape=f"B={B} H={H} K={KV} hd={hd} T_local={T} sum(valid)={live}",
+        )
+    return cell
+
+
 # ---------------------------------------------------------------------------
 # phases 2-3: serving
 # ---------------------------------------------------------------------------
@@ -868,6 +969,126 @@ def esp_path(torch, card: str):
         "peak_gb": peak_gb, **profile}
 
 
+def small_mesh_parity(torch, mesh) -> dict:
+    """A small fp32 dbrx-family model served on the 1 x 1 NCCL mesh (EP
+    through ``ep_moe_shardmap``, the dense cache through the partials
+    kernel and the LSE merge, the balancer live on virtual EP), capacity
+    factor 8.0 so no copy is dropped: greedy tokens with the kernels must
+    equal the plain path's and the no-mesh EP Server's (at ep = 1 both
+    size their buckets alike). Returns the kernel run's partials
+    launches and the migrations."""
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.kernels.flash_decode.flash_decode import flash_decode_partials
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.ctx import ParallelCtx
+    from repro_torch.runtime.serve import ServeConfig, Server
+
+    cfg = dataclasses.replace(smoke(get_config("dbrx-132b")), head_dim=32)
+    n_new = 12
+    prompt = torch.randint(0, cfg.vocab_size, (4, 12),
+                           generator=torch.Generator().manual_seed(11))
+    scfg = ServeConfig(max_seq=64, batch=4, slots_per_device=3, virtual_ep=4, alpha=0.1)
+    runs = {}
+    for name, ctx in (
+        ("mesh kernels", ParallelCtx(mesh=mesh, capacity_factor=8.0)),
+        ("mesh plain", ParallelCtx(mesh=mesh, capacity_factor=8.0, use_kernels=False)),
+        ("no-mesh ep", ParallelCtx(moe_impl="ep", capacity_factor=8.0)),
+    ):
+        flash_decode_partials.launches = 0
+        params = T.init_params(cfg, seed=12, device="cuda")
+        srv = Server(cfg, ctx, params, scfg, device="cuda")
+        runs[name] = (srv.generate(prompt, n_new).cpu(), srv.migrations,
+                      flash_decode_partials.launches)
+    want = runs["mesh kernels"]
+    for name, got in runs.items():
+        if not torch.equal(got[0], want[0]) or got[1] != want[1]:
+            raise AssertionError(f"small mesh model: {name} tokens/migrations differ from "
+                                 f"the kernel run's:\n{got[0]} ({got[1]})\n{want[0]} ({want[1]})")
+    if want[2] != cfg.n_layers * n_new or runs["mesh plain"][2] or runs["no-mesh ep"][2]:
+        raise AssertionError(f"small mesh model partials launches "
+                             f"{ {k: r[2] for k, r in runs.items()} }")
+    return {"flash_decode_partials": want[2], "migrations": want[1]}
+
+
+def mesh_path(torch, mesh, card: str):
+    """The third main path: dbrx-132b width on the 1 x 1 NCCL mesh, the
+    dense cache of max_seq 1024 sliced over the model axis (all of it on
+    one rank), decode through the partials kernel and the all-reduce LSE
+    merge, EP through ``ep_moe_shardmap``'s all-to-all legs, the balancer
+    live with one forced stepped migration. Returns the launches of every
+    kernel and the run's numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode as FD
+    from repro_torch.kernels.flash_decode.paged import flash_decode_paged
+    from repro_torch.kernels.gmm import ragged as K
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.ctx import ParallelCtx
+    from repro_torch.runtime.data import request_stream
+    from repro_torch.runtime.serve import ServeConfig, Server
+
+    n_layers, batch, prompt_len, n_new = 4, 8, 256, 32
+    cfg = dataclasses.replace(get_config("dbrx-132b"), n_layers=n_layers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    scfg = ServeConfig(max_seq=1024, batch=batch, slots_per_device=5, virtual_ep=4,
+                       paged=False)
+    srv = Server(cfg, ParallelCtx(mesh=mesh), params, scfg, device="cuda")
+    del params
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    prompt = next(request_stream(cfg.vocab_size, batch, prompt_len, seed=0))
+    forced = force_migration(srv)
+    srv.generate(prompt, 2)     # warm-up: first-call costs stay out of the timed run
+    kernels = (FD.flash_decode_partials, FD.flash_decode, flash_attention,
+               K.gmm_dual_act_gather, K.gmm_scatter, K.gmm_fused_ffn,
+               K.gmm_dual_act_ragged, K.gmm_ragged, flash_decode_paged)
+    for k in kernels:
+        k.launches = 0
+    migs_before = srv.migrations
+    out, logits, ttft_s, decode_s = timed_generate(torch, srv, prompt, n_new)
+    committed = srv.migrations - migs_before
+    launches = {k.__name__: k.launches for k in kernels}
+    per_step_moe = n_layers * scfg.ep_chunks
+    predicted = {
+        "flash_decode_partials": n_layers * n_new,
+        "flash_decode": 0,
+        "flash_attention": n_layers,
+        # the fused branch at d_model 6144 > FUSED_FFN_MAX_DOWN_DIM: the pair
+        "gmm_dual_act_gather": per_step_moe * (1 + n_new),
+        "gmm_scatter": per_step_moe * (1 + n_new),
+        "gmm_fused_ffn": 0, "gmm_dual_act_ragged": 0, "gmm_ragged": 0,
+        "flash_decode_paged": 0,
+    }
+    if launches != predicted:
+        raise AssertionError(f"mesh launch counts {launches} != predicted {predicted}")
+    out_cpu = out.cpu()
+    if out_cpu.shape != (batch, n_new) or int(out_cpu.min()) < 0 or \
+            int(out_cpu.max()) >= cfg.vocab_size:
+        raise AssertionError(f"mesh tokens out of range: shape {tuple(out_cpu.shape)}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("non-finite mesh prefill logits")
+    if committed < 1 or srv.driver.pending:
+        raise AssertionError(f"{committed} migrations committed in the timed mesh run, "
+                             f"pending={srv.driver.pending}")
+    srv.table.check()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    profile = profile_decode(torch, srv, prompt, card)
+    tok_s = batch * n_new / decode_s
+    log(
+        f"mesh path: dbrx-132b width, {n_layers} layers, bf16, 1 x 1 NCCL mesh, dense cache "
+        f"(max_seq {scfg.max_seq}), {batch} x {prompt_len}-token prompts -> {n_new} decode "
+        f"steps (after a warm-up run): setup {setup_s:.2f}s, TTFT (prefill) "
+        f"{ttft_s * 1e3:.1f} ms, decode {decode_s * 1e3:.1f} ms = {tok_s:.1f} tok/s, peak "
+        f"memory {peak_gb:.2f} GB, forced migration {forced}, migrations committed in the "
+        f"timed run {committed} of {srv.migrations}, launches {launches} [{card}]"
+    )
+    return launches, {
+        "ttft_ms": ttft_s * 1e3, "decode_ms": decode_s * 1e3, "decode_tok_s": tok_s,
+        "peak_gb": peak_gb, "migrations": committed, **profile}
+
+
 def profile_decode(torch, srv, prompt, card: str, steps: int = 8) -> dict:
     """Device busy share and time by kernel over ``steps`` decode steps of
     the main-path server (a separate window from the timed run)."""
@@ -886,9 +1107,10 @@ def profile_decode(torch, srv, prompt, card: str, steps: int = 8) -> dict:
             tok = torch.argmax(logits[:, -1:], dim=-1)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
+    by_name, host = {}, {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
+            host[e.key] = host.get(e.key, 0.0) + e.self_cpu_time_total / 1e3
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -896,10 +1118,17 @@ def profile_decode(torch, srv, prompt, card: str, steps: int = 8) -> dict:
         by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
     busy_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    # host side: the ops with the most self CPU time, and the collectives'
+    comm_ms = sum(ms for key, ms in host.items()
+                  if re.search(r"c10d|nccl|gloo|all_to_all|allreduce|all_reduce", key))
+    host_top = sorted(host.items(), key=lambda kv: -kv[1])[:5]
     log(f"profile: {steps} decode steps in {wall_ms:.1f} ms wall, device busy "
         f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%); by kernel: "
-        + "; ".join(f"{name[:48]} {ms:.2f} ms" for name, ms in top) + f" [{card}]")
-    return {"profile_step_ms": wall_ms / steps, "device_busy_share": busy_ms / wall_ms}
+        + "; ".join(f"{name[:48]} {ms:.2f} ms" for name, ms in top) + "; host self time: "
+        f"collectives {comm_ms:.2f} ms, top ops "
+        + "; ".join(f"{name[:40]} {ms:.2f} ms" for name, ms in host_top) + f" [{card}]")
+    return {"profile_step_ms": wall_ms / steps, "device_busy_share": busy_ms / wall_ms,
+            "host_collectives_ms": comm_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -935,7 +1164,14 @@ def main(argv=None) -> int:
         entry = ""
         for line in r["ptxas"].splitlines():
             if "Compiling entry function" in line:
-                entry = line.split("'")[1][:72] if "'" in line else ""
+                # drop the mangled anonymous namespace (its length comes
+                # first), so that the template arguments (e.g. IfLb0E:
+                # float, PARTIALS = false) stay inside the cut
+                entry = line.split("'")[1] if "'" in line else ""
+                ns = re.match(r"_ZN(\d+)_GLOBAL__N_", entry)
+                if ns:
+                    entry = entry[ns.end(1) + int(ns.group(1)):]
+                entry = entry[:72]
             elif "registers" in line or "spill" in line:
                 log(f"  ptxas {name} {entry}: {line.split(':', 1)[-1].strip()}")
 
@@ -945,12 +1181,24 @@ def main(argv=None) -> int:
     small_esp = small_esp_parity(torch)
     log(f"small fp32 ESP model, dense cache, ring wrapped: kernel and plain greedy "
         f"tokens agree (kernel run launches {small_esp})")
+    # a world of one on NCCL: no fallback to gloo if it does not initialise
+    from repro_torch.parallel.mesh import init_distributed, make_mesh
+
+    init_distributed(torch.device("cuda", 0), world_size=1, rank=0)
+    mesh = make_mesh(1, 1)
+    small_mesh = small_mesh_parity(torch, mesh)
+    log(f"small fp32 model on the 1 x 1 NCCL mesh: greedy tokens with the kernels equal "
+        f"the plain path's and the no-mesh EP Server's (partials launches "
+        f"{small_mesh['flash_decode_partials']}, migrations {small_mesh['migrations']})")
     torch.cuda.empty_cache()
 
     launches, groups, run = main_path(torch, card)
     gc.collect()
     torch.cuda.empty_cache()
     esp_launches, rows, esp_run = esp_path(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_launches, mesh_run = mesh_path(torch, mesh, card)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -964,8 +1212,9 @@ def main(argv=None) -> int:
         eg = esp_gmm_cells(torch, rows, dtype, timer, time_it)
         fu = fused_cells(torch, rows, dtype, timer, time_it)
         dd = dense_decode_cell(torch, dtype, timer, time_it)
+        pa = partials_cell(torch, dtype, timer, time_it)
         cells[dtype] = {"gmm": g, "decode": d, "attn": a, "esp_gmm": eg, "fused": fu,
-                        "dense_decode": dd}
+                        "dense_decode": dd, "partials": pa}
         log(f"kernels {dtype}, error over its limit (rtol, atol) = "
             f"{PLAIN[getattr(torch, dtype)]}: gmm_dual_act_ragged decode "
             f"{g['decode']['gmm_dual_act_ragged']['excess']:.3g} prefill "
@@ -978,7 +1227,11 @@ def main(argv=None) -> int:
                         for n in ("gmm_dual_act_gather", "gmm_scatter"))
             + f"; gmm_fused_ffn decode {fu['decode']['excess']:.3g} prefill "
             f"{fu['prefill']['excess']:.3g} (vs the pair {fu['decode']['excess_vs_pair']:.3g}"
-            f" / {fu['prefill']['excess_vs_pair']:.3g}); flash_decode {dd['excess']:.3g}")
+            f" / {fu['prefill']['excess_vs_pair']:.3g}); flash_decode {dd['excess']:.3g}; "
+            f"flash_decode partials acc {pa['excess']:.3g}, m {pa['excess_m']:.3g}, l "
+            f"{pa['excess_l']:.3g} (m, l at {PLAIN[torch.float32]}), 4 slices merged vs the "
+            f"normalised kernel {pa['excess_merge_vs_normalised']:.3g}, an empty request "
+            f"(acc, m, l) = (0, -1e30, 0)")
         torch.cuda.empty_cache()
 
     bf = cells["bfloat16"]
@@ -1009,12 +1262,19 @@ def main(argv=None) -> int:
             + ", ".join(f"{k} {v:.2f}" for k, v in c["faults"].items()))
     log("flash_decode bf16 faults caught: "
         + ", ".join(f"{k} {v:.2f}" for k, v in bf["dense_decode"]["faults"].items()))
+    log("flash_decode partials bf16 faults caught: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in bf["partials"]["faults"].items()))
     for name, c, lib in (("flash_decode_paged", bf["decode"], "sdpa"),
                          ("flash_attention", bf["attn"], "sdpa"),
                          ("flash_decode", bf["dense_decode"], "sdpa")):
         log(f"time {name} [{c['shape']}]: kernel {c['ms']:.4f} ms, plain "
             f"{c['plain_ms']:.4f} ms, {lib} {c['library_ms']:.4f} ms, bound "
             f"{c['bound_ms']:.4f} ms ({c['bound_by']}) [{card}]")
+    c = bf["partials"]
+    log(f"time flash_decode partials [{c['shape']}]: kernel {c['ms']:.4f} ms, plain "
+        f"{c['plain_ms']:.4f} ms, normalised kernel {c['normalised_ms']:.4f} ms, sdpa "
+        f"(normalised) {c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
+        f"({c['bound_by']}) [{card}]")
     for name in ("gmm_dual_act_gather", "gmm_scatter"):
         for phase in ("decode", "prefill"):
             c = bf["esp_gmm"][phase][name]
@@ -1036,6 +1296,7 @@ def main(argv=None) -> int:
         "gmm_scatter": "src/repro/kernels/gmm/ragged.py:605",
         "gmm_fused_ffn": "src/repro/kernels/gmm/ragged.py:790",
         "flash_decode": "src/repro/kernels/flash_decode/flash_decode.py:151",
+        "flash_decode_partials": "src/repro/kernels/flash_decode/flash_decode.py:151",
     }
     source = {
         "gmm_dual_act_ragged": "src/repro_torch/csrc/gmm_ragged.cu",
@@ -1046,17 +1307,29 @@ def main(argv=None) -> int:
         "gmm_scatter": "src/repro_torch/csrc/gmm_ragged.cu",
         "gmm_fused_ffn": "src/repro_torch/csrc/gmm_fused_ffn.cu",
         "flash_decode": "src/repro_torch/csrc/flash_decode.cu",
+        "flash_decode_partials": "src/repro_torch/csrc/flash_decode.cu",
     }
     fp = cells["float32"]
     # launches on the main path that runs each kernel (the ESP path runs
     # gmm_fused_ffn no time at d_model 6144; the small ESP model does)
     path_launches = {**launches, **{k: esp_launches[k] for k in (
-        "gmm_dual_act_gather", "gmm_scatter", "gmm_fused_ffn", "flash_decode")}}
+        "gmm_dual_act_gather", "gmm_scatter", "gmm_fused_ffn", "flash_decode")},
+        "flash_decode_partials": mesh_launches["flash_decode_partials"]}
     entries = []
     for name in ("gmm_dual_act_ragged", "gmm_ragged", "flash_decode_paged",
                  "flash_attention", "gmm_dual_act_gather", "gmm_scatter",
-                 "gmm_fused_ffn", "flash_decode"):
-        if name in ("gmm_fused_ffn", "flash_decode"):
+                 "gmm_fused_ffn", "flash_decode", "flash_decode_partials"):
+        if name == "flash_decode_partials":
+            c, c32 = bf["partials"], fp["partials"]
+            err, ex, err32, ex32 = (c["max_abs_err"], c["excess"], c32["max_abs_err"],
+                                    c32["excess"])
+            extra = {key: c[key] for key in (
+                "faults", "excess_m", "excess_l", "excess_merge_vs_normalised",
+                "normalised_ms", "library_note")}
+            extra.update(excess_m_fp32=c32["excess_m"], excess_l_fp32=c32["excess_l"],
+                         tolerance_m_l=f"m and l at the fp32 limit {PLAIN[torch.float32]}",
+                         launches_small_mesh_model=small_mesh["flash_decode_partials"])
+        elif name in ("gmm_fused_ffn", "flash_decode"):
             key = "fused" if name == "gmm_fused_ffn" else "dense_decode"
             if name == "gmm_fused_ffn":
                 # timed at the prefill layout too, listed beside
@@ -1108,7 +1381,11 @@ def main(argv=None) -> int:
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
             "shape": c["shape"], **extra,
         })
-    print(json.dumps({"kernels": entries, "run": run, "run_esp": esp_run}), flush=True)
+    print(json.dumps({"kernels": entries, "run": run, "run_esp": esp_run,
+                      "run_mesh": mesh_run}), flush=True)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,6 +29,16 @@
 // is skipped with one block-wide vote, and inside a tile only valid keys
 // are loaded. Scores: each warp takes key rows, lanes split the head dim.
 // Softmax: one warp per query head. PV: threads own head-dim columns.
+//
+// Partials mode (PARTIALS = true), replacing the same TPU kernel's
+// return_partials epilogue (write_outputs): the walk is the same, and the
+// epilogue writes the block's fp32 shared-memory state as it stands, not
+// normalised: acc (B, H, hd), the running max m (B, H) and the running
+// sum l (B, H). A slice with no valid key gives m = -1e30, l = 0, acc = 0
+// (the TPU kernel's l and acc are non-zero there; both merge to the same
+// output whenever some slice has a live key). The sequence-parallel decode
+// merges the partials of every slice with an all-reduce (LSE merge). The
+// normalised instantiation is the code above, unchanged.
 #include "common.cuh"
 
 namespace {
@@ -38,11 +48,12 @@ constexpr int MAX_G = 16;       // query heads per KV head
 constexpr int MAX_HD_LANE = 8;  // head dim <= 32 * 8
 constexpr int TB = 128;         // keys per tile
 
-template <typename T>
+template <typename T, bool PARTIALS>
 __global__ void __launch_bounds__(128)
 dense_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                     const T* __restrict__ vc, const int* __restrict__ valid,
-                    T* __restrict__ out, int H, int K, int hd, int T_len) {
+                    void* __restrict__ out, float* __restrict__ m_out,
+                    float* __restrict__ l_out, int H, int K, int hd, int T_len) {
   extern __shared__ float sm[];
   const int G = H / K;
   float* qs = sm;                  // (G, hd)
@@ -150,11 +161,51 @@ dense_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   }
 
   __syncthreads();   // the last tile may have been skipped
-  for (int i = tid; i < G * hd; i += blockDim.x) {
-    const int g = i / hd, d = i % hd;
-    const float l = fmaxf(ls[g], 1e-30f);
-    out[((size_t)b * H + kh * G + g) * hd + d] = from_f<T>(accs[i] / l);
+  if constexpr (PARTIALS) {
+    float* acc_out = static_cast<float*>(out);
+    for (int i = tid; i < G * hd; i += blockDim.x) {
+      const int g = i / hd, d = i % hd;
+      acc_out[((size_t)b * H + kh * G + g) * hd + d] = accs[i];
+    }
+    for (int g = tid; g < G; g += blockDim.x) {
+      m_out[(size_t)b * H + kh * G + g] = ms[g];
+      l_out[(size_t)b * H + kh * G + g] = ls[g];
+    }
+  } else {
+    T* o = static_cast<T*>(out);
+    for (int i = tid; i < G * hd; i += blockDim.x) {
+      const int g = i / hd, d = i % hd;
+      const float l = fmaxf(ls[g], 1e-30f);
+      o[((size_t)b * H + kh * G + g) * hd + d] = from_f<T>(accs[i] / l);
+    }
   }
+}
+
+template <bool PARTIALS>
+int launch(const void* q, const void* k, const void* v, const void* valid,
+           void* out, float* m_out, float* l_out, int B, int H, int K, int hd,
+           int T_len, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int G = H / K;
+  const size_t smem =
+      sizeof(float) * (size_t)(2 * G * hd + G * TB + 3 * G) + sizeof(int) * TB;
+  dim3 grid(K, B);
+  dim3 block(128);
+  const int* vl = static_cast<const int*>(valid);
+  if (dtype == DT_F32) {
+    dense_decode_kernel<float, PARTIALS><<<grid, block, smem, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), vl, out, m_out, l_out, H, K, hd, T_len);
+  } else if (dtype == DT_BF16) {
+    dense_decode_kernel<__nv_bfloat16, PARTIALS><<<grid, block, smem, st>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), vl, out, m_out, l_out, H, K, hd,
+        T_len);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -166,26 +217,18 @@ extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
                                    const void* valid, void* out, int B, int H,
                                    int K, int hd, int T_len, int dtype,
                                    void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int G = H / K;
-  const size_t smem =
-      sizeof(float) * (size_t)(2 * G * hd + G * TB + 3 * G) + sizeof(int) * TB;
-  dim3 grid(K, B);
-  dim3 block(128);
-  const int* vl = static_cast<const int*>(valid);
-  if (dtype == DT_F32) {
-    dense_decode_kernel<float><<<grid, block, smem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), vl, static_cast<float*>(out), H, K, hd,
-        T_len);
-  } else if (dtype == DT_BF16) {
-    dense_decode_kernel<__nv_bfloat16><<<grid, block, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), vl,
-        static_cast<__nv_bfloat16*>(out), H, K, hd, T_len);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(q, k, v, valid, out, nullptr, nullptr, B, H, K, hd,
+                       T_len, dtype, stream);
+}
+
+// The same inputs -> fp32 partials acc (B, H, hd), m (B, H), l (B, H), not
+// normalised. Same gates; returns cudaGetLastError() after launch.
+extern "C" int flash_decode_partials_launch(const void* q, const void* k,
+                                            const void* v, const void* valid,
+                                            void* acc, void* m, void* l, int B,
+                                            int H, int K, int hd, int T_len,
+                                            int dtype, void* stream) {
+  return launch<true>(q, k, v, valid, acc, static_cast<float*>(m),
+                      static_cast<float*>(l), B, H, K, hd, T_len, dtype,
+                      stream);
 }

@@ -4,26 +4,38 @@ Runs on the card by default; ``--device cpu`` takes the plain PyTorch path.
 The KV cache is dense unless ``--paged`` asks for the page pool, as in the
 reference's CLI.
 
+``--mesh DxM`` serves under a ``("data", "model")`` mesh of
+``torch.distributed`` ranks: EP over the model axis, the dense cache's
+slots split over it, the batch over the data axis. Under ``torchrun`` the
+ranks come from ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK``; rank r uses
+``cuda:LOCAL_RANK`` with NCCL, or gloo with ``--device cpu``. A world of
+one (``--mesh 1x1``) needs no ``torchrun``. Rank 0 prints.
+
 Examples (CPU, smoke size):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx-132b --smoke \
       --device cpu --requests 4 --prompt-len 16 --gen 8 --virtual-ep 4 --slots 3 \
       --paged
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b --smoke \
       --device cpu --moe-impl esp --virtual-ep 1
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+      --arch dbrx-132b --smoke --device cpu --mesh 2x2 --slots 3 --alpha 0.1
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config, smoke as smoke_cfg
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.parallel.ctx import ParallelCtx
+from repro_torch.parallel.mesh import init_distributed, make_mesh, parse_mesh
 from repro_torch.runtime.data import request_stream
 from repro_torch.runtime.serve import ServeConfig, Server
 
@@ -65,15 +77,30 @@ def main(argv=None):
     ap.add_argument("--use-kernels", default="auto", choices=("auto", "on", "off"),
                     help="CUDA kernels: auto = for CUDA tensors, on = always "
                     "(raises on the CPU), off = plain PyTorch paths")
+    ap.add_argument("--mesh", default=None,
+                    help="DxM: serve under a data x model mesh of ranks "
+                    "(torchrun for more than one; the dense cache only)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    mesh = None
+    if args.mesh:
+        data, model = parse_mesh(args.mesh)
+        world = int(os.environ.get("WORLD_SIZE", "1"))
+        if world != data * model:
+            raise ValueError(f"--mesh {args.mesh} needs {data * model} ranks; "
+                             f"WORLD_SIZE is {world} (start it with torchrun)")
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        init_distributed(device, world, int(os.environ.get("RANK", "0")))
+        mesh = make_mesh(data, model)
+    main_rank = mesh is None or mesh.rank == 0
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_cfg(cfg)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
-    ctx = ParallelCtx(moe_impl=args.moe_impl, capacity_factor=2.0,
+    ctx = ParallelCtx(mesh=mesh, moe_impl=args.moe_impl, capacity_factor=2.0,
                       use_kernels=parse_use_kernels(args.use_kernels))
     params = T.init_params(cfg, seed=args.seed, dtype=DTYPES[args.dtype], device=device)
     scfg = ServeConfig(
@@ -90,12 +117,17 @@ def main(argv=None):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         dt = time.perf_counter() - t0
-        print(
-            f"batch {i}: generated {tuple(out.shape)} on {device} in {dt:.2f}s "
-            f"({args.requests * args.gen / dt:.1f} tok/s), migrations so far: "
-            f"{server.migrations}"
-        )
-    print("done")
+        if main_rank:
+            print(
+                f"batch {i}: generated {tuple(out.shape)} on {device} in {dt:.2f}s "
+                f"({args.requests * args.gen / dt:.1f} tok/s), migrations so far: "
+                f"{server.migrations}"
+                + (f", mesh {args.mesh}" if mesh else "")
+            )
+    if mesh is not None:
+        dist.destroy_process_group()
+    if main_rank:
+        print("done")
 
 
 if __name__ == "__main__":

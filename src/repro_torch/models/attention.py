@@ -1,5 +1,5 @@
 """GQA attention: prefill over full sequences, decode against a dense or a
-paged KV cache (PyTorch port of ``repro.models.attention``, no-mesh subset).
+paged KV cache (PyTorch port of ``repro.models.attention``).
 
 Layout conventions: activations ``(batch, seq, d_model)``; q ``(B,S,H,hd)``;
 k/v ``(B,S,K,hd)`` with ``K = n_kv_heads``; GQA in grouped form, softmax in
@@ -7,7 +7,13 @@ fp32. The dense cache is ``(B, L, K, hd)`` per layer, a ring of
 ``L = cache_len`` slots under a sliding window; the paged cache is a shared
 page pool plus per-request block tables. The port writes K/V into either
 cache *in place* (JAX returns new arrays), which keeps one copy resident.
-The chunked-prefill lane comes with a later slice.
+
+Under a mesh (``ctx.mesh``) the dense cache's slots are split over the
+model axis (``seq_parallel_kv``): a rank holds slots ``[r*L/M, (r+1)*L/M)``
+of its requests, the prefill fills that range, a decode write lands only
+on the rank that owns the slot, and decode attends through
+``collectives.seq_parallel_decode_attend``. The chunked-prefill lane and
+the paged cache under a mesh come with later slices.
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import registry
 from repro_torch.kernels.flash_decode.ref import gather_pages
 from repro_torch.models.layers import apply_rope, normal_init
+from repro_torch.parallel import sharding
+from repro_torch.parallel.collectives import seq_parallel_decode_attend
 from repro_torch.parallel.ctx import ParallelCtx
 
 NEG_INF = -1e30
@@ -167,27 +175,35 @@ def cache_len(cfg: ModelConfig, max_seq: int) -> int:
 
 
 def cache_init(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.float32,
-               device="cpu") -> dict:
-    """Dense decode cache ``{"k", "v"}`` of ``(B, cache_len, K, hd)``."""
-    shape = (batch, cache_len(cfg, max_seq), cfg.n_kv_heads, cfg.head_dim_)
+               device="cpu", n_model: int = 1) -> dict:
+    """Dense decode cache ``{"k", "v"}`` of ``(B, cache_len / n_model, K,
+    hd)``: one rank's slots when the cache is split over a model axis of
+    ``n_model`` ranks."""
+    slots = sharding.cache_slots(cache_len(cfg, max_seq), n_model, 0)
+    shape = (batch, slots.stop - slots.start, cfg.n_kv_heads, cfg.head_dim_)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def dense_prefill_fill(cache: dict, k: torch.Tensor, v: torch.Tensor,
-                       cfg: ModelConfig) -> dict:
+                       cfg: ModelConfig, length: int | None = None,
+                       lo: int = 0) -> dict:
     """Write a prefill's K/V into a dense cache, in place: the last
-    ``cache_len`` positions, rolled under a sliding window so that slot
-    ``j`` holds the position ``p`` with ``p % L == j`` (the decode ring)."""
+    ``length`` positions (default: the cache's own length), rolled under a
+    sliding window so that slot ``j`` holds the position ``p`` with
+    ``p % L == j`` (the decode ring). A rank whose cache holds the slots
+    ``[lo, lo + its length)`` of an ``length``-slot cache writes only
+    those."""
     s = k.shape[1]
-    length = cache["k"].shape[1]
+    length = length or cache["k"].shape[1]
     kk, vv = k[:, -length:], v[:, -length:]
     if cfg.sliding_window and s >= length:
         kk = torch.roll(kk, s % length, dims=1)
         vv = torch.roll(vv, s % length, dims=1)
-    n = kk.shape[1]
-    cache["k"][:, :n] = kk.to(cache["k"].dtype)
-    cache["v"][:, :n] = vv.to(cache["v"].dtype)
+    hi = min(kk.shape[1], lo + cache["k"].shape[1])
+    if hi > lo:
+        cache["k"][:, : hi - lo] = kk[:, lo:hi].to(cache["k"].dtype)
+        cache["v"][:, : hi - lo] = vv[:, lo:hi].to(cache["v"].dtype)
     return cache
 
 
@@ -274,24 +290,36 @@ def decode_attention(p: dict, x: torch.Tensor, cache: dict, pos: int,
         k_new = apply_rope(k_new, posb, cfg.rope_theta)
 
     k_cache, v_cache = cache["k"], cache["v"]
-    length = k_cache.shape[1]
+    local = k_cache.shape[1]             # this rank's slots
+    length = local * ctx.n_model         # the whole cache's
+    lo = ctx.model_rank * local
     w = cfg.sliding_window or 0
     # Full attention at pos >= length: the cache is full. Freeze it (skip
     # the write that would clobber the last slot) and clamp the mask, so
     # slot j always holds position j; serving refuses such steps anyway.
+    # Under a mesh only the rank that owns the slot writes it.
     if w > 0 or pos < length:
         slot = pos % length if w > 0 else pos
-        k_cache[:, slot] = k_new[:, 0].to(k_cache.dtype)
-        v_cache[:, slot] = v_new[:, 0].to(v_cache.dtype)
+        if lo <= slot < lo + local:
+            k_cache[:, slot - lo] = k_new[:, 0].to(k_cache.dtype)
+            v_cache[:, slot - lo] = v_new[:, 0].to(v_cache.dtype)
 
-    j = torch.arange(length, device=x.device)
+    j = lo + torch.arange(local, device=x.device)
     if w > 0:
         # ring buffer: slot j holds absolute position pos - ((pos - j) % L);
         # negative => never written yet
         mask = pos - torch.remainder(pos - j, length) >= 0
     else:
         mask = j <= min(pos, length - 1)
-    if ctx.kernels_on(q):
+    if ctx.mesh is not None:
+        if not ctx.seq_parallel_kv:
+            raise NotImplementedError(
+                "decode under a mesh with seq_parallel_kv=False shards the "
+                "cache's KV heads, which is tensor parallelism: not ported "
+                "yet (ROADMAP Queue 1 item 5)"
+            )
+        o = seq_parallel_decode_attend(q, k_cache, v_cache, mask, ctx)
+    elif ctx.kernels_on(q):
         o = _flash_decode(q, k_cache, v_cache, mask)
     else:
         o = gqa_attend(q, k_cache, v_cache, mask[None, None, None, None, :])

@@ -1,4 +1,4 @@
-"""MoE layer: router, dense oracle, ESP and no-mesh expert parallelism.
+"""MoE layer: router, dense oracle, ESP and expert parallelism.
 
 * ``dense`` — every expert computed for every token, masked combine (the
   oracle, and the no-mesh default).
@@ -7,8 +7,15 @@
   the flat-row expert FFN (``registry.expert_ffn_from_rows``), the call
   every rank of the multi-device EP path makes.
 * ``ep``    — fixed-capacity per-slot buckets over the placement table's
-  routing view (``collectives.ep_moe_local``): the path the NI-Balancer
-  serves on, with shadow replicas in extra slot rows.
+  routing view: the path the NI-Balancer serves on, with shadow replicas
+  in extra slot rows. One process: ``collectives.ep_moe_local``; under a
+  mesh: ``collectives.ep_moe_shardmap``, the all-to-all over the model
+  group, each rank holding its own slot rows.
+
+Under a mesh ``"auto"`` picks EP when the experts divide the model axis,
+as the reference does; where it would pick ESP, and for ``moe_impl="esp"``,
+the port raises: ESP's reduce-scatter (``esp_expert_ffn``) under a mesh is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from repro_torch.parallel.collectives import (
     combine_from_rows,
     dispatch_metadata,
     ep_moe_local,
+    ep_moe_shardmap,
     tiled_placement,
     uniform_placement,
     validate_ep_chunks,
@@ -178,24 +186,32 @@ def moe_ep(
     slots_per_device: int | None = None,
     token_mask=None,
 ):
-    """Expert-parallel dispatch over physical slots, single process.
+    """Expert-parallel dispatch over physical slots.
 
     ``placement`` is a :class:`PlacementTable` (its committed routing view
     routes) or a bare ``(slot_of, n_replicas)`` pair; default = native
     homes. The Server owns slot-expanded weights (``n_slots`` rows) and
-    updates replica rows out of band."""
+    updates replica rows out of band. Under a mesh the expert rows of
+    ``p`` (or ``slot_weights``) are the rank's own slot rows, ``n_model``
+    of them making the ``n_slots``."""
     e = cfg.n_experts
-    n_rows = p["w_gate"].shape[0]
+    ep = ctx.n_model
+    n_rows = p["w_gate"].shape[0] * ep
     tiled = False
     if slot_weights is None:
-        n_slots = slots_per_device or n_rows
+        n_slots = slots_per_device * ep if slots_per_device else n_rows
         if n_slots < n_rows:
             raise ValueError(
-                f"slots_per_device={n_slots} < {n_rows} weight rows — experts "
-                f"would be dropped"
+                f"slots_per_device={slots_per_device} gives {n_slots} physical "
+                f"slots < {n_rows} weight rows — experts would be dropped"
             )
         if n_slots == n_rows:
             slot_weights = p
+        elif ctx.mesh is not None:
+            raise ValueError(
+                "under a mesh moe_ep takes each rank's slot rows as they are "
+                "(the Server expands them); it does not tile"
+            )
         else:
             reps = -(-n_slots // n_rows)
             slot_weights = {
@@ -204,7 +220,7 @@ def moe_ep(
             }
             tiled = True
     else:
-        n_slots = slot_weights["w_gate"].shape[0]
+        n_slots = slot_weights["w_gate"].shape[0] * ep
     if isinstance(placement, PlacementTable):
         placement = placement.device_view(x.device)
     if placement is None:
@@ -217,10 +233,16 @@ def moe_ep(
 
     ids, w, aux = route(p, x, cfg)
     ids = _mask_ids(ids, token_mask, cfg)
-    out = ep_moe_local(
-        x, ids, w, slot_weights, slot_of, n_replicas, ctx,
-        ctx.capacity_factor, n_slots,
-    )
+    if ctx.mesh is None:
+        out = ep_moe_local(
+            x, ids, w, slot_weights, slot_of, n_replicas, ctx,
+            ctx.capacity_factor, n_slots,
+        )
+    else:
+        out = ep_moe_shardmap(
+            x, ids, w, slot_weights, slot_of, n_replicas, ctx,
+            ctx.capacity_factor, n_slots // ep, decode=x.shape[1] == 1,
+        )
     return out, _aux(aux, ids, cfg)
 
 
@@ -230,7 +252,17 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: ParallelCtx,
     are dead serving slots — they route nowhere."""
     impl = ctx.moe_impl
     if impl == "auto":
-        impl = "dense"           # no mesh
+        if ctx.mesh is None:
+            impl = "dense"
+        elif cfg.n_experts % ctx.n_model == 0:
+            impl = "ep"          # E/D >= 1: expert parallelism
+        else:
+            impl = "esp"         # E/D < 1: the reference's choice is ESP
+    if impl == "esp" and ctx.mesh is not None:
+        raise NotImplementedError(
+            "ESP under a mesh (esp_expert_ffn's psum_scatter over the model "
+            "axis) is not ported yet (ROADMAP Queue 1 item 5)"
+        )
     if impl == "dense":
         return moe_dense(p, x, cfg, ctx, token_mask=token_mask)
     if impl == "esp":

@@ -3,7 +3,10 @@ FFN): init / prefill / one-token decode over a dense or a paged KV cache.
 
 PyTorch port of ``repro.models.transformer`` for the serving slice. Layers
 are stacked as ``(L, ...)`` tensors (so ``w[l]`` is a contiguous view) and
-driven by a Python loop where the reference scans. The other block
+driven by a Python loop where the reference scans. Under a mesh every rank
+runs these on its own requests (the batch split over the data axis), with
+its slice of the dense cache; the EP prefill splits the sequence over the
+model axis inside ``ep_moe_shardmap`` and gathers it back there. The other block
 patterns (zamba, xlstm, encdec), the training forward and the chunked
 prefill lane come with later slices.
 """
@@ -19,6 +22,7 @@ from repro_torch.models.attention import (
     attention,
     attn_init,
     cache_init,
+    cache_len,
     decode_attention,
     dense_prefill_fill,
     is_paged,
@@ -111,16 +115,17 @@ def _logits(params, x, cfg: ModelConfig):
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.float32,
                paged: bool = False, page_size: int = PAGE_SIZE,
-               n_pages: int | None = None, device="cpu") -> dict:
+               n_pages: int | None = None, device="cpu", n_model: int = 1) -> dict:
     """Decode cache sized for ``max_seq`` context, one stacked leaf per
-    layer: dense ``(L, B, cache_len, K, hd)`` k/v, or with ``paged`` a
-    shared page pool + block tables. ``pos`` is kept on the host (a Python
+    layer: dense ``(L, B, cache_len / n_model, K, hd)`` k/v (a rank's slots
+    under a model axis of ``n_model`` ranks), or with ``paged`` a shared
+    page pool + block tables. ``pos`` is kept on the host (a Python
     int)."""
     _check_pattern(cfg)
     if paged:
         one = paged_cache_init(cfg, batch, max_seq, dtype, page_size, n_pages, device)
     else:
-        one = cache_init(cfg, batch, max_seq, dtype, device)
+        one = cache_init(cfg, batch, max_seq, dtype, device, n_model)
     layers = {
         k: v[None].expand(cfg.n_layers, *v.shape).clone() for k, v in one.items()
     }
@@ -203,7 +208,9 @@ def prefill(
     x = _embed(params, tokens)
     max_seq = max(max_seq or s, s)
     cache = init_cache(cfg, b, max_seq, dtype or x.dtype, paged, page_size,
-                       n_pages, x.device)
+                       n_pages, x.device, ctx.n_model)
+    length = cache_len(cfg, max_seq)
+    lo = ctx.model_rank * (length // ctx.n_model)
     if tables is not None:
         cache["layers"]["tables"].copy_(
             tables.to(torch.int32)[None].expand_as(cache["layers"]["tables"])
@@ -219,7 +226,7 @@ def prefill(
             c_new = paged_prefill_fill(c_l, k, v, s, lengths)
             cache["layers"]["lengths"][l].copy_(c_new["lengths"])
         else:
-            dense_prefill_fill(c_l, k, v, cfg)
+            dense_prefill_fill(c_l, k, v, cfg, length, lo)
         z2 = rms_norm(x, p_l["ln2"], cfg.norm_eps)
         y, _ = _block_ffn(p_l, z2, cfg, ctx, None, None)
         x = x + y

@@ -1,6 +1,16 @@
-"""Expert-parallel bucket dispatch/combine, single-process subset of
-``repro.parallel.collectives`` (the ``torch.distributed`` all_to_all path
-comes with multi-GPU EP).
+"""Expert-parallel bucket dispatch/combine and the sequence-parallel decode
+merge (port of ``repro.parallel.collectives``, ESP's ``esp_expert_ffn``
+under a mesh excepted).
+
+One process: ``ep_moe_local`` (every slot local, the all-to-all is the
+identity). Under a mesh of ``torch.distributed`` ranks:
+``ep_moe_shardmap`` (dispatch -> ``all_to_all_single`` -> per-rank
+grouped FFN -> ``all_to_all_single`` -> combine, over the model group) and
+``seq_parallel_decode_attend`` (per-rank partials over the rank's slice of
+the dense cache, LSE-merged with all-reduces). Where the reference runs a
+``shard_map`` body, the port's functions take and return the rank's own
+block; collectives are blocking and issued in the same order on every
+rank.
 
 JAX's out-of-range semantics have no torch default, so each is explicit
 here: ``jnp.bincount(length=n)`` drops ids ``>= n`` (``bucket_counts``
@@ -15,6 +25,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels import registry
 from repro_torch.kernels.gmm.ref import expert_ffn_ragged
@@ -234,3 +245,259 @@ def ep_moe_local(
     y = ys[0] if kc == 1 else torch.cat(ys, dim=0)
     out = bucket_combine(y, slots, pos, keep, w)
     return out.reshape(b, s, d)
+
+
+# ---------------------------------------------------------------------------
+# EP all-to-all over the model group
+# ---------------------------------------------------------------------------
+
+def validate_ep_token_split(b: int, s: int, n_batch: int, ep: int, decode: bool) -> None:
+    """Up-front shape validation for ``ep_moe_shardmap``: the batch splits
+    over the batch axis and (prefill) the sequence over the EP axis; a
+    non-dividing shape would floor-truncate the per-rank token count and
+    under-size ``bucket_capacity``. Fail loudly, naming the shapes."""
+    if n_batch and b % n_batch:
+        raise ValueError(
+            f"ep_moe_shardmap: batch={b} does not divide the {n_batch}-way "
+            f"batch axis (seq={s}, ep={ep}, decode={decode}) — pad the "
+            f"batch or reshape the mesh"
+        )
+    if not decode and s % ep:
+        raise ValueError(
+            f"ep_moe_shardmap prefill splits the sequence over the EP "
+            f"axis: seq={s} does not divide ep={ep} (batch={b}, "
+            f"n_batch={n_batch}); b*s//(n_batch*ep) would floor-truncate "
+            f"the per-device token count and under-size bucket_capacity — "
+            f"pad the sequence to a multiple of {ep}"
+        )
+
+
+def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    """``lax.all_to_all(split_axis=0, concat_axis=0, tiled=False)`` over
+    ``group``: block i of dim 0 goes to rank i, block j of the result
+    came from rank j (equal, contiguous splits)."""
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    dist.all_to_all_single(out, t, group=group)
+    return out
+
+
+def dispatch_fused(xt, slots, total_slots: int, cap: int, ep: int, kc: int):
+    """Per-chunk rank-compacted send buffers and the dispatch metadata of
+    the fused branch (the reference's ``dispatch_fused`` closure).
+
+    Returns ``(sends, kept_ck, keep, chunk_of, dest, posr)``: ``sends[c]``
+    is ``(ep, spc*cap, d)`` with each destination rank's kept copies of
+    chunk c packed bucket after bucket; ``kept_ck`` ``(ep, kc, spc)`` the
+    kept count per bucket; per copy its keep mask, owning chunk,
+    destination rank (``>= ep`` for the sentinel) and row inside that
+    rank's chunk block (``spc*cap`` when dropped). Rows a copy does not
+    own are never written: the scatter goes through one sacrificial row
+    past the end, which is cut off."""
+    n, k = slots.shape
+    d = xt.shape[-1]
+    spd = total_slots // ep
+    spc = spd // kc
+    _, _, kept, pos, keep = dispatch_metadata(slots, total_slots, cap)
+    kept_ck = kept.reshape(ep, kc, spc)
+    wro = torch.cumsum(kept_ck, dim=2, dtype=torch.int32) - kept_ck
+    flat_b = slots.reshape(-1).long()
+    safe_b = flat_b.clamp(max=total_slots - 1)
+    dest = flat_b // spd
+    chunk_of = (safe_b % spd) // spc
+    flat_keep = keep.reshape(-1)
+    posr = wro.reshape(-1)[safe_b].long() + pos.reshape(-1).long()
+    posr = torch.where(flat_keep, posr, torch.full_like(posr, spc * cap))
+    src = xt[torch.arange(n, device=xt.device).repeat_interleave(k)]
+    block = spc * cap
+    sends = []
+    for c in range(kc):
+        ok = flat_keep & (chunk_of == c)
+        row = torch.where(ok, dest.clamp(max=ep - 1) * block + posr.clamp(max=block - 1),
+                          torch.full_like(posr, ep * block))
+        send = xt.new_zeros((ep * block + 1, d))
+        send[row] = src
+        sends.append(send[:-1].reshape(ep, block, d))
+    return sends, kept_ck, keep, chunk_of, dest, posr
+
+
+def ep_moe_shardmap(
+    x: torch.Tensor,            # (B_loc, S, d) this rank's batch rows
+    expert_ids: torch.Tensor,   # (B_loc, S, k) — may carry the E sentinel
+    weights: torch.Tensor,      # (B_loc, S, k)
+    slot_weights: dict,         # this rank's slot rows, leading dim = spd
+    slot_of: torch.Tensor,      # (E, R_max) replicated routing view
+    n_replicas: torch.Tensor,   # (E,)
+    ctx: ParallelCtx,
+    capacity_factor: float,
+    slots_per_device: int,
+    decode: bool = False,
+) -> torch.Tensor:
+    """Expert-parallel MoE over the model group: dispatch -> all_to_all ->
+    grouped FFN -> all_to_all -> combine. Returns ``(B_loc, S, d)``,
+    the same on every rank of the model group.
+
+    Prefill (``decode=False``) splits the sequence over the EP axis: rank
+    r dispatches positions ``[r*S/ep, (r+1)*S/ep)`` and an all-gather over
+    the model group puts the sequence back together (the reference's
+    ``out_specs`` leave that to GSPMD). Decode keeps the tokens replicated:
+    rank r owns the tokens with ``idx % ep == r``, the others overflow out
+    of every bucket, and an all-reduce of the owners' results restores
+    the replication.
+
+    Unless the plain math is asked for (``use_kernels=False``), the fused
+    branch runs: rank-compacted rows ship over the all-to-all with their
+    bucket fills, every rank's grouped FFN reads them in place and stores
+    back at the same rows (``registry.expert_ffn_from_rows(compact_out,
+    fused)``; on CPU tensors its plain versions), the result ships back
+    and the combine gathers each kept copy at ``chunk_of``/``dest``/
+    ``posr``. ``ctx.ep_chunks = K`` splits each rank's expert groups into
+    K chunks, chunk c+1's dispatch issued before chunk c's FFN; one final
+    combine keeps the output bit-identical to K = 1. ``use_kernels=False``
+    takes the padded branch: ``(slots, cap, d)`` buckets, the plain grouped
+    FFN, ``bucket_combine``."""
+    mesh = ctx.mesh
+    group = mesh.model_group
+    ep = mesh.model
+    rank = mesh.model_rank
+    spd = slots_per_device
+    total_slots = ep * spd
+
+    b, s, d = x.shape
+    k = expert_ids.shape[-1]
+    validate_ep_token_split(b * mesh.data, s, mesh.data, ep, decode)
+    if not decode:
+        sl = s // ep
+        part = slice(rank * sl, (rank + 1) * sl)
+        x, expert_ids, weights = x[:, part], expert_ids[:, part], weights[:, part]
+    bl, sl, _ = x.shape
+    n = bl * sl
+    cap = bucket_capacity(n, k, capacity_factor, total_slots)
+    fused = ctx.use_kernels is not False
+    kc = validate_ep_chunks(ctx.ep_chunks, where="ep_moe_shardmap")
+    if kc > 1:
+        validate_ep_chunks(kc, spd, where="ep_moe_shardmap slots_per_device")
+    if not fused:
+        kc = 1
+    spc = spd // kc
+    wg, wu, wd = slot_weights["w_gate"], slot_weights["w_up"], slot_weights["w_down"]
+
+    xt = x.reshape(n, d)
+    eid = expert_ids.reshape(n, k)
+    w = weights.reshape(n, k)
+    slots = choose_slots(eid, slot_of, n_replicas, sentinel=total_slots + 1)
+    if decode:
+        owned = (torch.arange(n, device=x.device) % ep) == rank
+        slots = torch.where(owned[:, None], slots, torch.full_like(slots, total_slots + 1))
+
+    if fused:
+        sends, kept_ck, keep, chunk_of, dest, posr = dispatch_fused(
+            xt, slots, total_slots, cap, ep, kc)
+
+        def exchange(c):
+            return (all_to_all(sends[c], group),
+                    all_to_all(kept_ck[:, c].contiguous(), group))
+
+        def chunk_ffn(recv, cnt, c):
+            # recv[r'] = my chunk's spc buckets' rows from source rank r',
+            # bucket-compacted; cnt[r', s] that segment's fill. Group
+            # gi = s*ep + r' (weight row gi // ep) starts at flat row
+            # r'*spc*cap + roff.
+            roff = torch.cumsum(cnt, dim=1, dtype=torch.int32) - cnt
+            base = torch.arange(ep, dtype=torch.int32, device=x.device)[:, None] * (spc * cap)
+            offsets_g = (roff + base).transpose(0, 1).reshape(-1)
+            counts_g = cnt.transpose(0, 1).reshape(-1)
+            ws = slice(c * spc, (c + 1) * spc)
+            y = registry.expert_ffn_from_rows(
+                recv.reshape(ep * spc * cap, d), wg[ws], wu[ws], wd[ws],
+                offsets_g, counts_g, capacity=cap, groups_per_weight=ep,
+                compact_out=True, fused=True,
+            )
+            return all_to_all(y.reshape(ep, spc * cap, d), group)
+
+        recv = [None] * kc
+        recv[0] = exchange(0)
+        backs = []
+        for c in range(kc):
+            if c + 1 < kc:
+                recv[c + 1] = exchange(c + 1)
+            backs.append(chunk_ffn(*recv[c], c))
+            recv[c] = None
+        back = torch.cat(backs, dim=0)
+        rows = chunk_of * (ep * spc * cap) + dest * (spc * cap) + posr
+        out = combine_from_rows(back.reshape(kc * ep * spc * cap, d),
+                                rows.reshape(n, k), keep.reshape(n, k), w)
+    else:
+        bufs, pos, keep = bucket_dispatch(xt, slots, total_slots, cap)
+        counts = kept_counts(slots, keep, total_slots)
+        recv = all_to_all(bufs.reshape(ep, spd, cap, d), group)
+        cnt = all_to_all(counts.reshape(ep, spd), group)
+        recv = recv.transpose(0, 1)                      # (spd, ep, cap, d)
+        y = expert_ffn_ragged(recv.reshape(spd * ep, cap, d), wg, wu, wd,
+                              cnt.transpose(0, 1).reshape(-1), ep)
+        y = y.reshape(spd, ep, cap, d).transpose(0, 1)
+        back = all_to_all(y, group).reshape(total_slots, cap, d)
+        out = bucket_combine(back, slots, pos, keep, w)
+    out = out.reshape(bl, sl, d)
+    if decode:
+        dist.all_reduce(out, group=group)               # the owners' results
+        return out
+    parts = [torch.empty_like(out) for _ in range(ep)]
+    dist.all_gather(parts, out.contiguous(), group=group)
+    return torch.cat(parts, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# sequence-parallel flash-decode merge
+# ---------------------------------------------------------------------------
+
+def seq_parallel_decode_kernel_eligible(ctx: ParallelCtx) -> bool:
+    """Do the per-rank partials come from ``flash_decode``'s partials
+    mode? Unless the plain math is asked for (``use_kernels=False``): on
+    CUDA tensors the kernel (its wrapper raises outside its gate, no
+    fallback), on CPU tensors its plain version."""
+    return ctx.use_kernels is not False
+
+
+def seq_parallel_decode_attend(
+    q: torch.Tensor,        # (B_loc, 1, H, hd) — replicated over the model group
+    k_cache: torch.Tensor,  # (B_loc, L_loc, K, hd) — this rank's cache slots
+    v_cache: torch.Tensor,
+    mask: torch.Tensor,     # (L_loc,) validity of this rank's slots
+    ctx: ParallelCtx,
+) -> torch.Tensor:
+    """Flash decode across the model group: each rank attends over its
+    slice of the cache and the partials LSE-merge with all-reduces. The
+    kernel body takes the partials from ``registry.decode_attend_partials``
+    (fp32, not normalised) and merges them with
+    ``registry.merge_decode_partials``; the einsum body is the reference's,
+    with its ``m_safe`` guard for a rank whose slice has no valid key."""
+    group = ctx.mesh.model_group
+    b = q.shape[0]
+    if seq_parallel_decode_kernel_eligible(ctx):
+        valid = mask[None, :].expand(b, mask.shape[0])
+        acc, m, l = registry.decode_attend_partials(q[:, 0].contiguous(), k_cache,
+                                                    v_cache, valid)
+        return registry.merge_decode_partials(acc, m, l, group, q.dtype)[:, None]
+
+    _, _, nh, hd = q.shape
+    nk = k_cache.shape[2]
+    g = nh // nk
+    qg = q.reshape(b, 1, nk, g, hd)
+    s = torch.einsum("bskgd,btkd->bkgst", qg, k_cache).float() / math.sqrt(hd)
+    s = torch.where(mask[None, None, None, None, :], s, torch.full_like(s, -1e30))
+    m = s.amax(dim=-1, keepdim=True)
+    m_safe = torch.clamp(m, min=-1e29)          # a slice with no valid key
+    e = torch.exp(s - m_safe)
+    num = torch.einsum("bkgst,btkd->bskgd", e.to(v_cache.dtype), v_cache)
+    den = e.sum(dim=-1)[..., None].permute(0, 3, 1, 2, 4)      # (b, 1, k, g, 1)
+    m_b = m.permute(0, 3, 1, 2, 4)
+    m_max = m_b.clone()
+    dist.all_reduce(m_max, op=dist.ReduceOp.MAX, group=group)
+    scale = torch.exp(m_b - m_max)
+    num = num * scale.to(num.dtype)
+    den = den * scale
+    dist.all_reduce(num, group=group)
+    dist.all_reduce(den, group=group)
+    out = num / den.clamp(min=1e-30).to(num.dtype)
+    return out.reshape(b, 1, nh, hd)

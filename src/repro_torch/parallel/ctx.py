@@ -1,6 +1,14 @@
-"""Parallel context threaded through model code (no-mesh subset of
-``repro.parallel.ctx``; multi-GPU EP over ``torch.distributed`` comes with
-a later slice).
+"""Parallel context threaded through model code (port of
+``repro.parallel.ctx``).
+
+``mesh`` is ``None`` for one process, or a :class:`~repro_torch.parallel.
+mesh.Mesh` of ``torch.distributed`` ranks. Under a mesh the batch is split
+over the data axis and every other computation is replicated on the ranks
+of a data index, except the three regions the reference writes by hand:
+the EP dispatch and combine (``collectives.ep_moe_shardmap``), the decode
+ownership sum, and the sequence-parallel decode, whose dense KV cache is
+split over the model axis (``seq_parallel_kv``; its partials LSE-merge
+across the model group).
 
 ``use_kernels`` decides, per tensor, whether a hot-path call launches its
 hand-written CUDA kernel or runs the plain PyTorch version:
@@ -18,15 +26,21 @@ import dataclasses
 
 import torch
 
+from repro_torch.parallel.mesh import Mesh
+
 
 @dataclasses.dataclass(frozen=True)
 class ParallelCtx:
+    mesh: Mesh | None = None
     moe_impl: str = "auto"           # auto | dense | ep | esp
     capacity_factor: float = 2.0     # MoE dispatch capacity
     use_kernels: str | bool = "auto"
     # Split the expert groups into this many chunks for the grouped FFN
     # (collectives.validate_ep_chunks); 1 = one call over every group.
     ep_chunks: int = 1
+    # decode under a mesh: split the dense cache's sequence dim over the
+    # model axis and LSE-merge the ranks' partials
+    seq_parallel_kv: bool = True
 
     def __post_init__(self):
         if self.use_kernels not in ("auto", True, False):
@@ -47,6 +61,22 @@ class ParallelCtx:
                 f"for the plain PyTorch path)"
             )
         return False
+
+    @property
+    def n_model(self) -> int:
+        return 1 if self.mesh is None else self.mesh.model
+
+    @property
+    def n_batch(self) -> int:
+        return 1 if self.mesh is None else self.mesh.data
+
+    @property
+    def model_rank(self) -> int:
+        return 0 if self.mesh is None else self.mesh.model_rank
+
+    @property
+    def batch_rank(self) -> int:
+        return 0 if self.mesh is None else self.mesh.data_rank
 
 
 NO_MESH = ParallelCtx()

@@ -13,7 +13,11 @@ Lifecycle of one migration ``(expert, src_device, dst_device)``:
    of every expert weight from the source slot into the reserved slot, as
    an in-place ``copy_`` on the live parameter tensors, queued on the
    current stream before the step's kernels. Only those rows move: never
-   the whole weight (tens of GB at full width).
+   the whole weight (tens of GB at full width). Under a mesh, where the
+   two slots live on different ranks of a model group, the source's owner
+   sends the slice and the destination's owner receives it into place;
+   every rank issues a tick's slices in the same order, so the pairs
+   match.
 3. **commit** — at the first tick after the final slice was issued, the
    table commit publishes the replica to the routing view. Stream order
    guarantees the copy landed before any kernel that reads the new routing
@@ -25,20 +29,42 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.er_mapping import Mapping, baseline_mapping
 from repro_torch.core.migration import Migration, MigStep, decompose
 from repro_torch.core.topology import MeshTopology
+from repro_torch.parallel.mesh import Mesh
 from repro_torch.parallel.placement import PlacementTable
 
 MOE_WEIGHTS = ("w_gate", "w_up", "w_down")
 
 
-def _copy_row_slice(w: torch.Tensor, src_slot: int, dst_slot: int, lo: int,
-                    rows: int) -> None:
+def copy_row_slice(w: torch.Tensor, src_slot: int, dst_slot: int, lo: int,
+                    rows: int, mesh: Mesh | None = None) -> None:
     """Copy rows ``[lo, lo+rows)`` of slot ``src_slot`` onto ``dst_slot`` of
-    ``w`` ``(L, n_slots, rows_total, cols)``, in place."""
-    w[:, dst_slot, lo : lo + rows].copy_(w[:, src_slot, lo : lo + rows])
+    ``w`` ``(L, n_slots, rows_total, cols)``, in place. Under a mesh ``w``
+    holds this rank's ``n_slots / n_model`` slot rows: the copy is local
+    when one rank owns both slots, else a send from the source's owner to
+    the destination's owner in this rank's model group; other ranks do
+    nothing."""
+    if mesh is None:
+        w[:, dst_slot, lo : lo + rows].copy_(w[:, src_slot, lo : lo + rows])
+        return
+    local = w.shape[1]
+    src_owner, dst_owner = src_slot // local, dst_slot // local
+    me = mesh.model_rank
+    src = w[:, src_slot % local, lo : lo + rows]
+    dst = w[:, dst_slot % local, lo : lo + rows]
+    if src_owner == dst_owner:
+        if me == src_owner:
+            dst.copy_(src)
+    elif me == src_owner:
+        dist.send(src.contiguous(), mesh.global_rank(mesh.data_rank, dst_owner))
+    elif me == dst_owner:
+        buf = torch.empty_like(dst)
+        dist.recv(buf, mesh.global_rank(mesh.data_rank, src_owner))
+        dst.copy_(buf)
 
 
 @dataclasses.dataclass
@@ -79,8 +105,9 @@ class MigrationDriver:
     step."""
 
     def __init__(self, table: PlacementTable, min_slices: int = 4,
-                 mapping: Mapping | None = None):
+                 mapping: Mapping | None = None, mesh: Mesh | None = None):
         self.table = table
+        self.mesh = mesh
         self.min_slices = max(1, int(min_slices))
         # Virtual EP has no physical mesh: a 1-D mesh where every device
         # shares one FTD (decompose then yields one Local hop).
@@ -133,7 +160,7 @@ class MigrationDriver:
             total = w.shape[2]
             chunk = min(total, -(-total // fl.n_slices))
             lo = max(0, min(i * chunk, total - chunk))
-            _copy_row_slice(w, fl.src_slot, fl.dst_slot, lo, chunk)
+            copy_row_slice(w, fl.src_slot, fl.dst_slot, lo, chunk, self.mesh)
         fl.next_slice += 1
         fl.issue_ticks.append(t)
 

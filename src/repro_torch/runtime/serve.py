@@ -1,5 +1,5 @@
 """Serving runtime: batched decode with the NI-Balancer in the loop
-(PyTorch port of ``repro.runtime.serve``, single process).
+(PyTorch port of ``repro.runtime.serve``).
 
 The ``Server`` owns
 
@@ -21,6 +21,15 @@ dispatch -> observe counts -> (Eq. 2 trigger) -> plan with Algorithm 1 ->
 submit the plan to the driver. ``migration_slices=0`` keeps the
 instantaneous whole-expert copy as the parity baseline.
 
+Under a mesh (``ParallelCtx(mesh=...)``, one ``Server`` per rank) the
+EP axis is the model axis: a rank keeps the slot rows
+``sharding.slot_rows`` of the expanded weights, serves its requests
+(``sharding.batch_rows`` of the prompt) on its slice of the dense cache,
+sums the step's expert counts over its data group so that every rank
+observes the global counts and plans the same migrations, and moves
+migration slices between ranks. ``generate`` gathers the tokens of every
+request. ESP and the paged cache under a mesh are not ported yet.
+
 Device failure handling (``mark_dead``/``revive``), snapshot restore and
 the chunked-prefill lane come with later slices.
 """
@@ -31,6 +40,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.ni_balancer import (
@@ -41,10 +51,15 @@ from repro_torch.core.ni_balancer import (
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import transformer as T
+from repro_torch.parallel import sharding
 from repro_torch.parallel.collectives import validate_ep_chunks
 from repro_torch.parallel.ctx import ParallelCtx
 from repro_torch.parallel.placement import PlacementTable
-from repro_torch.runtime.migration_driver import MOE_WEIGHTS, MigrationDriver
+from repro_torch.runtime.migration_driver import (
+    MOE_WEIGHTS,
+    MigrationDriver,
+    copy_row_slice,
+)
 
 
 @dataclasses.dataclass
@@ -167,13 +182,19 @@ class Server:
                 "ServeConfig(prefill_chunk=...) is not ported yet (ROADMAP: "
                 "chunk lane)"
             )
+        self.mesh = ctx.mesh
+        if self.mesh is not None:
+            self._check_mesh(cfg, ctx, serve_cfg)
         self.cfg = cfg
         if serve_cfg.ep_chunks != ctx.ep_chunks:
             ctx = dataclasses.replace(ctx, ep_chunks=serve_cfg.ep_chunks)
         self.ctx = ctx
         self.scfg = serve_cfg
         self.params = params
-        self.ep = serve_cfg.virtual_ep or 1
+        # the EP axis: the mesh's model axis; virtual EP on one rank
+        self.ep = ctx.n_model
+        if self.ep == 1 and serve_cfg.virtual_ep:
+            self.ep = serve_cfg.virtual_ep
         self.use_balancer = cfg.is_moe and self.ep > 1
         self.distance = distance or (lambda a, b: abs(a - b))
         self.t = 0
@@ -196,12 +217,14 @@ class Server:
             # Expand expert rows to physical slots (slot s holds expert
             # s % E), one weight tensor at a time: each source tensor is
             # dropped as soon as its slot copy exists, so at most one
-            # expanded tensor coexists with the unexpanded ones.
-            rows = np.arange(n_slots) % cfg.n_experts
+            # expanded tensor coexists with the unexpanded ones. A rank
+            # keeps only its own slot rows.
+            mine = sharding.slot_rows(n_slots, ctx.n_model, ctx.model_rank)
+            rows = (np.arange(n_slots) % cfg.n_experts)[mine]
             moe = self.params["layers"]["moe"]
             for w in MOE_WEIGHTS:
                 src = moe.pop(w)
-                dst = src.new_empty((src.shape[0], n_slots, *src.shape[2:]))
+                dst = src.new_empty((src.shape[0], len(rows), *src.shape[2:]))
                 for layer in range(src.shape[0]):
                     for s, e in enumerate(rows):
                         dst[layer, s].copy_(src[layer, int(e)])
@@ -217,7 +240,8 @@ class Server:
                 ema_decay=serve_cfg.ema,
             )
             self.driver = (
-                MigrationDriver(self.table, min_slices=serve_cfg.migration_slices)
+                MigrationDriver(self.table, min_slices=serve_cfg.migration_slices,
+                                mesh=self.mesh)
                 if serve_cfg.migration_slices > 0
                 else None
             )
@@ -250,6 +274,29 @@ class Server:
 
     # -- helpers -------------------------------------------------------------
 
+    @staticmethod
+    def _check_mesh(cfg: ModelConfig, ctx: ParallelCtx, scfg: ServeConfig) -> None:
+        """What serving under a mesh needs, and what it does not serve yet."""
+        if not dist.is_initialized():
+            raise RuntimeError(
+                "Server under a mesh needs an initialised torch.distributed "
+                "process group (parallel.mesh.init_distributed); it does not "
+                "serve single-process instead"
+            )
+        if scfg.paged:
+            raise NotImplementedError(
+                "the paged KV cache under a mesh (KV heads over the model "
+                "axis) is not ported yet (ROADMAP Queue 1 item 5); use "
+                "ServeConfig(paged=False)"
+            )
+        if cfg.is_moe and (ctx.moe_impl == "esp" or (
+                ctx.moe_impl == "auto" and cfg.n_experts % ctx.n_model)):
+            raise NotImplementedError(
+                "ESP under a mesh (esp_expert_ffn's psum_scatter over the "
+                "model axis) is not ported yet (ROADMAP Queue 1 item 5)"
+            )
+        sharding.batch_rows(scfg.batch, ctx.n_batch, ctx.batch_rank)
+
     def _moe(self) -> dict:
         return self.params["layers"]["moe"]
 
@@ -280,6 +327,10 @@ class Server:
         lengths of right-padded ragged batches); pages of a previously
         prefilled batch are released first."""
         tokens = self._tokens(tokens)
+        if self.mesh is not None:
+            # this rank's requests; decode then takes this rank's tokens
+            tokens = tokens[sharding.batch_rows(tokens.shape[0], self.ctx.n_batch,
+                                                self.ctx.batch_rank)]
         b, s = tokens.shape
         if not self.scfg.paged:
             logits, cache = self._prefill(tokens)
@@ -473,13 +524,19 @@ class Server:
         self._pos = pos + 1
         self.t += 1
         if self.use_balancer:
-            counts = stats["expert_counts"].cpu().numpy()
+            counts = stats["expert_counts"]
+            if self.mesh is not None:
+                # every rank observes the global batch's counts, so every
+                # rank plans the same migrations
+                dist.all_reduce(counts, group=self.mesh.data_group)
+            counts = counts.cpu().numpy()
             self.state.observe(counts)
             self._maybe_balance(counts)
         return logits, cache
 
     def generate(self, prompt, n_tokens: int) -> torch.Tensor:
-        """Greedy decode: ``(B, n_tokens)`` int64 tokens on the device."""
+        """Greedy decode: ``(B, n_tokens)`` int64 tokens on the device, every
+        request's on every rank under a mesh."""
         logits, cache = self.prefill(prompt)
         out = []
         tok = torch.argmax(logits[:, -1:], dim=-1)
@@ -487,7 +544,12 @@ class Server:
             out.append(tok)
             logits, cache = self.decode(tok, cache)
             tok = torch.argmax(logits[:, -1:], dim=-1)
-        return torch.cat(out, dim=1)
+        out = torch.cat(out, dim=1)
+        if self.mesh is None:
+            return out
+        parts = [torch.empty_like(out) for _ in range(self.mesh.data)]
+        dist.all_gather(parts, out, group=self.mesh.data_group)
+        return torch.cat(parts, dim=0)
 
     # -- balancing -----------------------------------------------------------
 
@@ -528,7 +590,7 @@ class Server:
         """Whole-expert row copy (the instantaneous path), in place."""
         moe = self._moe()
         for w in MOE_WEIGHTS:
-            moe[w][:, dst_slot].copy_(moe[w][:, src_slot])
+            copy_row_slice(moe[w], src_slot, dst_slot, 0, moe[w].shape[2], self.mesh)
 
     def _apply_migration(self, mig) -> bool:
         """Replicate expert ``e`` onto a free slot of device ``dst`` now.

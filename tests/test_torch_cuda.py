@@ -4,19 +4,27 @@ test is marked ``cuda`` and skips without a device. Run on the card with:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
+The mesh test at the end needs four cards (NCCL across them) and skips
+with fewer.
+
 Tolerances are elementwise, from :mod:`repro_torch.kernels.tolerance`:
 ``|kernel - plain| <= rtol |plain| + atol rms(row)``, with (1e-4, 1e-4) in
 fp32 and (2^-5, 2^-5) in bf16; a bf16 GMM is also held to the fp32 product
 of its own bf16 inputs at (2^-8, 2^-10), its output rounding alone.
 """
 
+import dataclasses
+from datetime import timedelta
+from pathlib import Path
+
 import pytest
 import torch
+import torch.multiprocessing as tmp
 
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import ref as fd_ref
-from repro_torch.kernels.flash_decode.flash_decode import flash_decode
+from repro_torch.kernels.flash_decode.flash_decode import flash_decode, flash_decode_partials
 from repro_torch.kernels.flash_decode.paged import flash_decode_paged
 from repro_torch.kernels.gmm import ref as gmm_ref
 from repro_torch.kernels.gmm.ragged import (
@@ -176,3 +184,135 @@ def test_cuda_dense_decode_matches_plain(cuda_device, dtype, tol, t):
     out = flash_decode(q, k, v, valid)
     _check(out, fd_ref.decode(q, k, v, valid.bool()), tol)
     assert (out[2] == 0).all()       # no valid key: zeros
+
+
+def _partials_inputs(dev, dtype, t):
+    """4 requests over a cache slice of ``t`` keys: a prefix, a wrapped
+    ring, a single key and no valid key at all; NaN in every invalid K/V
+    row."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q = _rand(gen, dev, dtype, 4, 8, 64)
+    k = _rand(gen, dev, dtype, 4, t, 2, 64)
+    v = _rand(gen, dev, dtype, 4, t, 2, 64)
+    valid = torch.zeros((4, t), dtype=torch.int32, device=dev)
+    valid[0, :150] = 1
+    valid[1, t - 40 :] = 1
+    valid[1, :30] = 1
+    valid[2, 77] = 1
+    k[valid == 0] = float("nan")
+    v[valid == 0] = float("nan")
+    return q, k, v, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_cuda_decode_partials_match_plain(cuda_device, dtype, tol):
+    """acc at the run's dtype limit, m and l at the fp32 limit (every
+    rank's merge weight e^(m - m_max) depends on them); a slice with no
+    valid key gives m = -1e30, l = 0, acc = 0 exactly."""
+    q, k, v, valid = _partials_inputs(cuda_device, dtype, 256)
+    acc, m, l = flash_decode_partials(q, k, v, valid)
+    acc_r, m_r, l_r = fd_ref.decode_partials(q, k, v, valid.bool())
+    for got, want in ((acc, acc_r), (m, m_r), (l, l_r)):
+        assert got.dtype == torch.float32
+    _check(acc[:3], acc_r[:3], tol)
+    _check(m[:3], m_r[:3], PLAIN[torch.float32])
+    _check(l[:3], l_r[:3], PLAIN[torch.float32])
+    assert (m[3] == -1e30).all() and (l[3] == 0).all() and (acc[3] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_cuda_partials_merge_matches_normalised_kernel(cuda_device, dtype, tol):
+    """The LSE merge of the kernel's partials over 4 slices of the cache
+    (one process) gives the normalised kernel's output over the whole
+    cache; the request with no valid key gets zeros from both."""
+    from repro_torch.kernels.flash_decode.ref import merge_partials_local
+
+    q, k, v, valid = _partials_inputs(cuda_device, dtype, 256)
+    parts = [flash_decode_partials(q, k[:, i:i + 64].contiguous(), v[:, i:i + 64].contiguous(),
+                                   valid[:, i:i + 64].contiguous())
+             for i in range(0, 256, 64)]
+    merged = merge_partials_local(parts).to(dtype)
+    want = flash_decode(q, k, v, valid)
+    _check(merged, want, tol)
+    assert (merged[3] == 0).all()
+
+
+@pytest.mark.cuda
+def test_cuda_decode_modes_count_apart(cuda_device):
+    """The partials instantiation leaves the normalised mode's launches as
+    they were: each mode counts its own."""
+    q, k, v, valid = _partials_inputs(cuda_device, torch.bfloat16, 200)
+    n0, p0 = flash_decode.launches, flash_decode_partials.launches
+    flash_decode(q, k, v, valid)
+    assert (flash_decode.launches, flash_decode_partials.launches) == (n0 + 1, p0)
+    flash_decode(q, k, v, valid, return_partials=True)
+    assert (flash_decode.launches, flash_decode_partials.launches) == (n0 + 1, p0 + 1)
+
+
+MESH_SERVE = dict(max_seq=64, batch=4, slots_per_device=3, alpha=0.1)
+
+
+def _small_cfg():
+    from repro_torch.configs import get_config, smoke
+
+    return dataclasses.replace(smoke(get_config("dbrx-132b")), head_dim=32)
+
+
+def _mesh_rank(rank, shape, init_file, prompt, out_dir):
+    """One rank of a 4-card NCCL mesh serving the small fp32 model."""
+    import torch.distributed as dist
+
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.ctx import ParallelCtx
+    from repro_torch.parallel.mesh import make_mesh
+    from repro_torch.runtime.serve import ServeConfig, Server
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{init_file}", world_size=4,
+                            rank=rank, timeout=timedelta(seconds=180), device_id=dev)
+    mesh = make_mesh(*shape)
+    cfg = _small_cfg()
+    srv = Server(cfg, ParallelCtx(mesh=mesh, capacity_factor=8.0),
+                 T.init_params(cfg, seed=12, device=dev), ServeConfig(**MESH_SERVE),
+                 device=dev)
+    flash_decode_partials.launches = 0
+    tokens = srv.generate(prompt.to(dev), 12).cpu()
+    torch.save({"tokens": tokens, "migrations": srv.migrations,
+                "partials": flash_decode_partials.launches},
+               Path(out_dir) / f"rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 2), (1, 4)], ids=["2x2", "1x4"])
+def test_cuda_mesh_of_four_cards_matches_one_process(cuda_device, tmp_path, shape):
+    """Four ranks over NCCL (EP all-to-all across cards, the partials
+    kernel and the LSE merge, migration slices sent between cards): every
+    rank's greedy tokens and migration count equal those of one process
+    serving the same slots on virtual EP (capacity factor 8: no copy is
+    dropped on either side)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.ctx import ParallelCtx
+    from repro_torch.runtime.serve import ServeConfig, Server
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    cfg = _small_cfg()
+    prompt = torch.randint(0, cfg.vocab_size, (4, 12),
+                           generator=torch.Generator().manual_seed(11))
+    ref = Server(cfg, ParallelCtx(moe_impl="ep", capacity_factor=8.0),
+                 T.init_params(cfg, seed=12, device=cuda_device),
+                 ServeConfig(virtual_ep=shape[1], **MESH_SERVE), device=cuda_device)
+    want = ref.generate(prompt.to(cuda_device), 12).cpu()
+    assert ref.migrations > 0
+    tmp.spawn(_mesh_rank, args=(shape, str(tmp_path / "pg"), prompt, str(tmp_path)),
+              nprocs=4, join=True)
+    for rank in range(4):
+        got = torch.load(tmp_path / f"rank{rank}.pt")
+        assert torch.equal(got["tokens"], want), rank
+        assert got["migrations"] == ref.migrations
+        assert got["partials"] == cfg.n_layers * 12

@@ -5,7 +5,8 @@
 * The port imports and serves a step with ``jax`` made unimportable.
 * Entry points default to the card and raise without one rather than run
   on the CPU; kernel requests for CPU tensors raise rather than quietly
-  take the plain path.
+  take the plain path; a Server given a mesh without an initialised
+  process group raises rather than serve single-process.
 """
 
 import ast
@@ -49,6 +50,9 @@ def test_port_imports_neither_jax_nor_repro():
                     offenders.append(f"{path.relative_to(ROOT)}: {name}")
     assert not offenders, offenders
     assert len(_port_files()) > 20
+    names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for mod in ("parallel/mesh.py", "parallel/sharding.py", "parallel/collectives.py"):
+        assert f"src/repro_torch/{mod}" in names
 
 
 def test_port_runs_with_jax_unimportable():
@@ -125,3 +129,22 @@ def test_request_stream_matches_reference_draws():
     a = next(request_stream(256, 2, 5, seed=3))
     want = np.random.default_rng(3).integers(0, 256, size=(2, 5))
     np.testing.assert_array_equal(a, want)
+
+
+def test_server_under_mesh_needs_a_process_group():
+    """A mesh whose world is gone (or never was) is refused at once: the
+    Server does not quietly serve single-process."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel.mesh import Mesh
+
+    assert not dist.is_initialized()
+    cfg = smoke(get_config("dbrx-132b"))
+    ctx = ParallelCtx(mesh=Mesh(1, 1, 0, None, None))
+    with pytest.raises(RuntimeError, match="process group"):
+        Server(cfg, ctx, T.init_params(cfg, seed=0, device="cpu"),
+               ServeConfig(max_seq=32, batch=2), device="cpu")
+    from repro_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(RuntimeError, match="not initialised"):
+        make_mesh(1, 1)
