@@ -34,13 +34,15 @@ Phases (one line each; any failure raises and the exit code is non-zero):
       slots attended through the partials kernel and the LSE merge, the
       balancer live with one forced migration;
    The expert groups' row counts (and offsets) of layer 0 in one prefill
-   and one decode tick of a and b are kept for phase 4;
+   and one decode tick of each are kept for phase 4;
 4. every kernel at the main paths' shapes and row counts, in bf16 and in
    fp32 (TF32 off), held elementwise against its plain PyTorch version
    (``repro_torch.kernels.tolerance``) with dead rows, gap rows of dropped
    copies, dead pages and invalid keys poisoned with NaN, and flat outputs
    filled with NaN first (rows outside the live segments must stay NaN);
    the bf16 GMMs also against the fp32 product of the same bf16 inputs;
+   the gather/scatter pair at both paths that run it (mixtral's 8 experts
+   under ESP; dbrx's 20 slots with the mesh path's rank-compacted rows);
    ``gmm_fused_ffn`` at the widest shape its gate admits (D = D_out =
    4096) with mixtral's F, also against the kernel pair; ``flash_decode``'s
    partials mode with ``acc`` at the run's dtype limit and ``m``, ``l`` at
@@ -363,47 +365,51 @@ def _nan_rows(torch, shape, dt):
     return torch.full(shape, float("nan"), dtype=dt, device="cuda")
 
 
-def esp_gmm_cells(torch, rows, dtype, timer, time_it: bool):
-    """gmm_dual_act_gather and gmm_scatter at mixtral's expert shapes (8
-    experts, D=6144, F=16384) and the flat-row layouts the ESP main path
-    served (``rows``: phase -> (R, capacity, offsets, counts)). Gap rows of
-    the flat input and every row of the flat output outside the live
-    segments start as NaN; the latter must still be NaN after the scatter."""
+def pair_cells(torch, rows, D, F, dtype, timer, time_it: bool):
+    """gmm_dual_act_gather and gmm_scatter at one main path's expert widths
+    (D, F) and the flat-row layouts it served (``rows``: phase -> (R,
+    capacity, offsets, counts, groups_per_weight); the weights have one row
+    per ``groups_per_weight`` groups): mixtral's 8 experts (ESP) and
+    dbrx's 20 slots (the mesh path's fused branch, rows compacted per
+    source rank). Gap rows of the flat input and every row of the flat
+    output outside the live segments start as NaN; the latter must still
+    be NaN after the scatter."""
     from repro_torch.kernels.gmm import ragged as K
     from repro_torch.kernels.gmm import ref as R
     from repro_torch.kernels.tolerance import PLAIN, ROUNDING
 
     dt = getattr(torch, dtype)
     tol = PLAIN[dt]
-    G, D, F = 8, 6144, 16384
+    _, _, _, counts0, gpw = rows["decode"]
+    G = len(counts0) // gpw
     gen = torch.Generator(device="cuda").manual_seed(6)
     wg = (torch.randn((G, D, F), generator=gen, device="cuda") * 0.02).to(dt)
     wu = (torch.randn((G, D, F), generator=gen, device="cuda") * 0.02).to(dt)
     wd = (torch.randn((G, F, D), generator=gen, device="cuda") * 0.02).to(dt)
     results = {}
-    for phase, (n_rows, cap, offsets, counts) in rows.items():
+    for phase, (n_rows, cap, offsets, counts, gpw) in rows.items():
         off = torch.as_tensor(offsets, dtype=torch.int32, device="cuda")
         gs = torch.as_tensor(counts, dtype=torch.int32, device="cuda")
         live = _flat_live(torch, off, gs, n_rows)
         x = torch.randn((n_rows, D), generator=gen, device="cuda").to(dt)
         x[~live] = float("nan")
         what = f"{phase} {dtype}"
-        h = K.gmm_dual_act_gather(x, wg, wu, off, gs, cap)
-        h_ref = R.gmm_dual_act_gather(x, wg, wu, off, gs, cap)
+        h = K.gmm_dual_act_gather(x, wg, wu, off, gs, cap, gpw)
+        h_ref = R.gmm_dual_act_gather(x, wg, wu, off, gs, cap, gpw)
         hin = h_ref.clone()
         dead = torch.arange(cap, device="cuda")[None, :] >= gs[:, None]
         hin[dead] = float("nan")
-        y = K.gmm_scatter(hin, wd, off, gs, n_rows, out=_nan_rows(torch, (n_rows, D), dt))
-        y_ref = R.gmm_scatter(hin, wd, off, gs, n_rows)
+        y = K.gmm_scatter(hin, wd, off, gs, n_rows, gpw, out=_nan_rows(torch, (n_rows, D), dt))
+        y_ref = R.gmm_scatter(hin, wd, off, gs, n_rows, gpw)
         if not bool(torch.isnan(y[~live]).all()):
             raise AssertionError(f"gmm_scatter {what}: a row outside the live segments was written")
         cell = {"gmm_dual_act_gather": held(torch, h, h_ref, tol, f"gmm_dual_act_gather {what}"),
                 "gmm_scatter": held(torch, y[live], y_ref[live], tol, f"gmm_scatter {what}")}
         if dt == torch.bfloat16:
-            ref32 = R.gmm_dual_act_gather(x.float(), wg.float(), wu.float(), off, gs, cap)
+            ref32 = R.gmm_dual_act_gather(x.float(), wg.float(), wu.float(), off, gs, cap, gpw)
             cell["gmm_dual_act_gather"]["excess_fp32_product"] = held(
                 torch, h, ref32, ROUNDING, f"gmm_dual_act_gather {what} vs fp32")["excess"]
-            ref32 = R.gmm_scatter(hin.float(), wd.float(), off, gs, n_rows)
+            ref32 = R.gmm_scatter(hin.float(), wd.float(), off, gs, n_rows, gpw)
             cell["gmm_scatter"]["excess_fp32_product"] = held(
                 torch, y[live], ref32[live], ROUNDING, f"gmm_scatter {what} vs fp32")["excess"]
             del ref32
@@ -411,41 +417,45 @@ def esp_gmm_cells(torch, rows, dtype, timer, time_it: bool):
             off1 = (off + 1).to(torch.int32)
             cell["gmm_dual_act_gather"]["faults"] = caught(tol, {
                 f"{phase}: K tile of {GMM_BK} dropped":
-                    (lambda: R.gmm_dual_act_gather(_drop_k_tile(x), wg, wu, off, gs, cap), h_ref),
+                    (lambda: R.gmm_dual_act_gather(_drop_k_tile(x), wg, wu, off, gs, cap, gpw),
+                     h_ref),
                 f"{phase}: last live row dropped":
-                    (lambda: R.gmm_dual_act_gather(x, wg, wu, off, short, cap), h_ref),
+                    (lambda: R.gmm_dual_act_gather(x, wg, wu, off, short, cap, gpw), h_ref),
                 f"{phase}: offsets one row off":
-                    (lambda: R.gmm_dual_act_gather(x, wg, wu, off1, gs, cap), h_ref),
+                    (lambda: R.gmm_dual_act_gather(x, wg, wu, off1, gs, cap, gpw), h_ref),
             }, f"gmm_dual_act_gather {what}")
             cell["gmm_scatter"]["faults"] = caught(tol, {
                 f"{phase}: K tile of {GMM_BK} dropped":
-                    (lambda: R.gmm_scatter(_drop_k_tile(hin), wd, off, gs, n_rows)[live],
+                    (lambda: R.gmm_scatter(_drop_k_tile(hin), wd, off, gs, n_rows, gpw)[live],
                      y_ref[live]),
                 f"{phase}: last live row dropped":
-                    (lambda: R.gmm_scatter(hin, wd, off, short, n_rows)[live], y_ref[live]),
+                    (lambda: R.gmm_scatter(hin, wd, off, short, n_rows, gpw)[live], y_ref[live]),
                 f"{phase}: offsets one row off":
-                    (lambda: R.gmm_scatter(hin, wd, off1, gs, n_rows)[live], y_ref[live]),
+                    (lambda: R.gmm_scatter(hin, wd, off1, gs, n_rows, gpw)[live], y_ref[live]),
             }, f"gmm_scatter {what}")
         if time_it:
             reps = 10 if phase == "decode" else 3
             xz = torch.nan_to_num(x)
             hz = torch.nan_to_num(hin)
-            buckets = R.gather_buckets(xz, off, gs, cap)
+            # the library call: one bmm per weight row over its groups'
+            # padded buckets
+            buckets = R.gather_buckets(xz, off, gs, cap).reshape(G, gpw * cap, D)
+            hb = hz.reshape(G, gpw * cap, F)
             wgu = torch.cat([wg, wu], dim=2)
             isz = x.element_size()
             live_rows = int(gs.sum())
-            live_groups = int((gs > 0).sum())
+            live_groups = int((gs.reshape(G, gpw).sum(1) > 0).sum())   # weight rows read
             for name, fn, plain, lib, nbytes, ops in (
                 ("gmm_dual_act_gather",
-                 lambda: K.gmm_dual_act_gather(xz, wg, wu, off, gs, cap),
-                 lambda: R.gmm_dual_act_gather(xz, wg, wu, off, gs, cap),
+                 lambda: K.gmm_dual_act_gather(xz, wg, wu, off, gs, cap, gpw),
+                 lambda: R.gmm_dual_act_gather(xz, wg, wu, off, gs, cap, gpw),
                  lambda: torch.bmm(buckets, wgu),
-                 isz * (live_rows * D + 2 * live_groups * D * F + G * cap * F),
+                 isz * (live_rows * D + 2 * live_groups * D * F + len(counts) * cap * F),
                  2 * 2 * live_rows * D * F),
                 ("gmm_scatter",
-                 lambda: K.gmm_scatter(hz, wd, off, gs, n_rows),
-                 lambda: R.gmm_scatter(hz, wd, off, gs, n_rows),
-                 lambda: torch.bmm(hz, wd),
+                 lambda: K.gmm_scatter(hz, wd, off, gs, n_rows, gpw),
+                 lambda: R.gmm_scatter(hz, wd, off, gs, n_rows, gpw),
+                 lambda: torch.bmm(hb, wd),
                  isz * (live_rows * F + live_groups * F * D + live_rows * D),
                  2 * live_rows * F * D),
             ):
@@ -453,11 +463,12 @@ def esp_gmm_cells(torch, rows, dtype, timer, time_it: bool):
                 cell[name].update(
                     ms=timer(fn, reps), plain_ms=timer(plain, reps),
                     library_ms=timer(lib, reps), bound_ms=b_ms, bound_by=b_by,
-                    shape=f"G={G} cap={cap} R={n_rows} D={D if name != 'gmm_scatter' else F} "
+                    shape=f"G={len(counts)} cap={cap} R={n_rows} "
+                          f"D={D if name != 'gmm_scatter' else F} "
                           f"F={F if name != 'gmm_scatter' else D} sum(gs)={live_rows} "
-                          f"live groups={live_groups}",
+                          f"live weight rows={live_groups} of {G}",
                 )
-            del xz, hz, buckets, wgu
+            del xz, hz, buckets, hb, wgu
         results[phase] = cell
         del x, h, h_ref, hin, y, y_ref
     del wg, wu, wd
@@ -485,7 +496,7 @@ def fused_cells(torch, rows, dtype, timer, time_it: bool):
     wu = (torch.randn((G, D, F), generator=gen, device="cuda") * 0.02).to(dt)
     wd = (torch.randn((G, F, D), generator=gen, device="cuda") * 0.02).to(dt)
     results = {}
-    for phase, (n_rows, cap, offsets, counts) in rows.items():
+    for phase, (n_rows, cap, offsets, counts, _) in rows.items():
         off = torch.as_tensor(offsets, dtype=torch.int32, device="cuda")
         gs = torch.as_tensor(counts, dtype=torch.int32, device="cuda")
         live = _flat_live(torch, off, gs, n_rows)
@@ -880,16 +891,19 @@ def main_path(torch, card: str):
         "peak_gb": peak_gb, "migrations": committed, **profile}
 
 
-def esp_rows(torch, srv, prompt) -> dict:
-    """Layer 0's flat-row layout in one prefill and one decode tick of the
-    ESP main-path server: phase -> (rows R, capacity, offsets, counts)."""
+def flat_rows(torch, srv, prompt) -> dict:
+    """Layer 0's flat-row layout in one prefill and one decode tick of a
+    main-path server that serves its experts from flat rows (ESP, or EP's
+    fused branch under a mesh): phase -> (rows R, capacity, offsets,
+    counts, groups_per_weight)."""
     from repro_torch.kernels import registry
 
     seen = []
     ffn = registry.expert_ffn_from_rows
 
     def spy(x, wg, wu, wd, offsets, group_sizes, *, capacity, **kw):
-        seen.append((x.shape[0], capacity, offsets.cpu().numpy(), group_sizes.cpu().numpy()))
+        seen.append((x.shape[0], capacity, offsets.cpu().numpy(), group_sizes.cpu().numpy(),
+                     kw.get("groups_per_weight", 1)))
         return ffn(x, wg, wu, wd, offsets, group_sizes, capacity=capacity, **kw)
 
     registry.expert_ffn_from_rows = spy
@@ -952,7 +966,7 @@ def esp_path(torch, card: str):
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("non-finite ESP prefill logits")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    rows = esp_rows(torch, srv, prompt)
+    rows = flat_rows(torch, srv, prompt)
     profile = profile_decode(torch, srv, prompt, card)
     tok_s = batch * n_new / decode_s
     log(
@@ -1016,7 +1030,8 @@ def mesh_path(torch, mesh, card: str):
     one rank), decode through the partials kernel and the all-reduce LSE
     merge, EP through ``ep_moe_shardmap``'s all-to-all legs, the balancer
     live with one forced stepped migration. Returns the launches of every
-    kernel and the run's numbers."""
+    kernel, layer 0's row layouts (rank-compacted, as the fused branch
+    receives them) and the run's numbers."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention
     from repro_torch.kernels.flash_decode import flash_decode as FD
@@ -1074,6 +1089,7 @@ def mesh_path(torch, mesh, card: str):
                              f"pending={srv.driver.pending}")
     srv.table.check()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rows = flat_rows(torch, srv, prompt)
     profile = profile_decode(torch, srv, prompt, card)
     tok_s = batch * n_new / decode_s
     log(
@@ -1082,9 +1098,12 @@ def mesh_path(torch, mesh, card: str):
         f"steps (after a warm-up run): setup {setup_s:.2f}s, TTFT (prefill) "
         f"{ttft_s * 1e3:.1f} ms, decode {decode_s * 1e3:.1f} ms = {tok_s:.1f} tok/s, peak "
         f"memory {peak_gb:.2f} GB, forced migration {forced}, migrations committed in the "
-        f"timed run {committed} of {srv.migrations}, launches {launches} [{card}]"
+        f"timed run {committed} of {srv.migrations}, launches {launches}, layer-0 expert "
+        f"rows prefill {rows['prefill'][3].tolist()} (R={rows['prefill'][0]}, "
+        f"cap={rows['prefill'][1]}) decode {rows['decode'][3].tolist()} "
+        f"(R={rows['decode'][0]}, cap={rows['decode'][1]}) [{card}]"
     )
-    return launches, {
+    return launches, rows, {
         "ttft_ms": ttft_s * 1e3, "decode_ms": decode_s * 1e3, "decode_tok_s": tok_s,
         "peak_gb": peak_gb, "migrations": committed, **profile}
 
@@ -1198,7 +1217,7 @@ def main(argv=None) -> int:
     esp_launches, rows, esp_run = esp_path(torch, card)
     gc.collect()
     torch.cuda.empty_cache()
-    mesh_launches, mesh_run = mesh_path(torch, mesh, card)
+    mesh_launches, mesh_rows, mesh_run = mesh_path(torch, mesh, card)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1209,11 +1228,13 @@ def main(argv=None) -> int:
         g = gmm_cells(torch, groups, dtype, timer, time_it)
         d = decode_cell(torch, dtype, timer, time_it)
         a = attention_cell(torch, dtype, timer, time_it)
-        eg = esp_gmm_cells(torch, rows, dtype, timer, time_it)
+        eg = pair_cells(torch, rows, 6144, 16384, dtype, timer, time_it)
+        mg = pair_cells(torch, mesh_rows, 6144, 10752, dtype, timer, time_it)
         fu = fused_cells(torch, rows, dtype, timer, time_it)
         dd = dense_decode_cell(torch, dtype, timer, time_it)
         pa = partials_cell(torch, dtype, timer, time_it)
-        cells[dtype] = {"gmm": g, "decode": d, "attn": a, "esp_gmm": eg, "fused": fu,
+        cells[dtype] = {"gmm": g, "decode": d, "attn": a, "esp_gmm": eg, "mesh_gmm": mg,
+                        "fused": fu,
                         "dense_decode": dd, "partials": pa}
         log(f"kernels {dtype}, error over its limit (rtol, atol) = "
             f"{PLAIN[getattr(torch, dtype)]}: gmm_dual_act_ragged decode "
@@ -1222,8 +1243,9 @@ def main(argv=None) -> int:
             f"{g['decode']['gmm_ragged']['excess']:.3g} prefill "
             f"{g['prefill']['gmm_ragged']['excess']:.3g}; flash_decode_paged "
             f"{d['excess']:.3g}; flash_attention {a['excess']:.3g}; "
-            + "; ".join(f"{n} decode {eg['decode'][n]['excess']:.3g} prefill "
-                        f"{eg['prefill'][n]['excess']:.3g}"
+            + "; ".join(f"{n} {path} decode {c['decode'][n]['excess']:.3g} prefill "
+                        f"{c['prefill'][n]['excess']:.3g}"
+                        for path, c in (("ESP", eg), ("mesh", mg))
                         for n in ("gmm_dual_act_gather", "gmm_scatter"))
             + f"; gmm_fused_ffn decode {fu['decode']['excess']:.3g} prefill "
             f"{fu['prefill']['excess']:.3g} (vs the pair {fu['decode']['excess_vs_pair']:.3g}"
@@ -1250,12 +1272,13 @@ def main(argv=None) -> int:
             log(f"time {name} {phase} [{c['shape']}]: kernel {c['ms']:.3f} ms, plain "
                 f"{c['plain_ms']:.3f} ms, torch.bmm {c['library_ms']:.3f} ms, bound "
                 f"{c['bound_ms']:.3f} ms ({c['bound_by']}) [{card}]")
-    for name in ("gmm_dual_act_gather", "gmm_scatter"):
-        for phase in ("decode", "prefill"):
-            c = bf["esp_gmm"][phase][name]
-            log(f"{name} {phase} bf16 vs the fp32 product at {ROUNDING}: "
-                f"{c['excess_fp32_product']:.3f}; faults caught: "
-                + ", ".join(f"{k} {v:.2f}" for k, v in c["faults"].items()))
+    for path, key in (("ESP", "esp_gmm"), ("mesh", "mesh_gmm")):
+        for name in ("gmm_dual_act_gather", "gmm_scatter"):
+            for phase in ("decode", "prefill"):
+                c = bf[key][phase][name]
+                log(f"{name} {path} {phase} bf16 vs the fp32 product at {ROUNDING}: "
+                    f"{c['excess_fp32_product']:.3f}; faults caught: "
+                    + ", ".join(f"{k} {v:.2f}" for k, v in c["faults"].items()))
     for phase in ("decode", "prefill"):
         c = bf["fused"][phase]
         log(f"gmm_fused_ffn {phase} bf16 faults caught: "
@@ -1275,12 +1298,13 @@ def main(argv=None) -> int:
         f"{c['plain_ms']:.4f} ms, normalised kernel {c['normalised_ms']:.4f} ms, sdpa "
         f"(normalised) {c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
         f"({c['bound_by']}) [{card}]")
-    for name in ("gmm_dual_act_gather", "gmm_scatter"):
-        for phase in ("decode", "prefill"):
-            c = bf["esp_gmm"][phase][name]
-            log(f"time {name} {phase} [{c['shape']}]: kernel {c['ms']:.3f} ms, plain "
-                f"{c['plain_ms']:.3f} ms, torch.bmm {c['library_ms']:.3f} ms, bound "
-                f"{c['bound_ms']:.3f} ms ({c['bound_by']}) [{card}]")
+    for path, key in (("ESP", "esp_gmm"), ("mesh", "mesh_gmm")):
+        for name in ("gmm_dual_act_gather", "gmm_scatter"):
+            for phase in ("decode", "prefill"):
+                c = bf[key][phase][name]
+                log(f"time {name} {path} {phase} [{c['shape']}]: kernel {c['ms']:.3f} ms, "
+                    f"plain {c['plain_ms']:.3f} ms, torch.bmm {c['library_ms']:.3f} ms, "
+                    f"bound {c['bound_ms']:.3f} ms ({c['bound_by']}) [{card}]")
     for phase in ("decode", "prefill"):
         c = bf["fused"][phase]
         log(f"time gmm_fused_ffn {phase} [{c['shape']}]: kernel {c['ms']:.3f} ms, plain "
@@ -1351,19 +1375,29 @@ def main(argv=None) -> int:
                                         c32["excess"])
                 extra = {"faults": c["faults"]}
         elif name.startswith("gmm"):
-            # timed at the decode cell: the kernel's call on every decode tick
+            # timed at the decode cell: the kernel's call on every decode tick;
+            # the gather/scatter pair is held at the ESP and the mesh layouts
             key = "gmm" if name in ("gmm_dual_act_ragged", "gmm_ragged") else "esp_gmm"
+            keys = (key, "mesh_gmm") if key == "esp_gmm" else (key,)
             c, pre = bf[key]["decode"][name], bf[key]["prefill"][name]
-            both, both32 = (c, pre), (fp[key]["decode"][name], fp[key]["prefill"][name])
-            err, ex, err32, ex32 = (max(x[key] for x in cs) for cs, key in (
-                (both, "max_abs_err"), (both, "excess"),
-                (both32, "max_abs_err"), (both32, "excess")))
-            extra = {"excess_fp32_product": max(x["excess_fp32_product"] for x in both),
-                     "faults": {**c["faults"], **pre["faults"]},
+            heldb = [bf[kk][ph][name] for kk in keys for ph in ("decode", "prefill")]
+            held32 = [fp[kk][ph][name] for kk in keys for ph in ("decode", "prefill")]
+            err, ex, err32, ex32 = (max(x[k] for x in cs) for cs, k in (
+                (heldb, "max_abs_err"), (heldb, "excess"),
+                (held32, "max_abs_err"), (held32, "excess")))
+            extra = {"excess_fp32_product": max(x["excess_fp32_product"] for x in heldb),
+                     "faults": {f"{kk} {f}": v for kk in keys for ph in ("decode", "prefill")
+                                for f, v in bf[kk][ph][name]["faults"].items()},
                      "prefill_ms": pre["ms"], "prefill_plain_ms": pre["plain_ms"],
                      "prefill_library_ms": pre["library_ms"],
                      "prefill_bound_ms": pre["bound_ms"],
                      "prefill_bound_by": pre["bound_by"], "prefill_shape": pre["shape"]}
+            if "mesh_gmm" in keys:
+                timed = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "shape")
+                md, mp = bf["mesh_gmm"]["decode"][name], bf["mesh_gmm"]["prefill"][name]
+                extra["mesh_path"] = {"launches": mesh_launches[name],
+                                      **{k: md[k] for k in timed},
+                                      **{f"prefill_{k}": mp[k] for k in timed}}
         else:
             key = "decode" if name == "flash_decode_paged" else "attn"
             c, c32 = bf[key], fp[key]

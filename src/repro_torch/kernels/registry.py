@@ -14,8 +14,8 @@ a call takes a kernel; when it does, it calls these names:
   validity mask (the ``flash_decode`` wrapper);
 * ``decode_attend_partials`` — the same over one rank's slice of the
   cache, as fp32 ``(acc, m, l)`` partials (``flash_decode`` with
-  ``return_partials``), and ``merge_decode_partials``, their LSE merge
-  across a process group (all-reduces, no kernel);
+  ``return_partials``; ``collectives.merge_partials`` merges them across
+  the model group);
 * ``decode_attend_paged`` — one-token decode over a paged KV pool (the
   ``flash_decode_paged`` wrapper).
 
@@ -29,7 +29,6 @@ derived for Hopper from what each kernel's tiles take (head dim, dtype,
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.kernels.flash_attention.flash_attention import (
     can_flash_attend,
@@ -63,7 +62,6 @@ __all__ = [
     "decode_attend_partials",
     "expert_ffn",
     "expert_ffn_from_rows",
-    "merge_decode_partials",
 ]
 
 attend = flash_attention
@@ -168,22 +166,7 @@ def decode_attend_partials(
 ):
     """Unnormalised fp32 ``(acc (B, H, hd), m (B, H), l (B, H))`` over this
     KV slice (``flash_decode(..., return_partials=True)``); partials over
-    disjoint slices merge exactly (:func:`merge_decode_partials`)."""
+    disjoint slices merge exactly (``collectives.merge_partials``)."""
     return flash_decode(q, k, v, valid.to(torch.int32).contiguous(),
                         return_partials=True)
 
-
-def merge_decode_partials(acc, m, l, group, dtype: torch.dtype) -> torch.Tensor:
-    """LSE merge of every rank's partials across ``group``: the global max
-    ``m*`` (all-reduce MAX), each rank's weight ``e^(m - m*)``, then one
-    all-reduce SUM of the weighted ``acc`` and ``l`` (fp32, as the
-    reference's psum; packed in one buffer) -> ``num / max(den, 1e-30)``,
-    cast once to ``dtype``. A rank whose slice has no valid key
-    (``m = -1e30``, ``l = 0``, ``acc = 0``) adds nothing."""
-    m_max = m.clone()
-    dist.all_reduce(m_max, op=dist.ReduceOp.MAX, group=group)
-    scale = torch.exp(m - m_max)
-    packed = torch.cat([acc * scale[..., None], (l * scale)[..., None]], dim=-1)
-    dist.all_reduce(packed, group=group)
-    num, den = packed[..., :-1], packed[..., -1:]
-    return (num / den.clamp(min=1e-30)).to(dtype)

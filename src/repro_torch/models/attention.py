@@ -9,7 +9,7 @@ page pool plus per-request block tables. The port writes K/V into either
 cache *in place* (JAX returns new arrays), which keeps one copy resident.
 
 Under a mesh (``ctx.mesh``) the dense cache's slots are split over the
-model axis (``seq_parallel_kv``): a rank holds slots ``[r*L/M, (r+1)*L/M)``
+model axis: a rank holds slots ``[r*L/M, (r+1)*L/M)``
 of its requests, the prefill fills that range, a decode write lands only
 on the rank that owns the slot, and decode attends through
 ``collectives.seq_parallel_decode_attend``. The chunked-prefill lane and
@@ -312,12 +312,6 @@ def decode_attention(p: dict, x: torch.Tensor, cache: dict, pos: int,
     else:
         mask = j <= min(pos, length - 1)
     if ctx.mesh is not None:
-        if not ctx.seq_parallel_kv:
-            raise NotImplementedError(
-                "decode under a mesh with seq_parallel_kv=False shards the "
-                "cache's KV heads, which is tensor parallelism: not ported "
-                "yet (ROADMAP Queue 1 item 5)"
-            )
         o = seq_parallel_decode_attend(q, k_cache, v_cache, mask, ctx)
     elif ctx.kernels_on(q):
         o = _flash_decode(q, k_cache, v_cache, mask)

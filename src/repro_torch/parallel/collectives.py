@@ -459,6 +459,26 @@ def seq_parallel_decode_kernel_eligible(ctx: ParallelCtx) -> bool:
     return ctx.use_kernels is not False
 
 
+def merge_partials(num, m, den, group, dtype: torch.dtype) -> torch.Tensor:
+    """LSE merge of every rank's decode partials across ``group`` (the
+    reference's ``merge_partials``): ``num`` ``(..., hd)`` the unnormalised
+    weighted values, ``m`` and ``den`` ``(...)`` the row max and the sum of
+    weights. The global max ``m*`` (all-reduce MAX) sets each rank's weight
+    ``e^(m - m*)``; the weighted ``num`` and ``den`` are summed (all-reduce
+    SUM) and ``num / max(den, 1e-30)`` is cast once to ``dtype``. The sums
+    run in ``num``'s dtype: fp32 for the kernel's partials, ``v``'s dtype
+    in the einsum body, as in the reference. A rank whose slice has no
+    valid key (``m = -1e30``) weighs nothing."""
+    m_max = m.clone()
+    dist.all_reduce(m_max, op=dist.ReduceOp.MAX, group=group)
+    scale = torch.exp(m - m_max)[..., None]
+    num = num * scale.to(num.dtype)
+    den = den[..., None] * scale
+    dist.all_reduce(num, group=group)
+    dist.all_reduce(den, group=group)
+    return (num / den.clamp(min=1e-30).to(num.dtype)).to(dtype)
+
+
 def seq_parallel_decode_attend(
     q: torch.Tensor,        # (B_loc, 1, H, hd) — replicated over the model group
     k_cache: torch.Tensor,  # (B_loc, L_loc, K, hd) — this rank's cache slots
@@ -467,18 +487,18 @@ def seq_parallel_decode_attend(
     ctx: ParallelCtx,
 ) -> torch.Tensor:
     """Flash decode across the model group: each rank attends over its
-    slice of the cache and the partials LSE-merge with all-reduces. The
-    kernel body takes the partials from ``registry.decode_attend_partials``
-    (fp32, not normalised) and merges them with
-    ``registry.merge_decode_partials``; the einsum body is the reference's,
-    with its ``m_safe`` guard for a rank whose slice has no valid key."""
+    slice of the cache and the partials LSE-merge (:func:`merge_partials`).
+    The kernel body takes the partials from
+    ``registry.decode_attend_partials`` (fp32, not normalised); the einsum
+    body is the reference's, with its ``m_safe`` guard for a rank whose
+    slice has no valid key."""
     group = ctx.mesh.model_group
     b = q.shape[0]
     if seq_parallel_decode_kernel_eligible(ctx):
         valid = mask[None, :].expand(b, mask.shape[0])
         acc, m, l = registry.decode_attend_partials(q[:, 0].contiguous(), k_cache,
                                                     v_cache, valid)
-        return registry.merge_decode_partials(acc, m, l, group, q.dtype)[:, None]
+        return merge_partials(acc, m, l, group, q.dtype)[:, None]
 
     _, _, nh, hd = q.shape
     nk = k_cache.shape[2]
@@ -486,18 +506,10 @@ def seq_parallel_decode_attend(
     qg = q.reshape(b, 1, nk, g, hd)
     s = torch.einsum("bskgd,btkd->bkgst", qg, k_cache).float() / math.sqrt(hd)
     s = torch.where(mask[None, None, None, None, :], s, torch.full_like(s, -1e30))
-    m = s.amax(dim=-1, keepdim=True)
-    m_safe = torch.clamp(m, min=-1e29)          # a slice with no valid key
+    m = s.amax(dim=-1)                          # (b, k, g, 1)
+    m_safe = torch.clamp(m, min=-1e29)[..., None]   # a slice with no valid key
     e = torch.exp(s - m_safe)
     num = torch.einsum("bkgst,btkd->bskgd", e.to(v_cache.dtype), v_cache)
-    den = e.sum(dim=-1)[..., None].permute(0, 3, 1, 2, 4)      # (b, 1, k, g, 1)
-    m_b = m.permute(0, 3, 1, 2, 4)
-    m_max = m_b.clone()
-    dist.all_reduce(m_max, op=dist.ReduceOp.MAX, group=group)
-    scale = torch.exp(m_b - m_max)
-    num = num * scale.to(num.dtype)
-    den = den * scale
-    dist.all_reduce(num, group=group)
-    dist.all_reduce(den, group=group)
-    out = num / den.clamp(min=1e-30).to(num.dtype)
+    den = e.sum(dim=-1).permute(0, 3, 1, 2)     # (b, 1, k, g)
+    out = merge_partials(num, m.permute(0, 3, 1, 2), den, group, q.dtype)
     return out.reshape(b, 1, nh, hd)

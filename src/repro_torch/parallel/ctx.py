@@ -7,8 +7,8 @@ over the data axis and every other computation is replicated on the ranks
 of a data index, except the three regions the reference writes by hand:
 the EP dispatch and combine (``collectives.ep_moe_shardmap``), the decode
 ownership sum, and the sequence-parallel decode, whose dense KV cache is
-split over the model axis (``seq_parallel_kv``; its partials LSE-merge
-across the model group).
+split over the model axis (its partials LSE-merge across the model
+group).
 
 ``use_kernels`` decides, per tensor, whether a hot-path call launches its
 hand-written CUDA kernel or runs the plain PyTorch version:
@@ -38,9 +38,6 @@ class ParallelCtx:
     # Split the expert groups into this many chunks for the grouped FFN
     # (collectives.validate_ep_chunks); 1 = one call over every group.
     ep_chunks: int = 1
-    # decode under a mesh: split the dense cache's sequence dim over the
-    # model axis and LSE-merge the ranks' partials
-    seq_parallel_kv: bool = True
 
     def __post_init__(self):
         if self.use_kernels not in ("auto", True, False):

@@ -16,7 +16,6 @@ fails.
 from __future__ import annotations
 
 import dataclasses
-import socket
 
 import torch
 import torch.distributed as dist
@@ -46,28 +45,15 @@ def backend_for(device: torch.device | str) -> str:
     return "nccl" if torch.device(device).type == "cuda" else "gloo"
 
 
-def free_port() -> int:
-    """A free TCP port on localhost (for a world of one started without a
-    launcher)."""
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def init_distributed(device: torch.device, world_size: int, rank: int,
-                     init_method: str | None = None) -> None:
-    """Initialise the default process group for ``device``'s backend. With
-    no ``init_method`` a world of one rendezvous on a free localhost port;
-    larger worlds read ``env://`` (``torchrun`` sets it)."""
-    if init_method is None:
-        init_method = (f"tcp://localhost:{free_port()}" if world_size == 1
-                       else "env://")
-    kwargs = {}
+def init_distributed(device: torch.device, world_size: int, rank: int) -> None:
+    """Initialise the default process group for ``device``'s backend. A
+    world of one meets in an in-process store; larger worlds read
+    ``env://`` (``torchrun`` sets it)."""
+    kwargs = {"store": dist.HashStore()} if world_size == 1 else {"init_method": "env://"}
     if device.type == "cuda":
         torch.cuda.set_device(device)
         kwargs["device_id"] = device
-    dist.init_process_group(backend_for(device), init_method=init_method,
-                            world_size=world_size, rank=rank, **kwargs)
+    dist.init_process_group(backend_for(device), world_size=world_size, rank=rank, **kwargs)
 
 
 def make_mesh(data: int, model: int) -> Mesh:

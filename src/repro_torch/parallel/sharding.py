@@ -7,8 +7,9 @@ the reference's specs where those shard:
 
 * :func:`slot_rows` — the expert slot rows of the EP regime
   (``param_spec``: the slot dim over ``model``);
-* :func:`cache_slots` — the dense KV cache's sequence dim under
-  ``seq_parallel_kv`` (``cache_specs``' ``kv_spec``: S over ``model``);
+* :func:`cache_slots` — the dense KV cache's sequence dim (the
+  reference's ``seq_parallel_kv`` layout, ``cache_specs``' ``kv_spec``:
+  S over ``model``);
 * :func:`batch_rows` — the batch over ``data`` (``batch_spec_for``).
 
 Where the reference degrades a non-dividing dim to another layout

@@ -107,14 +107,9 @@ def test_server_generate_matches_reference(jparams, mesh, virtual_ep):
 
 def test_unported_mesh_layouts_raise(jparams, mesh):
     """What the mesh path does not serve yet raises, naming the ROADMAP
-    item: decode with the cache's KV heads sharded (``seq_parallel_kv=
-    False``) and ESP, in the model code (the Server's own refusals:
+    item: ESP, in the model code (the Server's own refusals:
     ``tests/test_torch_mesh_ranks.py``)."""
     params = _bridge(jparams)
-    ctx = ParallelCtx(mesh=mesh, seq_parallel_kv=False)
-    _, cache = T.prefill(params, torch.tensor(_prompt(2)), CFG, ctx, max_seq=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.decode_step(params, torch.zeros((4, 1), dtype=torch.long), cache, CFG, ctx)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.prefill(params, torch.tensor(_prompt(2)), CFG,
                   ParallelCtx(mesh=mesh, moe_impl="esp"), max_seq=16)

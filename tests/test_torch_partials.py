@@ -1,9 +1,9 @@
 """The partials mode of the dense flash decode (``flash_decode(...,
 return_partials=True)``) and its LSE merge, against the JAX package: the
 plain ``decode_partials`` against the Pallas kernel in interpret mode, and
-the merge of four slices (in one process, and through the registry's
-all-reduce merge over a gloo world of one) against JAX's merge and the
-normalised decode. fp32 on the CPU. The CUDA kernel runs on the card
+the merge of four slices (in one process, and through the all-reduce
+merge ``collectives.merge_partials`` over a gloo world of one) against
+JAX's merge and the normalised decode. fp32 on the CPU. The CUDA kernel runs on the card
 (``tests/test_torch_cuda.py``)."""
 
 import jax
@@ -19,6 +19,7 @@ from repro.kernels.flash_decode.ref import decode_ref
 from repro_torch.kernels import registry
 from repro_torch.kernels.flash_decode import ref
 from repro_torch.kernels.flash_decode.flash_decode import flash_decode
+from repro_torch.parallel.collectives import merge_partials
 
 torch.set_num_threads(1)
 # partials over one slice: fp32 summation order only
@@ -100,8 +101,8 @@ def test_decode_partials_masked_slice_contract():
 
 def test_merge_of_four_slices_matches_jax_and_normalised(gloo_world):
     """Four slices merged in one process (``merge_partials_local``), and the
-    whole cache's partials through the registry's all-reduce merge over a
-    world of one, both equal JAX's merge of its own four slices and the
+    whole cache's partials through the all-reduce merge over a world of
+    one, both equal JAX's merge of its own four slices and the
     normalised decode."""
     q, k, v, valid = _inputs(2)
     want = np.asarray(decode_ref(*(jnp.asarray(a) for a in (q, k, v, valid))))
@@ -115,7 +116,7 @@ def test_merge_of_four_slices_matches_jax_and_normalised(gloo_world):
     j_merged = np.asarray(jax.vmap(lambda a, m, l: jax_merge(a, m, l, "i"),
                                    axis_name="i")(*stacked)[0])
     acc, m, l = registry.decode_attend_partials(*(torch.tensor(a) for a in (q, k, v, valid)))
-    world = registry.merge_decode_partials(acc, m, l, gloo_world, torch.float32).numpy()
+    world = merge_partials(acc, m, l, gloo_world, torch.float32).numpy()
     for got in (local, world):
         np.testing.assert_allclose(got, j_merged, rtol=0, atol=MERGE_ATOL)
         np.testing.assert_allclose(got, want, rtol=0, atol=MERGE_ATOL)
