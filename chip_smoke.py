@@ -34,8 +34,17 @@ Phases (one line each; any failure raises and the exit code is non-zero):
       slots attended through the partials kernel and the LSE merge, the
       balancer live with one forced migration;
    The expert groups' row counts (and offsets) of layer 0 in one prefill
-   and one decode tick of each are kept for phase 4;
-4. every kernel at the main paths' shapes and row counts, in bf16 and in
+   and one decode tick of each are kept for phases 4-5 (the EP path's
+   dispatched buckets too);
+4. the kernel op layer (``kernels/*/ops.py``), driven after the servers are
+   freed, in bf16, with its launch counts set to 0 before and read after:
+   the padded ``ops.expert_ffn`` (``gmm_dual_act`` + ``gmm``) on the EP
+   path's dispatched layer-0 buckets, equal on live rows to
+   ``registry.expert_ffn`` (ragged); ``ops.gmm_gather_op`` at the mesh
+   path's layouts; the paged decode cut into 4 slices through
+   ``flash_decode_paged``'s partials mode, LSE-merged, equal to the
+   normalised paged kernel. No served path launches these four kernels;
+5. every kernel at the main paths' shapes and row counts, in bf16 and in
    fp32 (TF32 off), held elementwise against its plain PyTorch version
    (``repro_torch.kernels.tolerance``) with dead rows, gap rows of dropped
    copies, dead pages and invalid keys poisoned with NaN, and flat outputs
@@ -49,11 +58,18 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    the fp32 limit, a slice with no valid key, and the merge of four slices
    against the normalised kernel; deliberate faults (a dropped K tile, a
    dropped live row, offsets one row off, a dropped key, an invalid key
-   read) must fail the bf16 limit. Then each kernel is timed beside its
+   read) must fail the bf16 limit. The op layer's kernels likewise:
+   ``gmm_dual_act`` and ``gmm`` with every row live at the EP path's
+   bucket shapes (a dropped K tile, a dropped last row), ``gmm_gather`` at
+   the mesh path's layouts (NaN gap rows; a dropped K tile, a dropped live
+   row, offsets one row off), the paged partials at the EP path's decode
+   shapes (a request of length 0, NaN dead pages, 4 slices merged; a
+   dropped key, a dead page read). Then each kernel is timed beside its
    plain version and a PyTorch library call the port never makes, with its
    roofline bound;
-5. a ``{"kernels": [...]}`` line (nine entries, the partials mode apart),
-   the card line, and the final ``{"ok": true, "device": {...}}`` line.
+6. a ``{"kernels": [...]}`` line (thirteen entries, each partials mode
+   apart), the card line, and the final ``{"ok": true, "device": {...}}``
+   line.
 
 Without a CUDA device, or without the repository beside it, it exits
 non-zero and prints no result.
@@ -151,8 +167,21 @@ def _drop_k_tile(t):
     return t
 
 
+def _drop_last_row(t):
+    """Every group's last row zeroed: (G, C, ·) buckets with one row less."""
+    t = t.clone()
+    t[:, -1] = 0
+    return t
+
+
+def _weights(torch, gen, G, D, F, dt):
+    """Random expert weights wg, wu (G, D, F) and wd (G, F, D) at scale 0.02."""
+    return tuple((torch.randn(shape, generator=gen, device="cuda") * 0.02).to(dt)
+                 for shape in ((G, D, F), (G, D, F), (G, F, D)))
+
+
 # ---------------------------------------------------------------------------
-# phase 4: kernels against their plain versions
+# phase 5: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 def gmm_cells(torch, groups, dtype, timer, time_it: bool):
@@ -167,11 +196,9 @@ def gmm_cells(torch, groups, dtype, timer, time_it: bool):
     tol = PLAIN[dt]
     G, D, F = 20, 6144, 10752
     gen = torch.Generator(device="cuda").manual_seed(1)
-    wg = (torch.randn((G, D, F), generator=gen, device="cuda") * 0.02).to(dt)
-    wu = (torch.randn((G, D, F), generator=gen, device="cuda") * 0.02).to(dt)
-    wd = (torch.randn((G, F, D), generator=gen, device="cuda") * 0.02).to(dt)
+    wg, wu, wd = _weights(torch, gen, G, D, F, dt)
     results = {}
-    for phase, (C, counts) in groups.items():
+    for phase, (C, counts, _) in groups.items():
         gs = torch.as_tensor(counts, dtype=torch.int32, device="cuda")
         x = torch.randn((G, C, D), generator=gen, device="cuda").to(dt)
         dead = torch.arange(C, device="cuda")[None, :] >= gs[:, None]
@@ -246,6 +273,111 @@ def gmm_cells(torch, groups, dtype, timer, time_it: bool):
     return results
 
 
+def padded_cells(torch, groups, dtype, timer, time_it: bool):
+    """gmm_dual_act and gmm (padded, every row live) at the EP path's
+    layer-0 bucket shapes (20 slots, D=6144, F=10752; capacity 8 at decode,
+    820 at prefill): against their plain versions, the bf16 results also
+    against the fp32 product; timed beside torch.bmm over the same
+    buckets."""
+    from repro_torch.kernels.gmm import gmm as K
+    from repro_torch.kernels.gmm import ref as R
+    from repro_torch.kernels.tolerance import PLAIN, ROUNDING
+
+    dt = getattr(torch, dtype)
+    tol = PLAIN[dt]
+    G, D, F = 20, 6144, 10752
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    wg, wu, wd = _weights(torch, gen, G, D, F, dt)
+    results = {}
+    for phase, (C, _, _) in groups.items():
+        x = torch.randn((G, C, D), generator=gen, device="cuda").to(dt)
+        what = f"{phase} {dtype}"
+        h = K.gmm_dual_act(x, wg, wu)
+        h_ref = R.gmm_dual_act(x, wg, wu)
+        y = K.gmm(h_ref, wd)
+        y_ref = R.gmm(h_ref, wd)
+        cell = {"gmm_dual_act": held(torch, h, h_ref, tol, f"gmm_dual_act {what}"),
+                "gmm": held(torch, y, y_ref, tol, f"gmm {what}")}
+        if dt == torch.bfloat16:
+            ref32 = R.gmm_dual_act(x.float(), wg.float(), wu.float())
+            cell["gmm_dual_act"]["excess_fp32_product"] = held(
+                torch, h, ref32, ROUNDING, f"gmm_dual_act {what} vs fp32")["excess"]
+            ref32 = R.gmm(h_ref.float(), wd.float())
+            cell["gmm"]["excess_fp32_product"] = held(
+                torch, y, ref32, ROUNDING, f"gmm {what} vs fp32")["excess"]
+            del ref32
+            cell["gmm_dual_act"]["faults"] = caught(tol, {
+                f"{phase}: K tile of {GMM_BK} dropped":
+                    (lambda: R.gmm_dual_act(_drop_k_tile(x), wg, wu), h_ref),
+                f"{phase}: last row dropped":
+                    (lambda: R.gmm_dual_act(_drop_last_row(x), wg, wu), h_ref),
+            }, f"gmm_dual_act {what}")
+            cell["gmm"]["faults"] = caught(tol, {
+                f"{phase}: K tile of {GMM_BK} dropped":
+                    (lambda: R.gmm(_drop_k_tile(h_ref), wd), y_ref),
+                f"{phase}: last row dropped":
+                    (lambda: R.gmm(_drop_last_row(h_ref), wd), y_ref),
+            }, f"gmm {what}")
+        if time_it:
+            reps = 10 if phase == "decode" else 3
+            wgu = torch.cat([wg, wu], dim=2)
+            isz = x.element_size()
+            for name, fn, plain, lib, nbytes, ops in (
+                ("gmm_dual_act",
+                 lambda: K.gmm_dual_act(x, wg, wu),
+                 lambda: R.gmm_dual_act(x, wg, wu),
+                 lambda: torch.bmm(x, wgu),
+                 isz * (G * C * D + 2 * G * D * F + G * C * F),
+                 2 * 2 * G * C * D * F),
+                ("gmm",
+                 lambda: K.gmm(h_ref, wd),
+                 lambda: R.gmm(h_ref, wd),
+                 lambda: torch.bmm(h_ref, wd),
+                 isz * (G * C * F + G * F * D + G * C * D),
+                 2 * G * C * F * D),
+            ):
+                b_ms, b_by = bound(nbytes, ops, dtype)
+                cell[name].update(
+                    ms=timer(fn, reps), plain_ms=timer(plain, reps),
+                    library_ms=timer(lib, reps), bound_ms=b_ms, bound_by=b_by,
+                    shape=f"G={G} C={C} D={D if name == 'gmm_dual_act' else F} "
+                          f"F={F if name == 'gmm_dual_act' else D}, every row live",
+                )
+            del wgu
+        results[phase] = cell
+        del x, h, h_ref, y, y_ref
+    del wg, wu, wd
+    torch.cuda.empty_cache()
+    return results
+
+
+def paged_inputs(torch, dt, seed: int = 2):
+    """The EP path's paged decode shapes: 8 requests of 257-288 tokens, 48
+    query heads over 8 KV heads of 128, pages of 128, 8 blocks each from a
+    scrambled pool. Returns q, the pools with every row past each request's
+    length NaN (dead rows of the last live page and every dead page),
+    tables, lengths, and the pools as drawn (no NaN)."""
+    B, H, KV, hd, bs, NB = 8, 48, 8, 128, 128, 8
+    P = B * NB + 1
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((B, H, hd), generator=gen, device="cuda").to(dt)
+    pool_k = torch.randn((P, bs, KV, hd), generator=gen, device="cuda").to(dt)
+    pool_v = torch.randn((P, bs, KV, hd), generator=gen, device="cuda").to(dt)
+    lengths = torch.randint(257, 289, (B,), generator=gen, device="cuda").to(torch.int32)
+    tables = torch.randperm(P - 1, generator=gen, device="cuda")[: B * NB]
+    tables = tables.reshape(B, NB).to(torch.int32).contiguous()
+    clean_k, clean_v = pool_k.clone(), pool_v.clone()
+    for b in range(B):
+        n = int(lengths[b])
+        for j in range(NB):
+            lo = max(0, n - j * bs)
+            if lo < bs:
+                page = int(tables[b, j])
+                pool_k[page, lo:] = float("nan")
+                pool_v[page, lo:] = float("nan")
+    return q, pool_k, pool_v, tables, lengths, clean_k, clean_v
+
+
 def decode_cell(torch, dtype, timer, time_it: bool):
     """flash_decode_paged at the main path's decode shapes: 8 requests,
     48 query heads over 8 KV heads of 128, pages of 128, 8 blocks each."""
@@ -257,25 +389,10 @@ def decode_cell(torch, dtype, timer, time_it: bool):
 
     dt = getattr(torch, dtype)
     tol = PLAIN[dt]
-    B, H, KV, hd, bs, NB = 8, 48, 8, 128, 128, 8
-    P = B * NB + 1
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    q = torch.randn((B, H, hd), generator=gen, device="cuda").to(dt)
-    pool_k = torch.randn((P, bs, KV, hd), generator=gen, device="cuda").to(dt)
-    pool_v = torch.randn((P, bs, KV, hd), generator=gen, device="cuda").to(dt)
-    lengths = torch.randint(257, 289, (B,), generator=gen, device="cuda").to(torch.int32)
-    tables = torch.randperm(P - 1, generator=gen, device="cuda")[: B * NB]
-    tables = tables.reshape(B, NB).to(torch.int32).contiguous()
-    # Poison every row past each request's length: dead rows of the last
-    # live page and every dead page.
-    for b in range(B):
-        n = int(lengths[b])
-        for j in range(NB):
-            lo = max(0, n - j * bs)
-            if lo < bs:
-                page = int(tables[b, j])
-                pool_k[page, lo:] = float("nan")
-                pool_v[page, lo:] = float("nan")
+    q, pool_k, pool_v, tables, lengths, _, _ = paged_inputs(torch, dt)
+    B, H, hd = q.shape
+    _, bs, KV, _ = pool_k.shape
+    NB = tables.shape[1]
     want = R.paged_decode(q, pool_k, pool_v, tables, lengths)
     cell = held(torch, K.flash_decode_paged(q, pool_k, pool_v, tables, lengths), want,
                 tol, f"flash_decode_paged {dtype}")
@@ -365,7 +482,7 @@ def _nan_rows(torch, shape, dt):
     return torch.full(shape, float("nan"), dtype=dt, device="cuda")
 
 
-def pair_cells(torch, rows, D, F, dtype, timer, time_it: bool):
+def pair_cells(torch, rows, D, F, dtype, timer, time_it: bool, gather: bool = False):
     """gmm_dual_act_gather and gmm_scatter at one main path's expert widths
     (D, F) and the flat-row layouts it served (``rows``: phase -> (R,
     capacity, offsets, counts, groups_per_weight); the weights have one row
@@ -373,7 +490,8 @@ def pair_cells(torch, rows, D, F, dtype, timer, time_it: bool):
     dbrx's 20 slots (the mesh path's fused branch, rows compacted per
     source rank). Gap rows of the flat input and every row of the flat
     output outside the live segments start as NaN; the latter must still
-    be NaN after the scatter."""
+    be NaN after the scatter. With ``gather``, also gmm_gather (the single
+    product over the gathered rows, into padded buckets) on wg."""
     from repro_torch.kernels.gmm import ragged as K
     from repro_torch.kernels.gmm import ref as R
     from repro_torch.kernels.tolerance import PLAIN, ROUNDING
@@ -383,9 +501,7 @@ def pair_cells(torch, rows, D, F, dtype, timer, time_it: bool):
     _, _, _, counts0, gpw = rows["decode"]
     G = len(counts0) // gpw
     gen = torch.Generator(device="cuda").manual_seed(6)
-    wg = (torch.randn((G, D, F), generator=gen, device="cuda") * 0.02).to(dt)
-    wu = (torch.randn((G, D, F), generator=gen, device="cuda") * 0.02).to(dt)
-    wd = (torch.randn((G, F, D), generator=gen, device="cuda") * 0.02).to(dt)
+    wg, wu, wd = _weights(torch, gen, G, D, F, dt)
     results = {}
     for phase, (n_rows, cap, offsets, counts, gpw) in rows.items():
         off = torch.as_tensor(offsets, dtype=torch.int32, device="cuda")
@@ -405,6 +521,10 @@ def pair_cells(torch, rows, D, F, dtype, timer, time_it: bool):
             raise AssertionError(f"gmm_scatter {what}: a row outside the live segments was written")
         cell = {"gmm_dual_act_gather": held(torch, h, h_ref, tol, f"gmm_dual_act_gather {what}"),
                 "gmm_scatter": held(torch, y[live], y_ref[live], tol, f"gmm_scatter {what}")}
+        if gather:
+            y1 = K.gmm_gather(x, wg, off, gs, cap, gpw)
+            y1_ref = R.gmm_gather(x, wg, off, gs, cap, gpw)
+            cell["gmm_gather"] = held(torch, y1, y1_ref, tol, f"gmm_gather {what}")
         if dt == torch.bfloat16:
             ref32 = R.gmm_dual_act_gather(x.float(), wg.float(), wu.float(), off, gs, cap, gpw)
             cell["gmm_dual_act_gather"]["excess_fp32_product"] = held(
@@ -433,6 +553,19 @@ def pair_cells(torch, rows, D, F, dtype, timer, time_it: bool):
                 f"{phase}: offsets one row off":
                     (lambda: R.gmm_scatter(hin, wd, off1, gs, n_rows, gpw)[live], y_ref[live]),
             }, f"gmm_scatter {what}")
+            if gather:
+                ref32 = R.gmm_gather(x.float(), wg.float(), off, gs, cap, gpw)
+                cell["gmm_gather"]["excess_fp32_product"] = held(
+                    torch, y1, ref32, ROUNDING, f"gmm_gather {what} vs fp32")["excess"]
+                del ref32
+                cell["gmm_gather"]["faults"] = caught(tol, {
+                    f"{phase}: K tile of {GMM_BK} dropped":
+                        (lambda: R.gmm_gather(_drop_k_tile(x), wg, off, gs, cap, gpw), y1_ref),
+                    f"{phase}: last live row dropped":
+                        (lambda: R.gmm_gather(x, wg, off, short, cap, gpw), y1_ref),
+                    f"{phase}: offsets one row off":
+                        (lambda: R.gmm_gather(x, wg, off1, gs, cap, gpw), y1_ref),
+                }, f"gmm_gather {what}")
         if time_it:
             reps = 10 if phase == "decode" else 3
             xz = torch.nan_to_num(x)
@@ -445,7 +578,15 @@ def pair_cells(torch, rows, D, F, dtype, timer, time_it: bool):
             isz = x.element_size()
             live_rows = int(gs.sum())
             live_groups = int((gs.reshape(G, gpw).sum(1) > 0).sum())   # weight rows read
-            for name, fn, plain, lib, nbytes, ops in (
+            timed = [
+                ("gmm_gather",
+                 lambda: K.gmm_gather(xz, wg, off, gs, cap, gpw),
+                 lambda: R.gmm_gather(xz, wg, off, gs, cap, gpw),
+                 lambda: torch.bmm(buckets, wg),
+                 isz * (live_rows * D + live_groups * D * F + len(counts) * cap * F),
+                 2 * live_rows * D * F),
+            ] if gather else []
+            for name, fn, plain, lib, nbytes, ops in timed + [
                 ("gmm_dual_act_gather",
                  lambda: K.gmm_dual_act_gather(xz, wg, wu, off, gs, cap, gpw),
                  lambda: R.gmm_dual_act_gather(xz, wg, wu, off, gs, cap, gpw),
@@ -458,7 +599,7 @@ def pair_cells(torch, rows, D, F, dtype, timer, time_it: bool):
                  lambda: torch.bmm(hb, wd),
                  isz * (live_rows * F + live_groups * F * D + live_rows * D),
                  2 * live_rows * F * D),
-            ):
+            ]:
                 b_ms, b_by = bound(nbytes, ops, dtype)
                 cell[name].update(
                     ms=timer(fn, reps), plain_ms=timer(plain, reps),
@@ -471,6 +612,8 @@ def pair_cells(torch, rows, D, F, dtype, timer, time_it: bool):
             del xz, hz, buckets, hb, wgu
         results[phase] = cell
         del x, h, h_ref, hin, y, y_ref
+        if gather:
+            del y1, y1_ref
     del wg, wu, wd
     torch.cuda.empty_cache()
     return results
@@ -492,9 +635,7 @@ def fused_cells(torch, rows, dtype, timer, time_it: bool):
     if not can_gmm_fused(8, D, F, dt):
         raise AssertionError(f"the fused gate refuses D={D}, F={F}")
     gen = torch.Generator(device="cuda").manual_seed(7)
-    wg = (torch.randn((G, D, F), generator=gen, device="cuda") * 0.02).to(dt)
-    wu = (torch.randn((G, D, F), generator=gen, device="cuda") * 0.02).to(dt)
-    wd = (torch.randn((G, F, D), generator=gen, device="cuda") * 0.02).to(dt)
+    wg, wu, wd = _weights(torch, gen, G, D, F, dt)
     results = {}
     for phase, (n_rows, cap, offsets, counts, _) in rows.items():
         off = torch.as_tensor(offsets, dtype=torch.int32, device="cuda")
@@ -690,8 +831,96 @@ def partials_cell(torch, dtype, timer, time_it: bool):
     return cell
 
 
+def paged_slices(torch, tables, lengths, bs: int, n: int = 4):
+    """The block table cut into ``n`` runs of NB / n pages of ``bs`` keys,
+    each with the lengths clipped to it: [(tables, lengths)] per slice."""
+    span = tables.shape[1] // n * bs
+    return [(tables[:, i * span // bs:(i + 1) * span // bs].contiguous(),
+             (lengths - i * span).clamp(0, span).to(torch.int32)) for i in range(n)]
+
+
+def paged_partials_cell(torch, dtype, timer, time_it: bool):
+    """flash_decode_paged's partials mode at the EP path's paged decode
+    shapes (``paged_inputs``: every row past a request's length NaN). acc
+    is held at the run's dtype limit, m and l at the fp32 limit; a request
+    of length 0 must give (acc, m, l) = (0, -1e30, 0); the table cut into
+    4 slices of NB/4 pages (lengths clipped per slice, so most requests
+    have empty slices) must merge to the normalised paged kernel's
+    output."""
+    import torch.nn.functional as Fn
+
+    from repro_torch.kernels.flash_decode import paged as K
+    from repro_torch.kernels.flash_decode import ref as R
+    from repro_torch.kernels.tolerance import PLAIN
+
+    dt = getattr(torch, dtype)
+    tol, tol32 = PLAIN[dt], PLAIN[torch.float32]
+    q, pk, pv, tables, lengths, pk0, pv0 = paged_inputs(torch, dt, seed=14)
+    B, H, hd = q.shape
+    _, bs, KV, _ = pk.shape
+    NB = tables.shape[1]
+    what = f"flash_decode_paged partials {dtype}"
+    acc, m, l = K.flash_decode_paged(q, pk, pv, tables, lengths, return_partials=True)
+    acc_r, m_r, l_r = R.paged_decode_partials(q, pk, pv, tables, lengths)
+    cell = held(torch, acc, acc_r, tol, f"{what} acc")
+    cell["excess_m"] = held(torch, m, m_r, tol32, f"{what} m")["excess"]
+    cell["excess_l"] = held(torch, l, l_r, tol32, f"{what} l")["excess"]
+    empty = lengths.clone()
+    empty[0] = 0
+    acc_e, m_e, l_e = K.flash_decode_paged_partials(q, pk, pv, tables, empty)
+    torch.cuda.synchronize()
+    if not (bool((m_e[0] == -1e30).all()) and bool((l_e[0] == 0).all())
+            and bool((acc_e[0] == 0).all())):
+        raise AssertionError(f"{what}: a request of length 0 is not (acc, m, l) = "
+                             f"(0, -1e30, 0)")
+    held(torch, acc_e[1:], acc_r[1:], tol, f"{what} beside an empty request")
+    parts = [K.flash_decode_paged_partials(q, pk, pv, tb, ln)
+             for tb, ln in paged_slices(torch, tables, lengths, bs)]
+    merged = R.merge_partials_local(parts).to(dt)
+    cell["excess_merge_vs_normalised"] = held(
+        torch, merged, K.flash_decode_paged(q, pk, pv, tables, lengths), tol,
+        f"{what}: 4 slices merged vs the normalised kernel")["excess"]
+    if dt == torch.bfloat16:
+        # one key short; and request 0 reading on through the rest of its
+        # last page and one dead page (values as drawn, no NaN)
+        ext = lengths.clone()
+        ext[0] = min(NB * bs, (int(lengths[0]) // bs + 2) * bs)
+        faults = {
+            "last live key dropped": lambda: R.paged_decode_partials(
+                q, pk, pv, tables, lengths - 1),
+            "a dead page read": lambda: R.paged_decode_partials(q, pk0, pv0, tables, ext),
+        }
+        cell["faults"] = caught(tol, {f"{k} (acc)": (lambda f=f: f()[0], acc_r)
+                                      for k, f in faults.items()}, f"{what} acc")
+        cell["faults"].update(caught(tol32, {f"{k} (l)": (lambda f=f: f()[2], l_r)
+                                             for k, f in faults.items()}, f"{what} l"))
+    if time_it:
+        isz = q.element_size()
+        live = int(lengths.sum())
+        nbytes = (isz * (B * H * hd + 2 * live * KV * hd) + 4 * (B * NB + B)
+                  + 4 * (B * H * hd + 2 * B * H))
+        b_ms, b_by = bound(nbytes, 4 * live * H * hd, dtype)
+        T = NB * bs
+        kd = R.gather_pages(pk0, tables).transpose(1, 2).contiguous()
+        vd = R.gather_pages(pv0, tables).transpose(1, 2).contiguous()
+        mask = (torch.arange(T, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
+        q4 = q[:, :, None, :]
+        cell.update(
+            ms=timer(lambda: K.flash_decode_paged_partials(q, pk, pv, tables, lengths), 50),
+            plain_ms=timer(lambda: R.paged_decode_partials(q, pk, pv, tables, lengths), 20),
+            normalised_ms=timer(lambda: K.flash_decode_paged(q, pk, pv, tables, lengths), 50),
+            library_ms=timer(lambda: Fn.scaled_dot_product_attention(
+                q4, kd, vd, attn_mask=mask, enable_gqa=True), 50),
+            library_note="SDPA's normalised output over the gathered pages: no PyTorch "
+                         "call returns the (m, l) partials",
+            bound_ms=b_ms, bound_by=b_by,
+            shape=f"B={B} H={H} K={KV} hd={hd} bs={bs} NB={NB} sum(len)={live}",
+        )
+    return cell
+
+
 # ---------------------------------------------------------------------------
-# phases 2-3: serving
+# phases 2-4: serving and the op layer
 # ---------------------------------------------------------------------------
 
 def small_parity(torch):
@@ -795,22 +1024,27 @@ def timed_generate(torch, srv, prompt, n_new: int):
 
 
 def expert_groups(torch, srv, prompt) -> dict:
-    """Layer 0's expert-group row counts in one prefill and one decode tick
-    of the main-path server, after its timed run (committed replicas
-    included): phase -> (bucket capacity, counts)."""
+    """Layer 0's expert groups in one prefill and one decode tick of the
+    main-path server, after its timed run (committed replicas included):
+    phase -> (bucket capacity, counts, a copy of the dispatched (G, C, D)
+    buckets)."""
     from repro_torch.kernels import registry
 
     seen = []
     ffn = registry.expert_ffn
+    first = {"call": True}    # copy only layer 0's buckets of each phase
 
     def spy(x, wg, wu, wd, group_sizes, *args):
-        seen.append((x.shape[1], group_sizes.cpu().numpy()))
+        seen.append((x.shape[1], group_sizes.cpu().numpy(),
+                     x.clone() if first["call"] else None))
+        first["call"] = False
         return ffn(x, wg, wu, wd, group_sizes, *args)
 
     registry.expert_ffn = spy
     try:
         logits, cache = srv.prefill(prompt)
         n_prefill = len(seen)
+        first["call"] = True
         srv.decode(torch.argmax(logits[:, -1:], dim=-1), cache)
     finally:
         registry.expert_ffn = ffn
@@ -843,7 +1077,8 @@ def main_path(torch, card: str):
     # slices land one per decode tick and it commits at a step boundary.
     forced = force_migration(srv)
     srv.generate(prompt, 2)     # warm-up: first-call costs stay out of the timed run
-    kernels = (gmm_dual_act_ragged, gmm_ragged, flash_decode_paged, flash_attention)
+    kernels = (gmm_dual_act_ragged, gmm_ragged, flash_decode_paged, flash_attention,
+               *op_layer_kernels())
     for k in kernels:
         k.launches = 0
     migs_before = srv.migrations
@@ -856,6 +1091,7 @@ def main_path(torch, card: str):
         "gmm_ragged": per_step_moe * (1 + n_new),
         "flash_decode_paged": n_layers * n_new,
         "flash_attention": n_layers,
+        **{k.__name__: 0 for k in op_layer_kernels()},
     }
     if launches != predicted:
         raise AssertionError(f"launch counts {launches} != predicted {predicted}")
@@ -943,7 +1179,8 @@ def esp_path(torch, card: str):
     prompt = next(request_stream(cfg.vocab_size, batch, prompt_len, seed=0))
     srv.generate(prompt, 2)     # warm-up: first-call costs stay out of the timed run
     kernels = (K.gmm_dual_act_gather, K.gmm_scatter, K.gmm_fused_ffn, flash_decode,
-               flash_attention, K.gmm_dual_act_ragged, K.gmm_ragged, flash_decode_paged)
+               flash_attention, K.gmm_dual_act_ragged, K.gmm_ragged, flash_decode_paged,
+               *op_layer_kernels())
     for k in kernels:
         k.launches = 0
     out, logits, ttft_s, decode_s = timed_generate(torch, srv, prompt, n_new)
@@ -956,6 +1193,7 @@ def esp_path(torch, card: str):
         "flash_decode": n_layers * n_new,
         "flash_attention": n_layers,
         "gmm_dual_act_ragged": 0, "gmm_ragged": 0, "flash_decode_paged": 0,
+        **{k.__name__: 0 for k in op_layer_kernels()},
     }
     if launches != predicted:
         raise AssertionError(f"ESP launch counts {launches} != predicted {predicted}")
@@ -1058,7 +1296,8 @@ def mesh_path(torch, mesh, card: str):
     srv.generate(prompt, 2)     # warm-up: first-call costs stay out of the timed run
     kernels = (FD.flash_decode_partials, FD.flash_decode, flash_attention,
                K.gmm_dual_act_gather, K.gmm_scatter, K.gmm_fused_ffn,
-               K.gmm_dual_act_ragged, K.gmm_ragged, flash_decode_paged)
+               K.gmm_dual_act_ragged, K.gmm_ragged, flash_decode_paged,
+               *op_layer_kernels())
     for k in kernels:
         k.launches = 0
     migs_before = srv.migrations
@@ -1075,6 +1314,7 @@ def mesh_path(torch, mesh, card: str):
         "gmm_scatter": per_step_moe * (1 + n_new),
         "gmm_fused_ffn": 0, "gmm_dual_act_ragged": 0, "gmm_ragged": 0,
         "flash_decode_paged": 0,
+        **{k.__name__: 0 for k in op_layer_kernels()},
     }
     if launches != predicted:
         raise AssertionError(f"mesh launch counts {launches} != predicted {predicted}")
@@ -1106,6 +1346,104 @@ def mesh_path(torch, mesh, card: str):
     return launches, rows, {
         "ttft_ms": ttft_s * 1e3, "decode_ms": decode_s * 1e3, "decode_tok_s": tok_s,
         "peak_gb": peak_gb, "migrations": committed, **profile}
+
+
+def op_layer_kernels():
+    """The four kernels only the op layer reaches (as in the reference):
+    each served path must launch them no time."""
+    from repro_torch.kernels.flash_decode.paged import flash_decode_paged_partials
+    from repro_torch.kernels.gmm.gmm import gmm, gmm_dual_act
+    from repro_torch.kernels.gmm.ragged import gmm_gather
+
+    return (gmm_dual_act, gmm, gmm_gather, flash_decode_paged_partials)
+
+
+def op_layer_path(torch, groups, rows, card: str):
+    """The fourth path: the kernel op layer, driven through its entry
+    points at the served shapes in bf16, after the servers are freed.
+    ``ops.expert_ffn`` (padded: gmm_dual_act + gmm over every row) on the
+    EP path's dispatched layer-0 buckets of one prefill and one decode
+    tick, with 20 random expert weights at dbrx's widths;
+    ``ops.gmm_gather_op`` at the mesh path's rank-compacted layer-0
+    layouts (NaN gap rows); the paged decode at the EP path's shapes cut
+    into 4 slices of NB/4 pages through ``flash_decode_paged``'s partials
+    mode, LSE-merged. Every kernel's count is set to 0 just before and read
+    just after. Then: the padded FFN's live rows equal
+    ``registry.expert_ffn``'s (ragged) on the same buckets within the bf16
+    limit and its dead rows are exact zeros (the buckets' dead rows are);
+    gmm_gather equals its plain version; the merge equals the normalised
+    paged kernel's output."""
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode as FD
+    from repro_torch.kernels.flash_decode import ref as FR
+    from repro_torch.kernels.flash_decode.paged import flash_decode_paged
+    from repro_torch.kernels.gmm import ops
+    from repro_torch.kernels.gmm import ragged as K
+    from repro_torch.kernels.gmm import ref as R
+    from repro_torch.kernels.tolerance import PLAIN
+
+    dt, tol = torch.bfloat16, PLAIN[torch.bfloat16]
+    G, D, F = 20, 6144, 10752
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    wg, wu, wd = _weights(torch, gen, G, D, F, dt)
+    flat = {}
+    for phase, (n_rows, cap, offsets, counts, gpw) in rows.items():
+        off = torch.as_tensor(offsets, dtype=torch.int32, device="cuda")
+        gs = torch.as_tensor(counts, dtype=torch.int32, device="cuda")
+        x = torch.randn((n_rows, D), generator=gen, device="cuda").to(dt)
+        x[~_flat_live(torch, off, gs, n_rows)] = float("nan")
+        flat[phase] = (x, off, gs, cap, gpw)
+    q, pk, pv, tables, lengths, _, _ = paged_inputs(torch, dt, seed=16)
+    slices = paged_slices(torch, tables, lengths, pk.shape[1])
+    served = (K.gmm_dual_act_ragged, K.gmm_ragged, K.gmm_dual_act_gather, K.gmm_scatter,
+              K.gmm_fused_ffn, flash_decode_paged, FD.flash_decode,
+              FD.flash_decode_partials, flash_attention)
+    kernels = (*op_layer_kernels(), *served)
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    ffn = {phase: ops.expert_ffn(xb, wg, wu, wd) for phase, (_, _, xb) in groups.items()}
+    gathered = {phase: ops.gmm_gather_op(x, wg[: G // gpw], off, gs, cap, gpw)
+                for phase, (x, off, gs, cap, gpw) in flat.items()}
+    parts = [flash_decode_paged(q, pk, pv, tb, ln, return_partials=True) for tb, ln in slices]
+    merged = FR.merge_partials_local(parts).to(dt)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k.__name__: k.launches for k in kernels}
+    predicted = {"gmm_dual_act": len(groups), "gmm": len(groups), "gmm_gather": len(rows),
+                 "flash_decode_paged_partials": len(slices),
+                 **{k.__name__: 0 for k in served}}
+    if launches != predicted:
+        raise AssertionError(f"op-layer launch counts {launches} != predicted {predicted}")
+    excess = {}
+    for phase, (C, counts, xb) in groups.items():
+        gs = torch.as_tensor(counts, dtype=torch.int32, device="cuda")
+        live = torch.arange(C, device="cuda")[None, :] < gs[:, None]
+        ragged = registry.expert_ffn(xb, wg, wu, wd, gs)
+        excess[f"expert_ffn {phase} vs registry.expert_ffn"] = held(
+            torch, ffn[phase][live], ragged[live], tol,
+            f"op layer: padded expert_ffn {phase} vs the ragged registry FFN")["excess"]
+        if not bool((ffn[phase][~live] == 0).all()):
+            raise AssertionError(f"op layer: padded expert_ffn {phase}: a dead row is not 0")
+    for phase, (x, off, gs, cap, gpw) in flat.items():
+        excess[f"gmm_gather_op {phase} vs plain"] = held(
+            torch, gathered[phase], R.gmm_gather(x, wg[: G // gpw], off, gs, cap, gpw), tol,
+            f"op layer: gmm_gather_op {phase}")["excess"]
+    excess["paged partials, 4 slices merged vs normalised"] = held(
+        torch, merged, flash_decode_paged(q, pk, pv, tables, lengths), tol,
+        "op layer: paged partials merged")["excess"]
+    log(f"op-layer path (bf16, after the servers are freed): padded expert_ffn on the EP "
+        f"path's layer-0 buckets {[tuple(g[2].shape) for g in groups.values()]}, "
+        f"gmm_gather_op at the mesh path's layouts "
+        f"{[(r[0], r[1]) for r in rows.values()]} (R, cap), paged decode in "
+        f"{len(slices)} slices merged: {wall_ms:.1f} ms wall, launches {launches}; error "
+        f"over the bf16 limit {tol}: "
+        + "; ".join(f"{k} {v:.3g}" for k, v in excess.items()) + f" [{card}]")
+    del wg, wu, wd, flat, ffn, gathered, parts, merged
+    torch.cuda.empty_cache()
+    return launches, excess
 
 
 def profile_decode(torch, srv, prompt, card: str, steps: int = 8) -> dict:
@@ -1220,6 +1558,7 @@ def main(argv=None) -> int:
     mesh_launches, mesh_rows, mesh_run = mesh_path(torch, mesh, card)
     gc.collect()
     torch.cuda.empty_cache()
+    op_launches, op_excess = op_layer_path(torch, groups, mesh_rows, card)
 
     timer = Timer(torch)
     cells = {}
@@ -1229,13 +1568,15 @@ def main(argv=None) -> int:
         d = decode_cell(torch, dtype, timer, time_it)
         a = attention_cell(torch, dtype, timer, time_it)
         eg = pair_cells(torch, rows, 6144, 16384, dtype, timer, time_it)
-        mg = pair_cells(torch, mesh_rows, 6144, 10752, dtype, timer, time_it)
+        mg = pair_cells(torch, mesh_rows, 6144, 10752, dtype, timer, time_it, gather=True)
         fu = fused_cells(torch, rows, dtype, timer, time_it)
         dd = dense_decode_cell(torch, dtype, timer, time_it)
         pa = partials_cell(torch, dtype, timer, time_it)
+        pg = padded_cells(torch, groups, dtype, timer, time_it)
+        pp = paged_partials_cell(torch, dtype, timer, time_it)
         cells[dtype] = {"gmm": g, "decode": d, "attn": a, "esp_gmm": eg, "mesh_gmm": mg,
-                        "fused": fu,
-                        "dense_decode": dd, "partials": pa}
+                        "fused": fu, "dense_decode": dd, "partials": pa, "padded": pg,
+                        "paged_partials": pp}
         log(f"kernels {dtype}, error over its limit (rtol, atol) = "
             f"{PLAIN[getattr(torch, dtype)]}: gmm_dual_act_ragged decode "
             f"{g['decode']['gmm_dual_act_ragged']['excess']:.3g} prefill "
@@ -1253,7 +1594,14 @@ def main(argv=None) -> int:
             f"flash_decode partials acc {pa['excess']:.3g}, m {pa['excess_m']:.3g}, l "
             f"{pa['excess_l']:.3g} (m, l at {PLAIN[torch.float32]}), 4 slices merged vs the "
             f"normalised kernel {pa['excess_merge_vs_normalised']:.3g}, an empty request "
-            f"(acc, m, l) = (0, -1e30, 0)")
+            f"(acc, m, l) = (0, -1e30, 0); "
+            + "; ".join(f"{n} decode {pg['decode'][n]['excess']:.3g} prefill "
+                        f"{pg['prefill'][n]['excess']:.3g}" for n in ("gmm_dual_act", "gmm"))
+            + f"; gmm_gather mesh decode {mg['decode']['gmm_gather']['excess']:.3g} prefill "
+            f"{mg['prefill']['gmm_gather']['excess']:.3g}; flash_decode_paged partials acc "
+            f"{pp['excess']:.3g}, m {pp['excess_m']:.3g}, l {pp['excess_l']:.3g}, 4 slices "
+            f"merged vs the normalised kernel {pp['excess_merge_vs_normalised']:.3g}, a "
+            f"request of length 0 (acc, m, l) = (0, -1e30, 0)")
         torch.cuda.empty_cache()
 
     bf = cells["bfloat16"]
@@ -1287,6 +1635,27 @@ def main(argv=None) -> int:
         + ", ".join(f"{k} {v:.2f}" for k, v in bf["dense_decode"]["faults"].items()))
     log("flash_decode partials bf16 faults caught: "
         + ", ".join(f"{k} {v:.2f}" for k, v in bf["partials"]["faults"].items()))
+    for name in ("gmm_dual_act", "gmm"):
+        for phase in ("decode", "prefill"):
+            c = bf["padded"][phase][name]
+            log(f"{name} {phase} bf16 vs the fp32 product at {ROUNDING}: "
+                f"{c['excess_fp32_product']:.3f}; faults caught: "
+                + ", ".join(f"{k} {v:.2f}" for k, v in c["faults"].items()))
+            log(f"time {name} {phase} [{c['shape']}]: kernel {c['ms']:.3f} ms, plain "
+                f"{c['plain_ms']:.3f} ms, torch.bmm {c['library_ms']:.3f} ms, bound "
+                f"{c['bound_ms']:.3f} ms ({c['bound_by']}) [{card}]")
+    for phase in ("decode", "prefill"):
+        c = bf["mesh_gmm"][phase]["gmm_gather"]
+        log(f"gmm_gather mesh {phase} bf16 vs the fp32 product at {ROUNDING}: "
+            f"{c['excess_fp32_product']:.3f}; faults caught: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in c["faults"].items()))
+    c = bf["paged_partials"]
+    log("flash_decode_paged partials bf16 faults caught: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in c["faults"].items()))
+    log(f"time flash_decode_paged partials [{c['shape']}]: kernel {c['ms']:.4f} ms, plain "
+        f"{c['plain_ms']:.4f} ms, normalised kernel {c['normalised_ms']:.4f} ms, sdpa "
+        f"(normalised) {c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
+        f"({c['bound_by']}) [{card}]")
     for name, c, lib in (("flash_decode_paged", bf["decode"], "sdpa"),
                          ("flash_attention", bf["attn"], "sdpa"),
                          ("flash_decode", bf["dense_decode"], "sdpa")):
@@ -1298,8 +1667,10 @@ def main(argv=None) -> int:
         f"{c['plain_ms']:.4f} ms, normalised kernel {c['normalised_ms']:.4f} ms, sdpa "
         f"(normalised) {c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
         f"({c['bound_by']}) [{card}]")
-    for path, key in (("ESP", "esp_gmm"), ("mesh", "mesh_gmm")):
-        for name in ("gmm_dual_act_gather", "gmm_scatter"):
+    for path, key, names in (("ESP", "esp_gmm", ("gmm_dual_act_gather", "gmm_scatter")),
+                             ("mesh", "mesh_gmm",
+                              ("gmm_dual_act_gather", "gmm_scatter", "gmm_gather"))):
+        for name in names:
             for phase in ("decode", "prefill"):
                 c = bf[key][phase][name]
                 log(f"time {name} {path} {phase} [{c['shape']}]: kernel {c['ms']:.3f} ms, "
@@ -1321,6 +1692,10 @@ def main(argv=None) -> int:
         "gmm_fused_ffn": "src/repro/kernels/gmm/ragged.py:790",
         "flash_decode": "src/repro/kernels/flash_decode/flash_decode.py:151",
         "flash_decode_partials": "src/repro/kernels/flash_decode/flash_decode.py:151",
+        "gmm_gather": "src/repro/kernels/gmm/ragged.py:371",
+        "gmm": "src/repro/kernels/gmm/gmm.py:71",
+        "gmm_dual_act": "src/repro/kernels/gmm/gmm.py:123",
+        "flash_decode_paged_partials": "src/repro/kernels/flash_decode/paged.py:140",
     }
     source = {
         "gmm_dual_act_ragged": "src/repro_torch/csrc/gmm_ragged.cu",
@@ -1332,27 +1707,36 @@ def main(argv=None) -> int:
         "gmm_fused_ffn": "src/repro_torch/csrc/gmm_fused_ffn.cu",
         "flash_decode": "src/repro_torch/csrc/flash_decode.cu",
         "flash_decode_partials": "src/repro_torch/csrc/flash_decode.cu",
+        "gmm_gather": "src/repro_torch/csrc/gmm_ragged.cu",
+        "gmm": "src/repro_torch/csrc/gmm_ragged.cu",
+        "gmm_dual_act": "src/repro_torch/csrc/gmm_ragged.cu",
+        "flash_decode_paged_partials": "src/repro_torch/csrc/flash_decode_paged.cu",
     }
     fp = cells["float32"]
     # launches on the main path that runs each kernel (the ESP path runs
     # gmm_fused_ffn no time at d_model 6144; the small ESP model does)
+    # (the op layer's four: its own path's launches; every served path's is 0)
+    op_names = [k.__name__ for k in op_layer_kernels()]
     path_launches = {**launches, **{k: esp_launches[k] for k in (
         "gmm_dual_act_gather", "gmm_scatter", "gmm_fused_ffn", "flash_decode")},
-        "flash_decode_partials": mesh_launches["flash_decode_partials"]}
+        "flash_decode_partials": mesh_launches["flash_decode_partials"],
+        **{k: op_launches[k] for k in op_names}}
     entries = []
     for name in ("gmm_dual_act_ragged", "gmm_ragged", "flash_decode_paged",
                  "flash_attention", "gmm_dual_act_gather", "gmm_scatter",
-                 "gmm_fused_ffn", "flash_decode", "flash_decode_partials"):
-        if name == "flash_decode_partials":
-            c, c32 = bf["partials"], fp["partials"]
+                 "gmm_fused_ffn", "flash_decode", "flash_decode_partials", *op_names):
+        if name in ("flash_decode_partials", "flash_decode_paged_partials"):
+            key = "partials" if name == "flash_decode_partials" else "paged_partials"
+            c, c32 = bf[key], fp[key]
             err, ex, err32, ex32 = (c["max_abs_err"], c["excess"], c32["max_abs_err"],
                                     c32["excess"])
-            extra = {key: c[key] for key in (
+            extra = {k: c[k] for k in (
                 "faults", "excess_m", "excess_l", "excess_merge_vs_normalised",
                 "normalised_ms", "library_note")}
             extra.update(excess_m_fp32=c32["excess_m"], excess_l_fp32=c32["excess_l"],
-                         tolerance_m_l=f"m and l at the fp32 limit {PLAIN[torch.float32]}",
-                         launches_small_mesh_model=small_mesh["flash_decode_partials"])
+                         tolerance_m_l=f"m and l at the fp32 limit {PLAIN[torch.float32]}")
+            if name == "flash_decode_partials":
+                extra["launches_small_mesh_model"] = small_mesh["flash_decode_partials"]
         elif name in ("gmm_fused_ffn", "flash_decode"):
             key = "fused" if name == "gmm_fused_ffn" else "dense_decode"
             if name == "gmm_fused_ffn":
@@ -1376,9 +1760,12 @@ def main(argv=None) -> int:
                 extra = {"faults": c["faults"]}
         elif name.startswith("gmm"):
             # timed at the decode cell: the kernel's call on every decode tick;
-            # the gather/scatter pair is held at the ESP and the mesh layouts
-            key = "gmm" if name in ("gmm_dual_act_ragged", "gmm_ragged") else "esp_gmm"
-            keys = (key, "mesh_gmm") if key == "esp_gmm" else (key,)
+            # the gather/scatter pair is held at the ESP and the mesh layouts,
+            # gmm_gather at the mesh layouts
+            keys = {"gmm_dual_act_ragged": ("gmm",), "gmm_ragged": ("gmm",),
+                    "gmm_dual_act": ("padded",), "gmm": ("padded",),
+                    "gmm_gather": ("mesh_gmm",)}.get(name, ("esp_gmm", "mesh_gmm"))
+            key = keys[0]
             c, pre = bf[key]["decode"][name], bf[key]["prefill"][name]
             heldb = [bf[kk][ph][name] for kk in keys for ph in ("decode", "prefill")]
             held32 = [fp[kk][ph][name] for kk in keys for ph in ("decode", "prefill")]
@@ -1392,7 +1779,7 @@ def main(argv=None) -> int:
                      "prefill_library_ms": pre["library_ms"],
                      "prefill_bound_ms": pre["bound_ms"],
                      "prefill_bound_by": pre["bound_by"], "prefill_shape": pre["shape"]}
-            if "mesh_gmm" in keys:
+            if len(keys) > 1:
                 timed = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "shape")
                 md, mp = bf["mesh_gmm"]["decode"][name], bf["mesh_gmm"]["prefill"][name]
                 extra["mesh_path"] = {"launches": mesh_launches[name],
@@ -1404,6 +1791,10 @@ def main(argv=None) -> int:
             err, ex, err32, ex32 = (c["max_abs_err"], c["excess"], c32["max_abs_err"],
                                     c32["excess"])
             extra = {"faults": c["faults"]}
+        if name in op_names:
+            extra["launches_served_paths"] = {
+                "EP": launches[name], "ESP": esp_launches[name], "mesh": mesh_launches[name]}
+            extra["launches_op_layer_path"] = op_launches[name]
         entries.append({
             "name": name, "route": "cuda", "source": source[name],
             "replaces": tpu[name], "launches": path_launches[name],
@@ -1416,7 +1807,7 @@ def main(argv=None) -> int:
             "shape": c["shape"], **extra,
         })
     print(json.dumps({"kernels": entries, "run": run, "run_esp": esp_run,
-                      "run_mesh": mesh_run}), flush=True)
+                      "run_mesh": mesh_run, "op_layer_excess": op_excess}), flush=True)
     import torch.distributed as dist
 
     dist.destroy_process_group()

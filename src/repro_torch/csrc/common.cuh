@@ -41,18 +41,25 @@ __device__ __forceinline__ void load_vec16(const T* __restrict__ src, float* dst
 // [count, C) stored as zeros. GATHER: input row m at xofs[g] + m of a flat
 // array; SCATTER: output row m at oofs[g] + m, only rows m < count stored.
 // A flat layout is bounds-checked against its row count, so a malformed
-// offset can shorten a group but never reach outside the array.
-template <bool GATHER, bool SCATTER>
+// offset can shorten a group but never reach outside the array. ALL: the
+// padded layout with every one of the C rows live (the dense grouped
+// matmul); gs is never read and may be null.
+template <bool GATHER, bool SCATTER, bool ALL = false>
 struct Rows {
+  static_assert(!ALL || (!GATHER && !SCATTER), "ALL is a padded layout");
   const int* xofs;   // gather input offsets (GATHER)
   const int* oofs;   // scatter output offsets (SCATTER)
   int in_rows, out_rows;
 
   __device__ int count(const int* gs, int g, int C) const {
-    int n = min(gs[g], C);
-    if constexpr (GATHER) n = min(n, in_rows - xofs[g]);
-    if constexpr (SCATTER) n = min(n, out_rows - oofs[g]);
-    return max(n, 0);
+    if constexpr (ALL) {
+      return C;
+    } else {
+      int n = min(gs[g], C);
+      if constexpr (GATHER) n = min(n, in_rows - xofs[g]);
+      if constexpr (SCATTER) n = min(n, out_rows - oofs[g]);
+      return max(n, 0);
+    }
   }
   template <typename T>
   __device__ const T* in(const T* x, int g, int C, int D) const {

@@ -26,6 +26,15 @@
 // garbage, and the tests poison them with NaN). Scores: each warp takes
 // key rows, lanes split the head dim, one shuffle reduction per query
 // head. Softmax: one warp per query head. PV: threads own head-dim columns.
+//
+// Partials mode (PARTIALS = true), replacing the same TPU kernel's
+// return_partials epilogue (flash_decode.py::write_outputs): the walk is the
+// same, and the epilogue writes the block's fp32 shared-memory state as it
+// stands, not normalised: acc (B, H, hd), the running max m (B, H) and the
+// running sum l (B, H). A request of length 0 walks no page and gives
+// m = -1e30, l = 0, acc = 0, the dense partials' contract; partials over
+// disjoint page ranges merge exactly (the LSE merge). The normalised
+// instantiation is the code above, unchanged.
 #include "common.cuh"
 
 namespace {
@@ -34,11 +43,12 @@ constexpr float NEG_INF = -1e30f;
 constexpr int MAX_G = 16;       // query heads per KV head
 constexpr int MAX_HD_LANE = 8;  // head dim <= 32 * 8
 
-template <typename T>
+template <typename T, bool PARTIALS>
 __global__ void __launch_bounds__(128)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pk,
                     const T* __restrict__ pv, const int* __restrict__ tables,
-                    const int* __restrict__ lengths, T* __restrict__ out,
+                    const int* __restrict__ lengths, void* __restrict__ out,
+                    float* __restrict__ m_out, float* __restrict__ l_out,
                     int H, int K, int hd, int bs, int NB) {
   extern __shared__ float sm[];
   const int G = H / K;
@@ -134,11 +144,54 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pk,
     __syncthreads();
   }
 
-  for (int i = tid; i < G * hd; i += blockDim.x) {
-    const int g = i / hd, d = i % hd;
-    const float l = fmaxf(ls[g], 1e-30f);
-    out[((size_t)b * H + kh * G + g) * hd + d] = from_f<T>(accs[i] / l);
+  // (a request with no live page reaches here from the barrier after the
+  // state's initialisation)
+  if constexpr (PARTIALS) {
+    float* acc_out = static_cast<float*>(out);
+    for (int i = tid; i < G * hd; i += blockDim.x) {
+      const int g = i / hd, d = i % hd;
+      acc_out[((size_t)b * H + kh * G + g) * hd + d] = accs[i];
+    }
+    for (int g = tid; g < G; g += blockDim.x) {
+      m_out[(size_t)b * H + kh * G + g] = ms[g];
+      l_out[(size_t)b * H + kh * G + g] = ls[g];
+    }
+  } else {
+    T* o = static_cast<T*>(out);
+    for (int i = tid; i < G * hd; i += blockDim.x) {
+      const int g = i / hd, d = i % hd;
+      const float l = fmaxf(ls[g], 1e-30f);
+      o[((size_t)b * H + kh * G + g) * hd + d] = from_f<T>(accs[i] / l);
+    }
   }
+}
+
+template <bool PARTIALS>
+int launch(const void* q, const void* pk, const void* pv, const void* tables,
+           const void* lengths, void* out, float* m_out, float* l_out, int B,
+           int H, int K, int hd, int bs, int NB, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int G = H / K;
+  const size_t smem = sizeof(float) * (size_t)(2 * G * hd + G * bs + 3 * G);
+  dim3 grid(K, B);
+  dim3 block(128);
+  const int* tb = static_cast<const int*>(tables);
+  const int* ln = static_cast<const int*>(lengths);
+  if (dtype == DT_F32) {
+    paged_decode_kernel<float, PARTIALS><<<grid, block, smem, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(pk),
+        static_cast<const float*>(pv), tb, ln, out, m_out, l_out, H, K, hd, bs,
+        NB);
+  } else if (dtype == DT_BF16) {
+    paged_decode_kernel<__nv_bfloat16, PARTIALS><<<grid, block, smem, st>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(pk),
+        static_cast<const __nv_bfloat16*>(pv), tb, ln, out, m_out, l_out, H, K,
+        hd, bs, NB);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -151,26 +204,17 @@ extern "C" int flash_decode_paged_launch(const void* q, const void* pk,
                                          const void* lengths, void* out, int B,
                                          int H, int K, int hd, int bs, int NB,
                                          int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int G = H / K;
-  const size_t smem = sizeof(float) * (size_t)(2 * G * hd + G * bs + 3 * G);
-  dim3 grid(K, B);
-  dim3 block(128);
-  const int* tb = static_cast<const int*>(tables);
-  const int* ln = static_cast<const int*>(lengths);
-  if (dtype == DT_F32) {
-    paged_decode_kernel<float><<<grid, block, smem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(pk),
-        static_cast<const float*>(pv), tb, ln, static_cast<float*>(out), H, K,
-        hd, bs, NB);
-  } else if (dtype == DT_BF16) {
-    paged_decode_kernel<__nv_bfloat16><<<grid, block, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(pk),
-        static_cast<const __nv_bfloat16*>(pv), tb, ln,
-        static_cast<__nv_bfloat16*>(out), H, K, hd, bs, NB);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(q, pk, pv, tables, lengths, out, nullptr, nullptr, B, H,
+                       K, hd, bs, NB, dtype, stream);
+}
+
+// The same inputs -> fp32 partials acc (B, H, hd), m (B, H), l (B, H), not
+// normalised. Same gates; returns cudaGetLastError() after launch.
+extern "C" int flash_decode_paged_partials_launch(
+    const void* q, const void* pk, const void* pv, const void* tables,
+    const void* lengths, void* acc, void* m, void* l, int B, int H, int K,
+    int hd, int bs, int NB, int dtype, void* stream) {
+  return launch<true>(q, pk, pv, tables, lengths, acc, static_cast<float*>(m),
+                      static_cast<float*>(l), B, H, K, hd, bs, NB, dtype,
+                      stream);
 }

@@ -10,14 +10,18 @@
 // never read on input (they may hold garbage; the tests poison them with
 // NaN).
 //
-// The same bodies also replace ::gmm_dual_act_gather (_gather_dual_kernel)
-// and ::gmm_scatter (_scatter_kernel), which differ only in where a
-// group's rows live (struct Rows, common.cuh, a template parameter):
+// The same bodies also replace ::gmm_dual_act_gather (_gather_dual_kernel),
+// ::gmm_gather (_gather_kernel) and ::gmm_scatter (_scatter_kernel), and
+// src/repro/kernels/gmm/gmm.py::gmm (_gmm_kernel) and ::gmm_dual_act
+// (_gmm_dual_kernel), which differ only in where a group's rows live
+// (struct Rows, common.cuh, a template parameter):
 //
-// * gather input: row m of group g is row xofs[g] + m of a flat (R, D)
-//   array (the dispatch order of collectives.dispatch_metadata) instead of
-//   row g * C + m of padded buckets, so the (G, C, D) dispatch buffer is
-//   never written;
+// * gather input (dual: gmm_dual_act_gather; single: gmm_gather): row m of
+//   group g is row xofs[g] + m of a flat (R, D) array (the dispatch order
+//   of collectives.dispatch_metadata) instead of row g * C + m of padded
+//   buckets, so the (G, C, D) dispatch buffer is never written;
+// * every row live (gmm, gmm_dual_act): padded buckets with no count, gs
+//   null, weights (G, D, F) (gpw = 1); every row of the output is stored;
 // * scatter output: row m of group g is stored at row oofs[g] + m of a
 //   flat (R, F) array, and ONLY rows m < count are stored. The TPU kernel
 //   stores whole row tiles in grid order and lets a partial tile's zero
@@ -34,7 +38,11 @@
 // capacity 8) every live group streams its whole (D, F) weight panel for a
 // handful of rows, so the kernel is bound by weight bytes over HBM
 // bandwidth (3.35 TB/s). At prefill (capacity 820) it is bound by
-// operations, 2 * sum(gs) * D * F per product.
+// operations, 2 * sum(gs) * D * F per product. The every-row layout has
+// no dead group or row to skip: at decode it streams all G weight panels
+// (the bound of torch.bmm over the same buckets), at prefill it does
+// 2 * G * C * D * F operations per product, and the WMMA body computes
+// every row tile of every group.
 //
 // What the design does about it: every block reads gs[g] itself; a group
 // (or row tile) with no live rows writes its zeros and exits without
@@ -484,21 +492,28 @@ void dispatch(const void* x, const void* wa, const void* wb, const int* gs,
   }
 }
 
-// The three forms the wrappers launch: padded (both products), gather (the
-// SwiGLU front half) and scatter (the single product of the down
-// projection).
+// The forms the wrappers launch: padded with counts (both products),
+// padded with every row live (both products; gs null), gather (both
+// products: the SwiGLU front half, or the single product) and scatter (the
+// single product of the down projection).
 template <typename T>
 int dispatch_layout(const void* x, const void* wa, const void* wb, const int* gs,
                     const int* xofs, const int* oofs, void* out, int G, int C,
                     int D, int F, int gpw, int in_rows, int out_rows, bool dual,
                     cudaStream_t st) {
-  if (!xofs && !oofs) {
+  if (!gs) {
+    if (xofs || oofs) return static_cast<int>(cudaErrorInvalidValue);
+    const Rows<false, false, true> rw{nullptr, nullptr, 0, 0};
+    if (dual) dispatch<T, true>(x, wa, wb, gs, out, G, C, D, F, gpw, rw, st);
+    else dispatch<T, false>(x, wa, wb, gs, out, G, C, D, F, gpw, rw, st);
+  } else if (!xofs && !oofs) {
     const Rows<false, false> rw{nullptr, nullptr, 0, 0};
     if (dual) dispatch<T, true>(x, wa, wb, gs, out, G, C, D, F, gpw, rw, st);
     else dispatch<T, false>(x, wa, wb, gs, out, G, C, D, F, gpw, rw, st);
-  } else if (xofs && !oofs && dual) {
+  } else if (xofs && !oofs) {
     const Rows<true, false> rw{xofs, nullptr, in_rows, 0};
-    dispatch<T, true>(x, wa, wb, gs, out, G, C, D, F, gpw, rw, st);
+    if (dual) dispatch<T, true>(x, wa, wb, gs, out, G, C, D, F, gpw, rw, st);
+    else dispatch<T, false>(x, wa, wb, gs, out, G, C, D, F, gpw, rw, st);
   } else if (!xofs && oofs && !dual) {
     const Rows<false, true> rw{nullptr, oofs, 0, out_rows};
     dispatch<T, false>(x, wa, wb, gs, out, G, C, D, F, gpw, rw, st);
@@ -511,11 +526,11 @@ int dispatch_layout(const void* x, const void* wa, const void* wb, const int* gs
 }  // namespace
 
 // x (G, C, D) or, with xofs, flat (in_rows, D); wa/wb (G/gpw, D, F);
-// gs (G,) int32; out (G, C, F) or, with oofs, flat (out_rows, F); xofs and
-// oofs (G,) int32 or null: padded, gather (dual only) or scatter (single
-// product only). All contiguous, 16-byte aligned, D and F multiples of
-// 16 / sizeof(T). wb is read only when dual != 0. Returns
-// cudaGetLastError() after launch.
+// gs (G,) int32, or null for every row live (padded only); out (G, C, F)
+// or, with oofs, flat (out_rows, F); xofs and oofs (G,) int32 or null:
+// padded, gather or scatter (single product only). All contiguous,
+// 16-byte aligned, D and F multiples of 16 / sizeof(T). wb is read only
+// when dual != 0. Returns cudaGetLastError() after launch.
 extern "C" int gmm_ragged_launch(const void* x, const void* wa, const void* wb,
                                  const void* gs, const void* xofs,
                                  const void* oofs, void* out, int G, int C,

@@ -89,6 +89,15 @@ def gather_pages(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor
     return pool[block_tables.reshape(-1).long()].reshape(b, nb * bs, nkv, hd)
 
 
+def _paged_view(pool_k, pool_v, block_tables, lengths):
+    """Each request's logical K/V view and its validity from ``lengths``."""
+    k = gather_pages(pool_k, block_tables)
+    v = gather_pages(pool_v, block_tables)
+    t = k.shape[1]
+    valid = torch.arange(t, device=k.device)[None, :] < lengths[:, None].long()
+    return k, v, valid
+
+
 def paged_decode(
     q: torch.Tensor,             # (B, H, hd)
     pool_k: torch.Tensor,        # (P, bs, K, hd)
@@ -96,8 +105,11 @@ def paged_decode(
     block_tables: torch.Tensor,  # (B, NB) int32
     lengths: torch.Tensor,       # (B,) int32 live context per request
 ) -> torch.Tensor:
-    k = gather_pages(pool_k, block_tables)
-    v = gather_pages(pool_v, block_tables)
-    t = k.shape[1]
-    valid = torch.arange(t, device=q.device)[None, :] < lengths[:, None].long()
-    return decode(q, k, v, valid)
+    return decode(q, *_paged_view(pool_k, pool_v, block_tables, lengths))
+
+
+def paged_decode_partials(q, pool_k, pool_v, block_tables, lengths):
+    """:func:`decode_partials` over the pages ``block_tables[b]`` with the
+    first ``lengths[b]`` keys valid: fp32 ``(acc, m, l)``; a request of
+    length 0 gives ``(0, NEG_INF, 0)``."""
+    return decode_partials(q, *_paged_view(pool_k, pool_v, block_tables, lengths))

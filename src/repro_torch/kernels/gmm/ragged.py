@@ -2,9 +2,11 @@
 kernels of ``repro/kernels/gmm/ragged.py``:
 
 * ``gmm_ragged``, ``gmm_dual_act_ragged`` (padded buckets in and out),
-  ``gmm_dual_act_gather`` (flat rows in) and ``gmm_scatter`` (flat rows
-  out) — one body per capacity in ``csrc/gmm_ragged.cu``, which differ only
-  in where a group's rows live;
+  ``gmm_gather``, ``gmm_dual_act_gather`` (flat rows in) and
+  ``gmm_scatter`` (flat rows out) — one body per capacity in
+  ``csrc/gmm_ragged.cu``, which differ only in where a group's rows live
+  (the padded ``gmm`` and ``gmm_dual_act`` of :mod:`.gmm` are a further
+  layout of the same bodies);
 * ``gmm_fused_ffn`` — flat rows in, the hidden block on chip, flat rows out
   (``csrc/gmm_fused_ffn.cu``).
 
@@ -41,7 +43,8 @@ def can_gmm(d: int, f: int, dtype: torch.dtype) -> bool:
 
 def _check(x, ws, group_sizes, gpw: int, name: str, g: int | None = None):
     """Validate a grouped matmul's operands. ``x`` is (G, C, D) padded
-    buckets, or (R, D) flat rows when ``g`` (the group count) is given."""
+    buckets, or (R, D) flat rows when ``g`` (the group count) is given;
+    ``group_sizes`` None means every row is live."""
     if g is None:
         if x.dim() != 3:
             raise ValueError(f"{name}: x must be (G, C, D), got {tuple(x.shape)}")
@@ -59,16 +62,18 @@ def _check(x, ws, group_sizes, gpw: int, name: str, g: int | None = None):
             )
         if w.dtype != x.dtype or w.device != x.device:
             raise ValueError(f"{name}: weights must match x's dtype and device")
-    if group_sizes.shape != (g,) or group_sizes.dtype != torch.int32:
-        raise ValueError(f"{name}: group_sizes must be int32 of shape ({g},)")
-    if group_sizes.device != x.device:
-        raise ValueError(f"{name}: group_sizes must lie on {x.device}")
+    counts = () if group_sizes is None else (group_sizes,)
+    for gs in counts:
+        if gs.shape != (g,) or gs.dtype != torch.int32:
+            raise ValueError(f"{name}: group_sizes must be int32 of shape ({g},)")
+        if gs.device != x.device:
+            raise ValueError(f"{name}: group_sizes must lie on {x.device}")
     if not can_gmm(d, f, x.dtype):
         raise ValueError(
             f"{name}: dtype {x.dtype} with D={d}, F={f} is outside the "
             f"kernel's gate (fp32/bf16, D and F multiples of 16 bytes)"
         )
-    for t in (x, *ws, group_sizes):
+    for t in (x, *ws, *counts):
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
     for t in (x, *ws):
@@ -80,9 +85,10 @@ def _check(x, ws, group_sizes, gpw: int, name: str, g: int | None = None):
 def _launch(x, wa, wb, group_sizes, gpw: int, dual: bool, *, name: str,
             capacity: int | None = None, offsets=None, out=None,
             out_rows: int | None = None) -> torch.Tensor:
-    """One launch of ``gmm_ragged_launch``: padded buckets by default; a
-    flat (R, D) input with ``capacity`` (gather); a flat (out_rows, F)
-    output with ``out_rows`` (scatter)."""
+    """One launch of ``gmm_ragged_launch``: padded buckets by default
+    (every row live when ``group_sizes`` is None); a flat (R, D) input with
+    ``capacity`` (gather); a flat (out_rows, F) output with ``out_rows``
+    (scatter)."""
     ws = (wa, wb) if dual else (wa,)
     gather, scatter = capacity is not None, out_rows is not None
     g = offsets.shape[0] if gather else None
@@ -97,7 +103,8 @@ def _launch(x, wa, wb, group_sizes, gpw: int, dual: bool, *, name: str,
     fn = build.entry("gmm_ragged", "gmm_ragged_launch", 7, 9)
     rc = fn(
         x.data_ptr(), wa.data_ptr(), (wb if dual else wa).data_ptr(),
-        group_sizes.data_ptr(), offsets.data_ptr() if gather else None,
+        None if group_sizes is None else group_sizes.data_ptr(),
+        offsets.data_ptr() if gather else None,
         offsets.data_ptr() if scatter else None, out.data_ptr(),
         g, cap, d, f, gpw, c if gather else 0, out_rows or 0,
         DTYPES[x.dtype], int(dual),
@@ -144,6 +151,19 @@ def gmm_dual_act_ragged(
     out = _launch(x, wg, wu, group_sizes, groups_per_weight, dual=True,
                   name="gmm_dual_act_ragged")
     gmm_dual_act_ragged.launches += 1
+    return out
+
+
+def gmm_gather(x, w, offsets, group_sizes, capacity: int,
+               groups_per_weight: int = 1) -> torch.Tensor:
+    """y[g, :count_g] = rows_g @ w[g // gpw] with rows_g read from the flat
+    (R, D) array at ``offsets[g]``: (G, capacity, F), zero tails (replaces
+    ``ragged.py::gmm_gather``)."""
+    if not x.is_cuda:
+        return ref.gmm_gather(x, w, offsets, group_sizes, capacity, groups_per_weight)
+    out = _launch(x, w, None, group_sizes, groups_per_weight, dual=False,
+                  name="gmm_gather", capacity=capacity, offsets=offsets)
+    gmm_gather.launches += 1
     return out
 
 
@@ -207,6 +227,7 @@ def gmm_fused_ffn(x, wg, wu, wd, offsets, group_sizes, capacity: int,
 
 gmm_ragged.launches = 0
 gmm_dual_act_ragged.launches = 0
+gmm_gather.launches = 0
 gmm_dual_act_gather.launches = 0
 gmm_scatter.launches = 0
 gmm_fused_ffn.launches = 0

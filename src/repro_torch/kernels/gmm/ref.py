@@ -1,10 +1,12 @@
-"""Plain PyTorch versions of the ragged grouped-matmul kernels.
+"""Plain PyTorch versions of the grouped-matmul kernels.
 
 These are the kernels' oracles (the CPU tests hold them against the JAX
 package; ``chip_smoke.py`` holds the CUDA kernels against them on the
 card) and the path CPU tensors take. Rows at or past ``group_sizes[g]``
 come out as exact zeros, selected with ``where`` so that garbage (even NaN)
-in dead input rows never reaches the output.
+in dead input rows never reaches the output. The padded forms
+(:func:`gmm`, :func:`gmm_dual_act`, :func:`expert_ffn`) have no counts:
+every row is live.
 """
 
 from __future__ import annotations
@@ -24,6 +26,28 @@ def _grouped_bmm(x: torch.Tensor, w: torch.Tensor, gpw: int) -> torch.Tensor:
     g, c, d = x.shape
     y = torch.bmm(x.reshape(g // gpw, gpw * c, d), w)
     return y.reshape(g, c, -1)
+
+
+def _swiglu(a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """silu(a) * b in fp32, stored in ``dtype``."""
+    return (F.silu(a.float()) * b.float()).to(dtype)
+
+
+def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """y[g] = x[g] @ w[g]: (G, C, D) @ (G, D, F) -> (G, C, F), every row."""
+    return torch.bmm(x, w)
+
+
+def gmm_dual_act(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor) -> torch.Tensor:
+    """h[g] = silu(x[g] @ wg[g]) * (x[g] @ wu[g]), every row (activation in
+    fp32, stored in x.dtype)."""
+    return _swiglu(torch.bmm(x, wg), torch.bmm(x, wu), x.dtype)
+
+
+def expert_ffn(x, wg, wu, wd) -> torch.Tensor:
+    """Padded SwiGLU expert FFN: (G, C, D) x (G, D, F) x2 x (G, F, D) ->
+    (G, C, D), every row, the hidden tensor in x.dtype between the two."""
+    return gmm(gmm_dual_act(x, wg, wu), wd)
 
 
 def gmm_ragged(
@@ -47,9 +71,8 @@ def gmm_dual_act_ragged(
 ) -> torch.Tensor:
     """h[g] = silu(x@wg) * (x@wu) on the first count_g rows (activation in
     fp32, stored in x.dtype); tail rows are zero."""
-    a = _grouped_bmm(x, wg, groups_per_weight).float()
-    b = _grouped_bmm(x, wu, groups_per_weight).float()
-    h = (F.silu(a) * b).to(x.dtype)
+    h = _swiglu(_grouped_bmm(x, wg, groups_per_weight),
+                _grouped_bmm(x, wu, groups_per_weight), x.dtype)
     mask = _row_mask(x.shape[1], group_sizes)
     return torch.where(mask, h, torch.zeros((), dtype=h.dtype, device=h.device))
 
@@ -120,6 +143,14 @@ def scatter_rows(
         return ext[:out_rows]
     out.copy_(ext[:out_rows])
     return out
+
+
+def gmm_gather(x, w, offsets, group_sizes, capacity: int,
+               groups_per_weight: int = 1) -> torch.Tensor:
+    """:func:`gmm_ragged` over the buckets gathered from flat rows:
+    (R, D) -> (G, capacity, F) with zero tails."""
+    buckets = gather_buckets(x, offsets, group_sizes, capacity)
+    return gmm_ragged(buckets, w, group_sizes, groups_per_weight)
 
 
 def gmm_dual_act_gather(x, wg, wu, offsets, group_sizes, capacity: int,

@@ -19,6 +19,12 @@ a call takes a kernel; when it does, it calls these names:
 * ``decode_attend_paged`` — one-token decode over a paged KV pool (the
   ``flash_decode_paged`` wrapper).
 
+Beside this module, the op layer (``kernels/gmm/ops.py``,
+``kernels/flash_decode/ops.py``, ``kernels/flash_attention/ops.py``) gives
+every kernel under the JAX package's op names, the padded ``gmm`` /
+``gmm_dual_act``, ``gmm_gather`` and the paged decode's partials mode
+included. No model path calls it, as in the reference.
+
 Each wrapper launches its hand-written CUDA kernel on CUDA tensors (or
 raises on a shape outside its ``can_*`` gate) and runs its plain PyTorch
 version on CPU tensors; there is no fallback on the card. The gates are

@@ -25,12 +25,18 @@ from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import ref as fd_ref
 from repro_torch.kernels.flash_decode.flash_decode import flash_decode, flash_decode_partials
-from repro_torch.kernels.flash_decode.paged import flash_decode_paged
+from repro_torch.kernels.flash_decode.paged import (
+    flash_decode_paged,
+    flash_decode_paged_partials,
+)
+from repro_torch.kernels.gmm import ops as gmm_ops
 from repro_torch.kernels.gmm import ref as gmm_ref
+from repro_torch.kernels.gmm.gmm import gmm, gmm_dual_act
 from repro_torch.kernels.gmm.ragged import (
     gmm_dual_act_gather,
     gmm_dual_act_ragged,
     gmm_fused_ffn,
+    gmm_gather,
     gmm_ragged,
     gmm_scatter,
 )
@@ -84,22 +90,31 @@ def test_cuda_gmm_pair_matches_plain(cuda_device, dtype, tol, c):
         _check(y, gmm_ref.gmm_ragged(x32, wg32, gs, 2), ROUNDING)
 
 
+def _paged_inputs(dev, dtype, lengths):
+    """Requests of ``lengths`` over 4 scrambled pages of 32 each (pool of
+    4B + 1 pages): q, the pools, tables and lengths, every row past a
+    request's length (dead rows of its last page and dead pages) NaN."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    b, nb, bs = len(lengths), 4, 32
+    q = _rand(gen, dev, dtype, b, 8, 64)
+    pk = _rand(gen, dev, dtype, b * nb + 1, bs, 2, 64)
+    pv = _rand(gen, dev, dtype, b * nb + 1, bs, 2, 64)
+    tables = torch.randperm(b * nb + 1, generator=gen, device=dev)[: b * nb]
+    tables = tables.reshape(b, nb).to(torch.int32).contiguous()
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    for i in range(b):
+        for j in range(nb):
+            lo = max(0, int(ln[i]) - j * bs)
+            if lo < bs:
+                pk[int(tables[i, j]), lo:] = float("nan")
+                pv[int(tables[i, j]), lo:] = float("nan")
+    return q, pk, pv, tables, ln
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 def test_cuda_paged_decode_matches_plain(cuda_device, dtype, tol):
-    gen = torch.Generator(device=cuda_device).manual_seed(1)
-    q = _rand(gen, cuda_device, dtype, 3, 8, 64)
-    pk = _rand(gen, cuda_device, dtype, 13, 32, 2, 64)
-    pv = _rand(gen, cuda_device, dtype, 13, 32, 2, 64)
-    tables = torch.randperm(13, generator=gen, device=cuda_device)[:12]
-    tables = tables.reshape(3, 4).to(torch.int32).contiguous()
-    ln = torch.tensor([100, 1, 64], dtype=torch.int32, device=cuda_device)
-    for b in range(3):
-        for j in range(4):
-            lo = max(0, int(ln[b]) - j * 32)
-            if lo < 32:
-                pk[int(tables[b, j]), lo:] = float("nan")
-                pv[int(tables[b, j]), lo:] = float("nan")
+    q, pk, pv, tables, ln = _paged_inputs(cuda_device, dtype, [100, 1, 64])
     _check(flash_decode_paged(q, pk, pv, tables, ln),
            fd_ref.paged_decode(q, pk, pv, tables, ln), tol)
 
@@ -249,6 +264,100 @@ def test_cuda_decode_modes_count_apart(cuda_device):
     assert (flash_decode.launches, flash_decode_partials.launches) == (n0 + 1, p0)
     flash_decode(q, k, v, valid, return_partials=True)
     assert (flash_decode.launches, flash_decode_partials.launches) == (n0 + 1, p0 + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("c", [8, 24])      # decode body and prefill body
+def test_cuda_padded_gmm_matches_plain(cuda_device, dtype, tol, c):
+    """gmm and gmm_dual_act with every row live (no counts), and the
+    padded expert_ffn op over them."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    g, d, f = 4, 64, 96
+    x = _rand(gen, cuda_device, dtype, g, c, d)
+    wg = _rand(gen, cuda_device, dtype, g, d, f, scale=0.1)
+    wu = _rand(gen, cuda_device, dtype, g, d, f, scale=0.1)
+    wd = _rand(gen, cuda_device, dtype, g, f, d, scale=0.1)
+    h = gmm_dual_act(x, wg, wu)
+    _check(h, gmm_ref.gmm_dual_act(x, wg, wu), tol)
+    y = gmm(x, wg)
+    _check(y, gmm_ref.gmm(x, wg), tol)
+    _check(gmm_ops.expert_ffn(x, wg, wu, wd), gmm_ref.expert_ffn(x, wg, wu, wd), tol)
+    if dtype == torch.bfloat16:   # the fp32 product of the same bf16 inputs
+        _check(h, gmm_ref.gmm_dual_act(x.float(), wg.float(), wu.float()), ROUNDING)
+        _check(y, gmm_ref.gmm(x.float(), wg.float()), ROUNDING)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("cap", [8, 24])     # decode body and prefill body
+@pytest.mark.parametrize("gap", [2, 0])      # gap rows; the last segment at R
+def test_cuda_gmm_gather_matches_plain(cuda_device, dtype, tol, cap, gap):
+    """Flat rows with NaN gap rows in, bucket-padded out with zero tails."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    counts = [0, cap, 5, cap + 3, 1, 3]
+    g, d, f = 6, 64, 96
+    offsets, r, live = _flat_layout(cuda_device, counts, gap, cap)
+    gs = torch.tensor([min(c, cap) for c in counts], dtype=torch.int32, device=cuda_device)
+    x = _rand(gen, cuda_device, dtype, r, d)
+    x[~live] = float("nan")
+    w = _rand(gen, cuda_device, dtype, g // 2, d, f, scale=0.1)
+    y = gmm_gather(x, w, offsets, gs, cap, 2)
+    _check(y, gmm_ref.gmm_gather(x, w, offsets, gs, cap, 2), tol)
+    dead = torch.arange(cap, device=cuda_device)[None, :] >= gs[:, None]
+    assert (y[dead] == 0).all()
+    if dtype == torch.bfloat16:
+        _check(y, gmm_ref.gmm_gather(x.float(), w.float(), offsets, gs, cap, 2), ROUNDING)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_cuda_paged_partials_match_plain(cuda_device, dtype, tol):
+    """acc at the run's dtype limit, m and l at the fp32 limit; a request
+    of length 0 gives (acc, m, l) = (0, -1e30, 0) exactly."""
+    q, pk, pv, tables, ln = _paged_inputs(cuda_device, dtype, [100, 1, 64, 0])
+    acc, m, l = flash_decode_paged(q, pk, pv, tables, ln, return_partials=True)
+    acc_r, m_r, l_r = fd_ref.paged_decode_partials(q, pk, pv, tables, ln)
+    assert acc.dtype == m.dtype == l.dtype == torch.float32
+    _check(acc[:3], acc_r[:3], tol)
+    _check(m[:3], m_r[:3], PLAIN[torch.float32])
+    _check(l[:3], l_r[:3], PLAIN[torch.float32])
+    assert (m[3] == -1e30).all() and (l[3] == 0).all() and (acc[3] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_cuda_paged_partials_merge_matches_normalised_kernel(cuda_device, dtype, tol):
+    """The block table cut into 4 slices of one page, lengths clipped per
+    slice: the LSE merge of the kernel's partials gives the normalised
+    paged kernel's output."""
+    from repro_torch.kernels.flash_decode.ref import merge_partials_local
+
+    q, pk, pv, tables, ln = _paged_inputs(cuda_device, dtype, [100, 1, 64, 128])
+    parts = [flash_decode_paged_partials(q, pk, pv, tables[:, j:j + 1].contiguous(),
+                                         (ln - 32 * j).clamp(0, 32).to(torch.int32))
+             for j in range(4)]
+    _check(merge_partials_local(parts).to(dtype), flash_decode_paged(q, pk, pv, tables, ln),
+           tol)
+
+
+@pytest.mark.cuda
+def test_cuda_op_layer_kernels_count_apart(cuda_device):
+    """The padded, gather and paged-partials launches count apart from the
+    served kernels that share their sources."""
+    counters = (gmm, gmm_dual_act, gmm_ragged, gmm_dual_act_ragged, gmm_gather,
+                gmm_dual_act_gather, flash_decode_paged, flash_decode_paged_partials)
+    before = [k.launches for k in counters]
+    x = torch.randn((2, 8, 64), device=cuda_device)
+    w = torch.randn((2, 64, 32), device=cuda_device)
+    gmm_dual_act(x, w, w)
+    gmm(x, w)
+    gmm_gather(x.reshape(16, 64), w, torch.tensor([0, 8], dtype=torch.int32, device=cuda_device),
+               torch.tensor([8, 3], dtype=torch.int32, device=cuda_device), 8)
+    q, pk, pv, tables, ln = _paged_inputs(cuda_device, torch.float32, [40])
+    flash_decode_paged(q, pk, pv, tables, ln, return_partials=True)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(counters, before)] == [1, 1, 0, 0, 1, 0, 0, 1]
 
 
 MESH_SERVE = dict(max_seq=64, batch=4, slots_per_device=3, alpha=0.1)
