@@ -47,6 +47,7 @@ __device__ __forceinline__ void load_vec16(const T* __restrict__ src, float* dst
 template <bool GATHER, bool SCATTER, bool ALL = false>
 struct Rows {
   static_assert(!ALL || (!GATHER && !SCATTER), "ALL is a padded layout");
+  static constexpr bool gather = GATHER;
   const int* xofs;   // gather input offsets (GATHER)
   const int* oofs;   // scatter output offsets (SCATTER)
   int in_rows, out_rows;

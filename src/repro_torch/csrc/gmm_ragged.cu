@@ -38,11 +38,12 @@
 // capacity 8) every live group streams its whole (D, F) weight panel for a
 // handful of rows, so the kernel is bound by weight bytes over HBM
 // bandwidth (3.35 TB/s). At prefill (capacity 820) it is bound by
-// operations, 2 * sum(gs) * D * F per product. The every-row layout has
-// no dead group or row to skip: at decode it streams all G weight panels
-// (the bound of torch.bmm over the same buckets), at prefill it does
-// 2 * G * C * D * F operations per product, and the WMMA body computes
-// every row tile of every group.
+// operations, 2 * sum(gs) * D * F per product over the 989 TFLOP/s bf16
+// tensor-core peak (2.19 ms for the served dual form, 1.09 ms for the
+// single product). The every-row layout has no dead group or row to skip:
+// at decode it streams all G weight panels (the bound of torch.bmm over the
+// same buckets), at prefill it does 2 * G * C * D * F operations per
+// product.
 //
 // What the design does about it: every block reads gs[g] itself; a group
 // (or row tile) with no live rows writes its zeros and exits without
@@ -55,18 +56,21 @@
 //   warps split D and reduce once through shared memory. Each weight byte
 //   is read once and no shared-memory load sits in the inner loop, so the
 //   kernel streams weights at close to the HBM rate.
-// * C > 8, bf16 (prefill): 128 x 128 output tiles on the tensor cores
-//   (WMMA 16x16x16, fp32 accumulate), bf16 tiles double-buffered in shared
-//   memory with cp.async so the next tile's loads overlap the products.
+// * C > 8, bf16 (prefill): output tiles of 128 rows x 128 columns of both
+//   products (dual) or 256 of one (single) on Hopper's warpgroup tensor
+//   cores (wgmma m64n128k16, fp32 accumulate), fed by a producer warp's TMA
+//   loads through a 4-stage ring of 64-deep K steps in 128-byte-swizzled
+//   shared memory, so loads run ahead of the products and no block-wide
+//   barrier sits in the K loop; the epilogue applies silu(a) * b to the
+//   fp32 fragments and stores bf16 pairs straight from registers
+//   (gmm_wgmma_kernel; the PTX, wgmma.mma_async and the TMA loads
+//   cp.async.bulk.tensor against mbarriers, is in hopper.cuh).
 // * C > 8, fp32: 64 x 128 tiles of fp32 FMAs on the CUDA cores (TF32
 //   would change the numbers; fp32 is the comparison dtype).
-//
-// wgmma, TMA and deeper pipelines are later work.
-#include <mma.h>
-
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -301,159 +305,210 @@ gmm_skinny_kernel(const T* __restrict__ x, const T* __restrict__ wa,
 }
 
 // ---------------------------------------------------------------------------
-// prefill, bf16: tensor-core tiles (WMMA 16x16x16, fp32 accumulate)
+// prefill, bf16: wgmma on a TMA ring, one producer warp
 // ---------------------------------------------------------------------------
 
-namespace wmma = nvcuda::wmma;
 using bf16 = __nv_bfloat16;
-constexpr int WM_BM = 128, WM_BN = 128, WM_BK = 32;
-constexpr int WM_LDA = WM_BK + 8, WM_LDB = WM_BN + 8;   // 16-byte row padding
-// one pipeline stage: x tile (BM x LDA) + two weight tiles (BK x LDB), bf16
-constexpr int WM_STAGE = WM_BM * WM_LDA + 2 * WM_BK * WM_LDB;
-constexpr size_t WM_SMEM =
-    2 * WM_STAGE * sizeof(bf16) + 8 * 2 * 16 * 16 * sizeof(float);
+constexpr int WG_BM = 128, WG_BK = 64;                // block rows, K per stage
+constexpr int WG_CONSUMERS = 2;                        // warpgroups of 64 rows
+constexpr int WG_THREADS = WG_CONSUMERS * 128 + 32;    // and one producer warp
+constexpr uint32_t X_BYTES = WG_BM * WG_BK * 2;        // 128 rows of 128 B
+constexpr uint32_t W_BOX = WG_BK * 64 * 2;             // 64 k x 64 columns
+constexpr uint32_t W_BYTES = 2 * W_BOX;                // one accumulator's 128 columns
+constexpr uint32_t WG_STAGE = X_BYTES + 2 * W_BYTES;   // 48 KB
+constexpr int WG_STAGES = 4;                           // 192 KB
+constexpr size_t WG_SMEM = (size_t)WG_STAGES * WG_STAGE + 1024 + 16 * WG_STAGES;
+// columns per block: the dual form's two accumulators are its two products
+// over 128 columns, the single product's are 256 columns of one
+template <bool DUAL> constexpr int wg_cols = DUAL ? 128 : 256;
 
-// 16-byte global -> shared copy that bypasses registers; with pred false
-// it reads nothing and fills zeros (src must still be a valid address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(src), "r"(pred ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
+// One block per (row tile of 128, column tile, group): 128 columns of both
+// products (dual) or 256 of one (single), so that every stage feeds the
+// tensor cores as many operations per loaded byte either way (2 x 128 x 256
+// per 48 KB). The row tiles of one (group, column tile) are adjacent block
+// indices, so they read the group's weight panel from HBM once and from L2
+// after. Warps 0-7 are two consumer warpgroups (rows 0-63, 64-127 of the
+// tile), each with two 64 x 128 fp32 accumulators; warp 8 is the producer:
+// its lane 0 keeps the 4-stage ring full with TMA loads (x: 128 rows x 64
+// k; weights: 64 k x 256 columns as four 64-column boxes, 128-byte swizzle)
+// and the consumers run wgmma m64n128k16 on each stage as it lands. x is
+// the K-major A operand; the weights (D, F) with F contiguous are the
+// MN-major B operand. The tensor maps zero whatever lies outside
+// the tensor (rows past C or R, k past D, columns past F), and the weights'
+// map is 3-D over (G / gpw, D, F), so a K tail never reads the next
+// expert's rows. Rows of a live tile past the count may hold anything (a
+// neighbour's rows, gap rows, NaN): a row of A reaches only its own row of
+// the product, and the epilogue stores zeros or nothing there. The 288
+// threads get 224 registers each at one block per SM, enough for the two
+// 64 x 128 fp32 accumulators per warpgroup (128 a thread), so no register
+// rebalancing (setmaxnreg) is needed.
 template <bool DUAL, class RW>
-__global__ void __launch_bounds__(256)
-gmm_wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wa,
-                const bf16* __restrict__ wb, const int* __restrict__ gs,
-                bf16* __restrict__ out, int C, int D, int F, int gpw, RW rw) {
-  using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-  using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-  using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-  extern __shared__ __align__(128) unsigned char wm_smem[];
-  bf16* const smem = reinterpret_cast<bf16*>(wm_smem);
-  // epilogue staging: a 16 x 16 fp32 tile (two for the dual form) per warp
-  float* const stage = reinterpret_cast<float*>(wm_smem + 2 * WM_STAGE * sizeof(bf16));
-
-  const int g = blockIdx.z;
-  const int m0 = blockIdx.y * WM_BM, n0 = blockIdx.x * WM_BN;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp / 2, wn = warp % 2;   // warp tile: rows wm*32, cols wn*64
+__global__ void __launch_bounds__(WG_THREADS, 1)
+gmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                 const __grid_constant__ CUtensorMap wamap,
+                 const __grid_constant__ CUtensorMap wbmap, const int* __restrict__ gs,
+                 bf16* __restrict__ out, int C, int D, int F, int gpw, RW rw) {
+  constexpr int ST = WG_STAGES, BN = wg_cols<DUAL>;
+  constexpr uint32_t STAGE = WG_STAGE;
+  extern __shared__ unsigned char wg_smem_raw[];
+  const int m0 = blockIdx.x * WG_BM, n0 = blockIdx.y * BN, g = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int count = rw.count(gs, g, C);
   const int n_out = rw.stored(C, count);
   bf16* og = rw.out(out, g, C, F);
   if (m0 >= count) {
-    for (int i = tid; i < WM_BM * WM_BN; i += 256) {
-      const int m = m0 + i / WM_BN, n = n0 + i % WM_BN;
-      if (m < n_out && n < F) og[(size_t)m * F + n] = __float2bfloat16(0.f);
+    // Dead row tile: zeros where the layout stores them, no loads.
+    for (int i = tid; i < WG_BM * BN / 2; i += WG_THREADS) {
+      const int m = m0 + i / (BN / 2), n = n0 + 2 * (i % (BN / 2));
+      if (m < n_out && n < F) *reinterpret_cast<uint32_t*>(og + (size_t)m * F + n) = 0u;
     }
     return;
   }
-  const bf16* xg = rw.in(x, g, C, D);
-  const size_t wofs = (size_t)(g / gpw) * D * F;
-  const bf16* ag = wa + wofs;
-  const bf16* bg = DUAL ? wb + wofs : nullptr;
 
-  // Stage s: x tile at smem + s*WM_STAGE, weight tiles after it.
-  auto load_stage = [&](int s, int k0) {
-    bf16* xs = smem + s * WM_STAGE;
-    bf16* wsa = xs + WM_BM * WM_LDA;
-    bf16* wsb = wsa + WM_BK * WM_LDB;
-    for (int i = tid; i < WM_BM * (WM_BK / 8); i += 256) {
-      const int r = i / (WM_BK / 8), kk = (i % (WM_BK / 8)) * 8;
-      const int m = m0 + r, k = k0 + kk;
-      const bool ok = m < count && k < D;   // rows past the count: zeros
-      cp_async16(xs + r * WM_LDA + kk, ok ? xg + (size_t)m * D + k : xg, ok);
+  // the ring (1024-byte aligned: 128-byte swizzle atoms), then the barriers:
+  // full[s] (the producer's arrival + the stage's bytes), empty[s] (one
+  // arrival per consumer warp once its products have read the stage)
+  const uint32_t ring = (smem_addr(wg_smem_raw) + 1023) & ~1023u;
+  const uint32_t full = ring + ST * STAGE, empty = full + 8 * ST;
+  const int nk = (D + WG_BK - 1) / WG_BK;
+  if (tid == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, WG_CONSUMERS * 4);
     }
-    for (int i = tid; i < WM_BK * (WM_BN / 8); i += 256) {
-      const int kk = i / (WM_BN / 8), nn = (i % (WM_BN / 8)) * 8;
-      const int k = k0 + kk, n = n0 + nn;
-      const bool ok = k < D && n < F;
-      const size_t off = ok ? (size_t)k * F + n : 0;
-      cp_async16(wsa + kk * WM_LDB + nn, ag + off, ok);
-      if constexpr (DUAL) cp_async16(wsb + kk * WM_LDB + nn, bg + off, ok);
-    }
-  };
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-  FragC fa[2][4], fb[DUAL ? 2 : 1][DUAL ? 4 : 1];
+  if (warp == WG_CONSUMERS * 4) {
+    if (lane == 0) {
+      const int gw = g / gpw;
+      for (int t = 0; t < nk; ++t) {
+        const int s = t % ST, k0 = t * WG_BK;
+        if (t >= ST) mbar_wait(empty + 8 * s, (t / ST - 1) & 1);
+        const uint32_t st = ring + s * STAGE, bar = full + 8 * s;
+        mbar_expect_tx(bar, STAGE);
+        if constexpr (RW::gather) tma_load_2d(st, &xmap, bar, k0, rw.xofs[g] + m0);
+        else tma_load_3d(st, &xmap, bar, k0, m0, g);
+        // the B tiles of the two accumulators: wg's and wu's 128 columns,
+        // or 256 columns of w
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::fill_fragment(fa[i][j], 0.f);
-      if constexpr (DUAL) wmma::fill_fragment(fb[i][j], 0.f);
-    }
-
-  // Two-stage pipeline: tile t+1's copies are in flight while tile t
-  // feeds the tensor cores.
-  const int nk = (D + WM_BK - 1) / WM_BK;
-  load_stage(0, 0);
-  cp_async_commit();
-  for (int t = 0; t < nk; ++t) {
-    if (t + 1 < nk) {
-      load_stage((t + 1) & 1, (t + 1) * WM_BK);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* xs = smem + (t & 1) * WM_STAGE;
-    const bf16* wsa = xs + WM_BM * WM_LDA;
-    const bf16* wsb = wsa + WM_BK * WM_LDB;
-#pragma unroll
-    for (int kk = 0; kk < WM_BK; kk += 16) {
-      FragA af[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(af[i], xs + (wm * 32 + i * 16) * WM_LDA + kk, WM_LDA);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        FragB bfr;
-        wmma::load_matrix_sync(bfr, wsa + kk * WM_LDB + wn * 64 + j * 16, WM_LDB);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) wmma::mma_sync(fa[i][j], af[i], bfr, fa[i][j]);
-        if constexpr (DUAL) {
-          wmma::load_matrix_sync(bfr, wsb + kk * WM_LDB + wn * 64 + j * 16, WM_LDB);
-#pragma unroll
-          for (int i = 0; i < 2; ++i) wmma::mma_sync(fb[i][j], af[i], bfr, fb[i][j]);
-        }
+        for (int h = 0; h < 4; ++h)
+          tma_load_3d(st + X_BYTES + h * W_BOX, DUAL && h >= 2 ? &wbmap : &wamap, bar,
+                      n0 + 64 * (DUAL ? h % 2 : h), k0, gw);
       }
     }
-    __syncthreads();   // every warp is done with this stage before it refills
+    return;
   }
 
-  // epilogue: through the warp's 16 x 16 fp32 staging tiles
-  float* sa = stage + warp * 2 * 256;
-  float* sb = sa + 256;
+  const int wg = warp / 4;
+  float acc_a[64], acc_b[64];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < 64; ++i) {
+    acc_a[i] = 0.f;
+    acc_b[i] = 0.f;
+  }
+
+  for (int t = 0; t < nk; ++t) {
+    const int s = t % ST;
+    mbar_wait(full + 8 * s, (t / ST) & 1);
+    const uint32_t st = ring + s * STAGE;
+    const uint32_t xa = st + wg * 64 * 128;   // this warpgroup's 64 rows
+    fence_regs(acc_a);
+    fence_regs(acc_b);
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(sa, fa[i][j], 16, wmma::mem_row_major);
-      if constexpr (DUAL) wmma::store_matrix_sync(sb, fb[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        const int e = lane * 8 + t, r = e / 16, c = e % 16;
-        const int m = m0 + wm * 32 + i * 16 + r, n = n0 + wn * 64 + j * 16 + c;
-        if (m < n_out && n < F) {
-          float v = 0.f;
-          if (m < count) {
-            const float a = sa[e];
-            if constexpr (DUAL) v = a / (1.f + expf(-a)) * sb[e];
-            else v = a;
-          }
-          og[(size_t)m * F + n] = __float2bfloat16(v);
-        }
-      }
-      __syncwarp();
+    for (int kk = 0; kk < WG_BK / 16; ++kk) {
+      // A: 16 k = 32 bytes along each swizzled row; B: 16 rows of 128 B
+      const uint64_t da = gmma_desc(xa + kk * 32, 16, 1024, SWIZZLE_128B);
+      wgmma_ss<1>(acc_a, da, gmma_desc(st + X_BYTES + kk * 2048, W_BOX, 1024, SWIZZLE_128B),
+                  1);
+      wgmma_ss<1>(acc_b, da,
+                  gmma_desc(st + X_BYTES + W_BYTES + kk * 2048, W_BOX, 1024, SWIZZLE_128B), 1);
     }
+    wgmma_commit();
+    // the previous stage's products are done: hand it back to the producer
+    wgmma_wait<1>();
+    fence_regs(acc_a);
+    fence_regs(acc_b);
+    if (t > 0 && lane == 0) mbar_arrive(empty + 8 * ((t - 1) % ST));
+  }
+  wgmma_wait<0>();
+  fence_regs(acc_a);
+  fence_regs(acc_b);
+
+  // epilogue from the fragments: fp32 silu(a) * b (dual) or the two column
+  // halves (single), one cast, bf16x2 stores
+  const int r0 = m0 + wg * 64 + (warp % 4) * 16 + lane / 4;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int m = r0 + 8 * half;
+    if (m >= n_out) continue;
+    const bool live = m < count;
+    bf16* orow = og + (size_t)m * F;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int i = 4 * j + 2 * half, n = n0 + 8 * j + 2 * (lane % 4);
+      if constexpr (DUAL) {
+        if (n >= F) continue;   // F is even: n + 1 < F too
+        float v0 = 0.f, v1 = 0.f;
+        if (live) {
+          v0 = acc_a[i] / (1.f + expf(-acc_a[i])) * acc_b[i];
+          v1 = acc_a[i + 1] / (1.f + expf(-acc_a[i + 1])) * acc_b[i + 1];
+        }
+        *reinterpret_cast<uint32_t*>(orow + n) = pack_bf16x2(v0, v1);
+      } else {
+        if (n < F)
+          *reinterpret_cast<uint32_t*>(orow + n) =
+              live ? pack_bf16x2(acc_a[i], acc_a[i + 1]) : 0u;
+        if (n + 128 < F)
+          *reinterpret_cast<uint32_t*>(orow + n + 128) =
+              live ? pack_bf16x2(acc_b[i], acc_b[i + 1]) : 0u;
+      }
+    }
+  }
+}
+
+// Encodes the three tensor maps and launches the wgmma body. x: 3-D over
+// (G, C, D), or with a gather 2-D over the flat (R, D); weights 3-D over
+// (G / gpw, D, F). An encode or attribute failure is returned, never
+// worked around.
+template <bool DUAL, class RW>
+cudaError_t launch_wgmma(const void* x, const void* wa, const void* wb, const int* gs,
+                         void* out, int G, int C, int D, int F, int gpw, RW rw,
+                         cudaStream_t st) {
+  CUtensorMap xmap{}, amap, bmap;
+  const cuuint64_t row = (cuuint64_t)D * 2;
+  cudaError_t err = cudaSuccess;
+  if constexpr (RW::gather) {
+    // no flat rows: every tile is dead and no load reads the map
+    const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rw.in_rows};
+    const cuuint64_t strides[1] = {row};
+    const cuuint32_t box[2] = {WG_BK, WG_BM};
+    if (rw.in_rows > 0)
+      err = encode_bf16_map(&xmap, x, 2, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+  } else {
+    const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)C, (cuuint64_t)G};
+    const cuuint64_t strides[2] = {row, row * C};
+    const cuuint32_t box[3] = {WG_BK, WG_BM, 1};
+    err = encode_bf16_map(&xmap, x, 3, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+  }
+  if (err != cudaSuccess) return err;
+  const cuuint64_t wdims[3] = {(cuuint64_t)F, (cuuint64_t)D, (cuuint64_t)(G / gpw)};
+  const cuuint64_t wstrides[2] = {(cuuint64_t)F * 2, (cuuint64_t)F * 2 * D};
+  const cuuint32_t wbox[3] = {64, WG_BK, 1};
+  err = encode_bf16_map(&amap, wa, 3, wdims, wstrides, wbox, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  bmap = amap;   // the single product reads one weight
+  if (DUAL) err = encode_bf16_map(&bmap, wb, 3, wdims, wstrides, wbox, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  auto kern = gmm_wgmma_kernel<DUAL, RW>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)WG_SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((C + WG_BM - 1) / WG_BM, (F + wg_cols<DUAL> - 1) / wg_cols<DUAL>, G);
+  kern<<<grid, WG_THREADS, WG_SMEM, st>>>(xmap, amap, bmap, gs,
+                                                   static_cast<bf16*>(out), C, D, F, gpw, rw);
+  return cudaSuccess;
 }
 
 template <typename T, int BM, int BN, int BK, int TM, int TN, bool DUAL, class RW>
@@ -468,9 +523,9 @@ void launch(const void* x, const void* wa, const void* wb, const int* gs,
 }
 
 template <typename T, bool DUAL, class RW>
-void dispatch(const void* x, const void* wa, const void* wb, const int* gs,
-              void* out, int G, int C, int D, int F, int gpw, RW rw,
-              cudaStream_t st) {
+cudaError_t dispatch(const void* x, const void* wa, const void* wb, const int* gs,
+                     void* out, int G, int C, int D, int F, int gpw, RW rw,
+                     cudaStream_t st) {
   if (C <= SKINNY_ROWS) {
     constexpr int COLS = 32 * (16 / sizeof(T));
     dim3 grid((F + COLS - 1) / COLS, G);
@@ -478,18 +533,11 @@ void dispatch(const void* x, const void* wa, const void* wb, const int* gs,
         static_cast<const T*>(x), static_cast<const T*>(wa),
         static_cast<const T*>(wb), gs, static_cast<T*>(out), C, D, F, gpw, rw);
   } else if constexpr (std::is_same<T, bf16>::value) {
-    dim3 grid((F + WM_BN - 1) / WM_BN, (C + WM_BM - 1) / WM_BM, G);
-    // > 48 KB of dynamic shared memory needs the opt-in; a failure here is
-    // reported through cudaGetLastError like a refused launch.
-    cudaFuncSetAttribute(gmm_wmma_kernel<DUAL, RW>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)WM_SMEM);
-    gmm_wmma_kernel<DUAL, RW><<<grid, 256, WM_SMEM, st>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(wa),
-        static_cast<const bf16*>(wb), gs, static_cast<bf16*>(out), C, D, F, gpw,
-        rw);
+    return launch_wgmma<DUAL, RW>(x, wa, wb, gs, out, G, C, D, F, gpw, rw, st);
   } else {
     launch<T, 64, 128, 16, 4, 8, DUAL, RW>(x, wa, wb, gs, out, G, C, D, F, gpw, rw, st);
   }
+  return cudaSuccess;
 }
 
 // The forms the wrappers launch: padded with counts (both products),
@@ -501,25 +549,27 @@ int dispatch_layout(const void* x, const void* wa, const void* wb, const int* gs
                     const int* xofs, const int* oofs, void* out, int G, int C,
                     int D, int F, int gpw, int in_rows, int out_rows, bool dual,
                     cudaStream_t st) {
+  cudaError_t err;
   if (!gs) {
     if (xofs || oofs) return static_cast<int>(cudaErrorInvalidValue);
     const Rows<false, false, true> rw{nullptr, nullptr, 0, 0};
-    if (dual) dispatch<T, true>(x, wa, wb, gs, out, G, C, D, F, gpw, rw, st);
-    else dispatch<T, false>(x, wa, wb, gs, out, G, C, D, F, gpw, rw, st);
+    err = dual ? dispatch<T, true>(x, wa, wb, gs, out, G, C, D, F, gpw, rw, st)
+               : dispatch<T, false>(x, wa, wb, gs, out, G, C, D, F, gpw, rw, st);
   } else if (!xofs && !oofs) {
     const Rows<false, false> rw{nullptr, nullptr, 0, 0};
-    if (dual) dispatch<T, true>(x, wa, wb, gs, out, G, C, D, F, gpw, rw, st);
-    else dispatch<T, false>(x, wa, wb, gs, out, G, C, D, F, gpw, rw, st);
+    err = dual ? dispatch<T, true>(x, wa, wb, gs, out, G, C, D, F, gpw, rw, st)
+               : dispatch<T, false>(x, wa, wb, gs, out, G, C, D, F, gpw, rw, st);
   } else if (xofs && !oofs) {
     const Rows<true, false> rw{xofs, nullptr, in_rows, 0};
-    if (dual) dispatch<T, true>(x, wa, wb, gs, out, G, C, D, F, gpw, rw, st);
-    else dispatch<T, false>(x, wa, wb, gs, out, G, C, D, F, gpw, rw, st);
+    err = dual ? dispatch<T, true>(x, wa, wb, gs, out, G, C, D, F, gpw, rw, st)
+               : dispatch<T, false>(x, wa, wb, gs, out, G, C, D, F, gpw, rw, st);
   } else if (!xofs && oofs && !dual) {
     const Rows<false, true> rw{nullptr, oofs, 0, out_rows};
-    dispatch<T, false>(x, wa, wb, gs, out, G, C, D, F, gpw, rw, st);
+    err = dispatch<T, false>(x, wa, wb, gs, out, G, C, D, F, gpw, rw, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -549,3 +599,6 @@ extern "C" int gmm_ragged_launch(const void* x, const void* wa, const void* wb,
                                           gpw, in_rows, out_rows, dual != 0, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+// Dynamic shared memory the bf16 prefill body asks for at launch, in bytes.
+extern "C" long long gmm_wgmma_smem_bytes() { return static_cast<long long>(WG_SMEM); }

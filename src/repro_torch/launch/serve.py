@@ -16,7 +16,7 @@ Examples (CPU, smoke size):
       --device cpu --requests 4 --prompt-len 16 --gen 8 --virtual-ep 4 --slots 3 \
       --paged
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b --smoke \
-      --device cpu --moe-impl esp --virtual-ep 1
+      --device cpu --moe-impl esp
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
       --arch dbrx-132b --smoke --device cpu --mesh 2x2 --slots 3 --alpha 0.1
 """
@@ -32,6 +32,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs import get_config, smoke as smoke_cfg
+from repro_torch.core.topology import MeshTopology
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.parallel.ctx import ParallelCtx
@@ -47,7 +48,18 @@ def parse_use_kernels(value: str) -> str | bool:
     return {"on": True, "off": False}.get(value, "auto")
 
 
-def main(argv=None):
+def mesh_plan(m: int):
+    """The planning parameters of a model axis of ``m`` ranks, as the
+    reference CLI sets them: capacity factor 4.0 and the ER-Mapping hop
+    distance between model ranks on ``MeshTopology(rows, m // rows)``, with
+    rows = sqrt(m) when m is a square, else 1."""
+    r = int(m**0.5)
+    rows = r if r * r == m else 1
+    topo = MeshTopology(rows, m // rows)
+    return 4.0, lambda a, b: topo.hops(topo.coord(a), topo.coord(b))
+
+
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
@@ -63,11 +75,13 @@ def main(argv=None):
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--max-seq", type=int, default=256)
     ap.add_argument("--slots", type=int, default=2)
-    ap.add_argument("--virtual-ep", type=int, default=4)
+    ap.add_argument("--virtual-ep", type=int, default=None,
+                    help="logical EP devices of the balancer (default: none; "
+                    "without a mesh the model then serves moe_impl 'auto')")
     ap.add_argument("--alpha", type=float, default=0.5)
     ap.add_argument("--moe-impl", default="auto", choices=("auto", "dense", "ep", "esp"),
-                    help="MoE path; esp serves the experts' own weights, so "
-                    "pair it with --virtual-ep 1")
+                    help="MoE path; esp serves the experts' own weights "
+                    "(no --virtual-ep)")
     ap.add_argument("--paged", action="store_true",
                     help="paged KV cache: shared page pool + per-request block "
                     "tables (default: one dense cache per layer)")
@@ -80,8 +94,20 @@ def main(argv=None):
     ap.add_argument("--mesh", default=None,
                     help="DxM: serve under a data x model mesh of ranks "
                     "(torchrun for more than one; the dense cache only)")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
+
+def serve_config(args: argparse.Namespace) -> ServeConfig:
+    return ServeConfig(
+        max_seq=args.max_seq, batch=args.requests, slots_per_device=args.slots,
+        alpha=args.alpha, paged=args.paged, page_size=args.page_size,
+        pool_pages=args.pool_pages, virtual_ep=args.virtual_ep,
+        ep_chunks=args.ep_chunks,
+    )
+
+
+def main(argv=None):
+    args = parse_args(argv)
     device = resolve_device(args.device)
     mesh = None
     if args.mesh:
@@ -100,16 +126,14 @@ def main(argv=None):
         cfg = smoke_cfg(cfg)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
-    ctx = ParallelCtx(mesh=mesh, moe_impl=args.moe_impl, capacity_factor=2.0,
+    capacity_factor, distance = 2.0, None
+    if mesh is not None:
+        capacity_factor, distance = mesh_plan(model)
+    ctx = ParallelCtx(mesh=mesh, moe_impl=args.moe_impl, capacity_factor=capacity_factor,
                       use_kernels=parse_use_kernels(args.use_kernels))
     params = T.init_params(cfg, seed=args.seed, dtype=DTYPES[args.dtype], device=device)
-    scfg = ServeConfig(
-        max_seq=args.max_seq, batch=args.requests, slots_per_device=args.slots,
-        alpha=args.alpha, paged=args.paged, page_size=args.page_size,
-        pool_pages=args.pool_pages, virtual_ep=args.virtual_ep,
-        ep_chunks=args.ep_chunks,
-    )
-    server = Server(cfg, ctx, params, scfg, device=device)
+    server = Server(cfg, ctx, params, serve_config(args), device=device,
+                    distance=distance)
     stream = request_stream(cfg.vocab_size, args.requests, args.prompt_len, args.seed)
     for i, prompt in zip(range(args.batches), stream):
         t0 = time.perf_counter()

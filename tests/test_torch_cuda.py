@@ -131,6 +131,25 @@ def test_cuda_flash_attention_matches_plain(cuda_device, dtype, tol, hd, window,
            fa_ref.mha(q, k, v, causal=causal, window=window), tol)
 
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("s,t,causal,window", [
+    (40, 72, True, 16),       # S < T, a window
+    (40, 72, False, 0),       # bidirectional
+    (200, 200, True, 0),      # S not a multiple of the query tile of 64
+    (130, 300, True, 64),     # three query tiles at the tail of the keys, a window
+])
+def test_cuda_flash_attention_bf16_wgmma(cuda_device, hd, s, t, causal, window):
+    """The bf16 wgmma body over query-tile and key-tile edges."""
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    dt = torch.bfloat16
+    q = _rand(gen, cuda_device, dt, 2, s, 6, hd)
+    k = _rand(gen, cuda_device, dt, 2, t, 2, hd)
+    v = _rand(gen, cuda_device, dt, 2, t, 2, hd)
+    _check(flash_attention(q, k, v, causal=causal, window=window),
+           fa_ref.mha(q, k, v, causal=causal, window=window), PLAIN[dt])
+
 def _flat_layout(dev, counts, gap, cap):
     """Bucket segments with ``gap`` rows of dropped copies between them:
     offsets, the flat row count and the live-row mask."""
@@ -425,3 +444,82 @@ def test_cuda_mesh_of_four_cards_matches_one_process(cuda_device, tmp_path, shap
         assert torch.equal(got["tokens"], want), rank
         assert got["migrations"] == ref.migrations
         assert got["partials"] == cfg.n_layers * 12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["padded", "every_row", "gather", "scatter"])
+@pytest.mark.parametrize("d,f,c", [
+    (200, 96, 24),    # a K tail (D % 64 != 0), an F tail below one tile, C < 128
+    (200, 96, 130),   # C past one row tile
+    (64, 320, 130),   # a partial last column tile
+])
+def test_cuda_gmm_bf16_prefill_wgmma(cuda_device, layout, d, f, c):
+    """The bf16 prefill (wgmma) body in each row layout, against the plain
+    version and the fp32 product of the same inputs: dead and gap rows NaN,
+    two groups per weight where the layout has counts, and a NaN-filled
+    scatter output whose rows outside the live segments stay NaN."""
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    dt, tol = torch.bfloat16, PLAIN[torch.bfloat16]
+    g = 6
+    counts = [0, c, 5, c - 1, 1, min(c, 3)]
+    gpw = 1 if layout == "every_row" else 2
+    wg = _rand(gen, cuda_device, dt, g // gpw, d, f, scale=0.1)
+    wu = _rand(gen, cuda_device, dt, g // gpw, d, f, scale=0.1)
+    gs = torch.tensor(counts, dtype=torch.int32, device=cuda_device)
+    if layout == "every_row":
+        x = _rand(gen, cuda_device, dt, g, c, d)
+        got = [gmm_dual_act(x, wg, wu), gmm(x, wg)]
+        want = [gmm_ref.gmm_dual_act(x, wg, wu), gmm_ref.gmm(x, wg)]
+        want32 = [gmm_ref.gmm_dual_act(x.float(), wg.float(), wu.float()),
+                  gmm_ref.gmm(x.float(), wg.float())]
+    elif layout == "padded" or layout == "scatter":
+        x = _rand(gen, cuda_device, dt, g, c, d)
+        dead = torch.arange(c, device=cuda_device)[None, :] >= gs[:, None]
+        x[dead] = float("nan")
+        if layout == "padded":
+            got = [gmm_dual_act_ragged(x, wg, wu, gs, gpw), gmm_ragged(x, wg, gs, gpw)]
+            want = [gmm_ref.gmm_dual_act_ragged(x, wg, wu, gs, gpw),
+                    gmm_ref.gmm_ragged(x, wg, gs, gpw)]
+            want32 = [gmm_ref.gmm_dual_act_ragged(x.float(), wg.float(), wu.float(), gs, gpw),
+                      gmm_ref.gmm_ragged(x.float(), wg.float(), gs, gpw)]
+            for y in got:
+                assert (y[dead] == 0).all()
+        else:
+            offsets, r, live = _flat_layout(cuda_device, counts, 3, c)
+            y = gmm_scatter(x, wg, offsets, gs, r, gpw,
+                            out=torch.full((r, f), float("nan"), dtype=dt, device=cuda_device))
+            torch.cuda.synchronize()
+            assert torch.isnan(y[~live]).all()
+            got = [y[live]]
+            want = [gmm_ref.gmm_scatter(x, wg, offsets, gs, r, gpw)[live]]
+            want32 = [gmm_ref.gmm_scatter(x.float(), wg.float(), offsets, gs, r, gpw)[live]]
+    else:
+        offsets, r, live = _flat_layout(cuda_device, counts, 3, c)
+        x = _rand(gen, cuda_device, dt, r, d)
+        x[~live] = float("nan")
+        got = [gmm_dual_act_gather(x, wg, wu, offsets, gs, c, gpw),
+               gmm_gather(x, wg, offsets, gs, c, gpw)]
+        want = [gmm_ref.gmm_dual_act_gather(x, wg, wu, offsets, gs, c, gpw),
+                gmm_ref.gmm_gather(x, wg, offsets, gs, c, gpw)]
+        want32 = [gmm_ref.gmm_dual_act_gather(x.float(), wg.float(), wu.float(), offsets, gs,
+                                              c, gpw),
+                  gmm_ref.gmm_gather(x.float(), wg.float(), offsets, gs, c, gpw)]
+    for y, w, w32 in zip(got, want, want32):
+        _check(y, w, tol)
+        _check(y, w32, ROUNDING)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dual", [True, False])
+def test_cuda_gmm_bf16_prefill_gather_no_rows(cuda_device, dual):
+    """A flat input of no rows at a prefill capacity: every group is empty,
+    the padded output all zeros (no load is issued)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(14)
+    dt, g, d, f, cap = torch.bfloat16, 4, 64, 96, 24
+    x = torch.empty((0, d), dtype=dt, device=cuda_device)
+    w = _rand(gen, cuda_device, dt, g, d, f, scale=0.1)
+    zeros = torch.zeros(g, dtype=torch.int32, device=cuda_device)
+    y = (gmm_dual_act_gather(x, w, w, zeros, zeros, cap) if dual
+         else gmm_gather(x, w, zeros, zeros, cap))
+    torch.cuda.synchronize()
+    assert y.shape == (g, cap, f) and (y == 0).all()
