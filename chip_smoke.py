@@ -8,7 +8,9 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases (one line each; any failure raises and the exit code is non-zero):
 
 1. the card's name and power limit (``nvidia-smi``); build the CUDA kernels
-   from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel);
+   from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel),
+   with ptxas's registers and spills of each, and the decode gates'
+   shared-memory count held against the kernels';
 2. small fp32 models served on the card with the kernels and with the
    plain path: the greedy tokens must agree. One serves EP with the
    balancer on the paged cache, the other ESP on the dense cache with its
@@ -58,7 +60,8 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    the fp32 limit, a slice with no valid key, and the merge of four slices
    against the normalised kernel; deliberate faults (a dropped K tile, a
    dropped live row, offsets one row off, a dropped key, an invalid key
-   read) must fail the bf16 limit. The op layer's kernels likewise:
+   read; for both decode kernels the first key of the second 64-key chunk
+   and one whole chunk dropped) must fail the bf16 limit. The op layer's kernels likewise:
    ``gmm_dual_act`` and ``gmm`` with every row live at the EP path's
    bucket shapes (a dropped K tile, a dropped last row), ``gmm_gather`` at
    the mesh path's layouts (NaN gap rows; a dropped K tile, a dropped live
@@ -66,7 +69,9 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    shapes (a request of length 0, NaN dead pages, 4 slices merged; a
    dropped key, a dead page read). Then each kernel is timed beside its
    plain version and a PyTorch library call the port never makes, with its
-   roofline bound;
+   roofline bound; the four decode attention modes (split-KV bodies) also
+   by their device time under ``torch.profiler`` beside SDPA's, with the
+   GB/s of their live bytes and the times of the bodies they replaced;
 6. a ``{"kernels": [...]}`` line (thirteen entries, each partials mode
    apart), the card line, and the final ``{"ok": true, "device": {...}}``
    line.
@@ -95,12 +100,18 @@ PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # dense tensor-core bf16 / f
 # K columns a GMM fault drops: half of the bf16 prefill body's K stage of 64
 # (csrc/gmm_ragged.cu WG_BK), a smaller fault than a whole stage dropped
 GMM_BK = 32
-# Recorded times of the bf16 bodies the wgmma bodies replaced (the WMMA GMM,
-# the CUDA-core flash attention): constants copied from PERF.md section 6,
-# three earlier runs on an NVIDIA H100 80GB HBM3 at 700.00 W, not measured
-# by this script. They are logged beside this run's times and go into no
-# JSON line.
+# Recorded times of the bodies that redesigned ones replaced, constants
+# copied from PERF.md section 6 (NVIDIA H100 80GB HBM3, 700.00 W), not
+# measured by this script: the bf16 bodies the wgmma bodies replaced (the
+# WMMA GMM, the CUDA-core flash attention), three runs each; the decode
+# attention bodies the split-KV bodies replaced (one block per KV head and
+# request), the fastest and the slowest of six runs. They are logged beside
+# this run's times and go into no JSON line.
 REPLACED_MS = {
+    "flash_decode_paged": (0.1795, 0.1876),
+    "flash_decode_paged partials": (0.1933, 0.2331),
+    "flash_decode": (0.1835, 0.1855),
+    "flash_decode partials": (0.1821, 0.1845),
     "flash_attention": (1.4195, 1.4173, 1.4285),
     "gmm_dual_act_ragged prefill": (12.884, 12.965, 12.786),
     "gmm_ragged prefill": (7.053, 7.145, 7.773),
@@ -145,6 +156,46 @@ class Timer:
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps: int = 20) -> float:
+    """Device milliseconds per call of ``fn``: the time of every kernel,
+    copy and fill it ran on the card over ``reps`` calls under
+    ``torch.profiler`` (CUDA activity only), without the host's time to
+    make the calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):   # a profile may hold no device activity at all: measure again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages())
+        if total > 0:
+            return total / reps / 1e3
+    raise AssertionError("torch.profiler recorded no device activity in three profiles")
+
+
+def split_kernel_ptxas(report: dict) -> list[str]:
+    """Registers and spill bytes of each split-KV decode kernel, from
+    nvcc's ``-Xptxas -v`` report: "<library> <dtype> G<=<n> <mode>: ..."."""
+    out = []
+    for name in ("flash_decode", "flash_decode_paged"):
+        what, spill = None, ""
+        for line in report[name]["ptxas"].splitlines():
+            m = re.search(r"split_kernelI(13__nv_bfloat16|f)Li(\d+)ELb([01])E", line)
+            if "Compiling entry function" in line:
+                what = (f"{name} {'bf16' if m.group(1) != 'f' else 'fp32'} G<={m.group(2)} "
+                        f"{'partials' if m.group(3) == '1' else 'normalised'}") if m else None
+            elif what and "spill" in line:
+                spill = "/".join(re.findall(r"(\d+) bytes spill", line))
+            elif what and "registers" in line:
+                regs = re.search(r"Used (\d+) registers", line).group(1)
+                out.append(f"{what}: {regs} registers, spills {spill or '0/0'}")
+                what = None
+    return out
 
 
 def bound(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
@@ -417,9 +468,18 @@ def decode_cell(torch, dtype, timer, time_it: bool):
     cell = held(torch, K.flash_decode_paged(q, pool_k, pool_v, tables, lengths), want,
                 tol, f"flash_decode_paged {dtype}")
     if dt == torch.bfloat16:
+        # the split kernel's chunk edges, built on the gathered pages
+        k_all, v_all = R.gather_pages(pool_k, tables), R.gather_pages(pool_v, tables)
+        live = torch.arange(NB * bs, device="cuda")[None, :] < lengths[:, None]
+        one, chunk = live.clone(), live.clone()
+        one[:, K.CHUNK] = False
+        chunk[:, K.CHUNK:2 * K.CHUNK] = False
         cell["faults"] = caught(tol, {
             "last live key dropped":
                 (lambda: R.paged_decode(q, pool_k, pool_v, tables, lengths - 1), want),
+            "first key of the second chunk dropped":
+                (lambda: R.decode(q, k_all, v_all, one), want),
+            "one whole chunk dropped": (lambda: R.decode(q, k_all, v_all, chunk), want),
         }, f"flash_decode_paged {dtype}")
     if time_it:
         isz = q.element_size()
@@ -432,12 +492,18 @@ def decode_cell(torch, dtype, timer, time_it: bool):
         vd = torch.nan_to_num(R.gather_pages(pool_v, tables)).transpose(1, 2).contiguous()
         mask = (torch.arange(T, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
         q4 = q[:, :, None, :]
+        def kernel():
+            return K.flash_decode_paged(q, pool_k, pool_v, tables, lengths)
+
+        def library():
+            return Fn.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask, enable_gqa=True)
+
         cell.update(
-            ms=timer(lambda: K.flash_decode_paged(q, pool_k, pool_v, tables, lengths), 50),
+            ms=timer(kernel, 50),
             plain_ms=timer(lambda: R.paged_decode(q, pool_k, pool_v, tables, lengths), 20),
-            library_ms=timer(lambda: Fn.scaled_dot_product_attention(
-                q4, kd, vd, attn_mask=mask, enable_gqa=True), 50),
-            bound_ms=b_ms, bound_by=b_by,
+            library_ms=timer(library, 50),
+            device_ms=device_ms(torch, kernel), library_device_ms=device_ms(torch, library),
+            live_bytes=nbytes, bound_ms=b_ms, bound_by=b_by,
             shape=f"B={B} H={H} K={KV} hd={hd} bs={bs} NB={NB} sum(len)={live}",
         )
     return cell
@@ -719,6 +785,7 @@ def dense_decode_cell(torch, dtype, timer, time_it: bool):
 
     from repro_torch.kernels.flash_decode import flash_decode as K
     from repro_torch.kernels.flash_decode import ref as R
+    from repro_torch.kernels.flash_decode.paged import CHUNK
     from repro_torch.kernels.tolerance import PLAIN
 
     dt = getattr(torch, dtype)
@@ -739,9 +806,14 @@ def dense_decode_cell(torch, dtype, timer, time_it: bool):
         dropped, extra = valid.clone(), valid.clone()
         dropped[0, 100] = 0
         extra[0, int(lengths[0])] = 1
+        one, chunk = valid.bool(), valid.bool()   # the split kernel's chunk edges
+        one[:, CHUNK] = False
+        chunk[:, CHUNK:2 * CHUNK] = False
         cell["faults"] = caught(tol, {
             "one valid key dropped": (lambda: R.decode(q, k, v, dropped.bool()), want),
             "one invalid key read": (lambda: R.decode(q, k0, v0, extra.bool()), want),
+            "first key of the second chunk dropped": (lambda: R.decode(q, k, v, one), want),
+            "one whole chunk dropped": (lambda: R.decode(q, k, v, chunk), want),
         }, f"flash_decode {dtype}")
     if time_it:
         isz = q.element_size()
@@ -752,12 +824,18 @@ def dense_decode_cell(torch, dtype, timer, time_it: bool):
         kd, vd = kz.transpose(1, 2).contiguous(), vz.transpose(1, 2).contiguous()
         mask = valid.bool()[:, None, None, :]
         q4 = q[:, :, None, :]
+        def kernel():
+            return K.flash_decode(q, kz, vz, valid)
+
+        def library():
+            return Fn.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask, enable_gqa=True)
+
         cell.update(
-            ms=timer(lambda: K.flash_decode(q, kz, vz, valid), 50),
+            ms=timer(kernel, 50),
             plain_ms=timer(lambda: R.decode(q, kz, vz, valid.bool()), 20),
-            library_ms=timer(lambda: Fn.scaled_dot_product_attention(
-                q4, kd, vd, attn_mask=mask, enable_gqa=True), 50),
-            bound_ms=b_ms, bound_by=b_by,
+            library_ms=timer(library, 50),
+            device_ms=device_ms(torch, kernel), library_device_ms=device_ms(torch, library),
+            live_bytes=nbytes, bound_ms=b_ms, bound_by=b_by,
             shape=f"B={B} H={H} K={KV} hd={hd} T={T} sum(valid)={live}",
         )
     return cell
@@ -837,12 +915,19 @@ def partials_cell(torch, dtype, timer, time_it: bool):
         kd, vd = k0.transpose(1, 2).contiguous(), v0.transpose(1, 2).contiguous()
         mask = valid.bool()[:, None, None, :]
         q4 = q[:, :, None, :]
+        def kernel():
+            return K.flash_decode_partials(q, k0, v0, valid)
+
+        def library():
+            return Fn.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask, enable_gqa=True)
+
         cell.update(
-            ms=timer(lambda: K.flash_decode_partials(q, k0, v0, valid), 50),
+            ms=timer(kernel, 50),
             plain_ms=timer(lambda: R.decode_partials(q, k0, v0, valid.bool()), 20),
             normalised_ms=timer(lambda: K.flash_decode(q, k0, v0, valid), 50),
-            library_ms=timer(lambda: Fn.scaled_dot_product_attention(
-                q4, kd, vd, attn_mask=mask, enable_gqa=True), 50),
+            library_ms=timer(library, 50),
+            device_ms=device_ms(torch, kernel), library_device_ms=device_ms(torch, library),
+            live_bytes=nbytes,
             library_note="SDPA's normalised output at the same shape: no PyTorch call "
                          "returns the (m, l) partials",
             bound_ms=b_ms, bound_by=b_by,
@@ -925,12 +1010,19 @@ def paged_partials_cell(torch, dtype, timer, time_it: bool):
         vd = R.gather_pages(pv0, tables).transpose(1, 2).contiguous()
         mask = (torch.arange(T, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
         q4 = q[:, :, None, :]
+        def kernel():
+            return K.flash_decode_paged_partials(q, pk, pv, tables, lengths)
+
+        def library():
+            return Fn.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask, enable_gqa=True)
+
         cell.update(
-            ms=timer(lambda: K.flash_decode_paged_partials(q, pk, pv, tables, lengths), 50),
+            ms=timer(kernel, 50),
             plain_ms=timer(lambda: R.paged_decode_partials(q, pk, pv, tables, lengths), 20),
             normalised_ms=timer(lambda: K.flash_decode_paged(q, pk, pv, tables, lengths), 50),
-            library_ms=timer(lambda: Fn.scaled_dot_product_attention(
-                q4, kd, vd, attn_mask=mask, enable_gqa=True), 50),
+            library_ms=timer(library, 50),
+            device_ms=device_ms(torch, kernel), library_device_ms=device_ms(torch, library),
+            live_bytes=nbytes,
             library_note="SDPA's normalised output over the gathered pages: no PyTorch "
                          "call returns the (m, l) partials",
             bound_ms=b_ms, bound_by=b_by,
@@ -1565,6 +1657,24 @@ def main(argv=None) -> int:
     log(f"  dynamic shared memory per block at launch: gmm_wgmma_kernel {gmm_smem()} B; "
         "flash_attention_wgmma_kernel "
         + ", ".join(f"{fa_smem(hd)} B (hd {hd})" for hd in (32, 64, 128)))
+    log("  split-KV decode kernels (registers, spill bytes stored/loaded): "
+        + "; ".join(split_kernel_ptxas(report)))
+    # the decode gates count the split block's shared memory as the kernel does
+    from repro_torch.kernels.flash_decode.paged import smem_bytes as decode_smem
+
+    for name in ("flash_decode", "flash_decode_paged"):
+        fn = getattr(build.load(name), f"{name}_smem_bytes")
+        fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_int] * 3
+        for g, hd in ((6, 128), (16, 256), (1, 32)):
+            for dt, code in ((torch.bfloat16, 1), (torch.float32, 0)):
+                if fn(g, hd, code) != decode_smem(g, hd, dt):
+                    raise AssertionError(f"{name}: the gate counts {decode_smem(g, hd, dt)} B "
+                                         f"of shared memory at G {g} hd {hd} {dt}, the "
+                                         f"kernel takes {fn(g, hd, code)} B")
+    log(f"  split-KV decode block at the served shape (G 6, hd 128): "
+        f"{decode_smem(6, 128, torch.bfloat16)} B (bf16), "
+        f"{decode_smem(6, 128, torch.float32)} B (fp32) of dynamic shared memory, "
+        "as the gates count it")
 
     migs = small_parity(torch)
     log(f"small fp32 model on the card: kernel and plain greedy tokens agree "
@@ -1701,6 +1811,15 @@ def main(argv=None) -> int:
         f"{c['plain_ms']:.4f} ms, normalised kernel {c['normalised_ms']:.4f} ms, sdpa "
         f"(normalised) {c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
         f"({c['bound_by']}) [{card}]")
+    for what, c in (("flash_decode_paged", bf["decode"]),
+                    ("flash_decode_paged partials", bf["paged_partials"]),
+                    ("flash_decode", bf["dense_decode"]),
+                    ("flash_decode partials", bf["partials"])):
+        log(f"split-KV {what}: {c['live_bytes'] / c['ms'] / 1e6:.1f} GB/s of live K/V, q and "
+            f"outputs over the timed call ({c['ms']:.4f} ms), "
+            f"{c['live_bytes'] / c['device_ms'] / 1e6:.1f} GB/s over its device time "
+            f"({c['device_ms']:.4f} ms; sdpa's device time {c['library_device_ms']:.4f} ms; "
+            f"bound {c['bound_ms']:.4f} ms at 3350 GB/s) [{card}]")
     for path, key, names in (("ESP", "esp_gmm", ("gmm_dual_act_gather", "gmm_scatter")),
                              ("mesh", "mesh_gmm",
                               ("gmm_dual_act_gather", "gmm_scatter", "gmm_gather"))):
@@ -1724,7 +1843,11 @@ def main(argv=None) -> int:
                   ("ESP", "esp_gmm", ("gmm_dual_act_gather", "gmm_scatter")),
                   ("mesh", "mesh_gmm", ("gmm_dual_act_gather", "gmm_scatter", "gmm_gather")))
               for n in names},
-           **{f"{n} prefill": bf["padded"]["prefill"][n]["ms"] for n in ("gmm_dual_act", "gmm")}}
+           **{f"{n} prefill": bf["padded"]["prefill"][n]["ms"] for n in ("gmm_dual_act", "gmm")},
+           "flash_decode_paged": bf["decode"]["ms"],
+           "flash_decode_paged partials": bf["paged_partials"]["ms"],
+           "flash_decode": bf["dense_decode"]["ms"],
+           "flash_decode partials": bf["partials"]["ms"]}
     for what, ms in now.items():
         log(f"redesigned {what}: {ms:.4f} ms in this run [{card}]; replaced body as "
             "recorded in PERF.md (not measured here): "
@@ -1840,6 +1963,8 @@ def main(argv=None) -> int:
             err, ex, err32, ex32 = (c["max_abs_err"], c["excess"], c32["max_abs_err"],
                                     c32["excess"])
             extra = {"faults": c["faults"]}
+        if "device_ms" in c:
+            extra.update({k: c[k] for k in ("device_ms", "library_device_ms", "live_bytes")})
         if name in op_names:
             extra["launches_served_paths"] = {
                 "EP": launches[name], "ESP": esp_launches[name], "mesh": mesh_launches[name]}

@@ -6,11 +6,18 @@ modes: the normalised output, and with ``return_partials`` the fp32
 decode under a mesh merges across ranks
 (``parallel.collectives.seq_parallel_decode_attend``).
 
+The kernel splits the cache's T slots into chunks of ``paged.CHUNK`` keys;
+the last live split block of each (request, KV head) to finish merges
+the splits in the same launch (``csrc/decode_split.cuh``). The split count
+comes from the static shape T only (``paged.split_count``): the wrapper
+never reads ``valid`` on the host. It allocates the fp32 split scratch
+with ``torch.empty`` and shares the paged wrapper's arrival counters.
+
 On a CUDA tensor it launches the kernel (or raises on what the kernel does
 not take); on a CPU tensor it runs :func:`ref.decode` or
-:func:`ref.decode_partials`. ``flash_decode.launches`` counts launches of
-the normalised mode, ``flash_decode_partials.launches`` those of the
-partials mode.
+:func:`ref.decode_partials`. ``flash_decode.launches`` counts calls of the
+normalised mode, ``flash_decode_partials.launches`` those of the partials
+mode: one per call.
 
 Masked keys get p = 0 and their K/V rows are never read. A request with no
 valid key at all gets a zero output (so does the plain version: its
@@ -28,20 +35,21 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_decode import ref
-from repro_torch.kernels.flash_decode.paged import DTYPES, MAX_GROUP, SMEM_LIMIT
-
-TILE = 128   # keys per tile (csrc/flash_decode.cu TB)
+from repro_torch.kernels.flash_decode.paged import (
+    DTYPES,
+    aligned,
+    shape_ok,
+    split_buffers,
+    stream,
+)
 
 
 def can_flash_decode(t: int, nh: int, nkv: int, hd: int, dtype: torch.dtype) -> bool:
-    """Hopper gate: GQA group of at most 16 heads, head dim a multiple of a
-    warp up to 256, the block's fp32 panels within 48 KB of shared memory.
-    Any cache length ``t``: the key loop is bounds-checked."""
-    if dtype not in DTYPES or nkv <= 0 or nh % nkv or t <= 0:
-        return False
-    g = nh // nkv
-    smem = 4 * (2 * g * hd + g * TILE + 3 * g + TILE)
-    return g <= MAX_GROUP and hd % 32 == 0 and hd <= 256 and smem <= SMEM_LIMIT
+    """Hopper gate: a GQA group of at most 16 heads, a head dim that is a
+    multiple of 32 up to 256, and the split block's shared memory
+    (``paged.smem_bytes``) within a block's 227 KB. Any cache length ``t``:
+    a chunk's slots past T are never read."""
+    return t > 0 and shape_ok(nh, nkv, hd, dtype)
 
 
 def _check(q, k, v, valid, name: str) -> None:
@@ -64,6 +72,31 @@ def _check(q, k, v, valid, name: str) -> None:
     for x in (q, k, v, valid):
         if not x.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
+    if not aligned(q, k, v):
+        raise ValueError(f"{name}: q, k and v must start on 16 bytes")
+
+
+def _plan(q, k, v, valid, *, partials: bool, name: str):
+    """Check the inputs, allocate the outputs and the scratch: (outputs,
+    scratch, counters, the launch's int arguments). Reads shapes, never
+    values."""
+    _check(q, k, v, valid, name)
+    b, nh, hd = q.shape
+    t, nkv = k.shape[1], k.shape[2]
+    outs, scratch, arrived, s = split_buffers(q, nkv, t, partials)
+    return outs, scratch, arrived, (b, nh, nkv, hd, t, s, DTYPES[q.dtype])
+
+
+def _launch(fn_name: str, q, k, v, valid, *, partials: bool):
+    outs, scratch, arrived, ints = _plan(q, k, v, valid, partials=partials, name=fn_name)
+    fn = build.entry("flash_decode", f"{fn_name}_launch", 6 + len(outs), len(ints))
+    rc = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+        *(o.data_ptr() for o in outs), scratch.data_ptr(), arrived.data_ptr(), *ints,
+        stream(q),
+    )
+    build.check(rc, fn_name)
+    return outs
 
 
 def flash_decode(q, k, v, valid, *, return_partials: bool = False):
@@ -75,17 +108,7 @@ def flash_decode(q, k, v, valid, *, return_partials: bool = False):
         return flash_decode_partials(q, k, v, valid)
     if not q.is_cuda:
         return ref.decode(q, k, v, valid.bool())
-    _check(q, k, v, valid, "flash_decode")
-    b, nh, hd = q.shape
-    t, nkv = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
-    fn = build.entry("flash_decode", "flash_decode_launch", 5, 6)
-    rc = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(), out.data_ptr(),
-        b, nh, nkv, hd, t, DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    build.check(rc, "flash_decode")
+    (out,) = _launch("flash_decode", q, k, v, valid, partials=False)
     flash_decode.launches += 1
     return out
 
@@ -98,20 +121,7 @@ def flash_decode_partials(q, k, v, valid):
     normalised (same inputs and gate as :func:`flash_decode`)."""
     if not q.is_cuda:
         return ref.decode_partials(q, k, v, valid.bool())
-    _check(q, k, v, valid, "flash_decode_partials")
-    b, nh, hd = q.shape
-    t, nkv = k.shape[1], k.shape[2]
-    acc = torch.empty((b, nh, hd), dtype=torch.float32, device=q.device)
-    m = torch.empty((b, nh), dtype=torch.float32, device=q.device)
-    l = torch.empty((b, nh), dtype=torch.float32, device=q.device)
-    fn = build.entry("flash_decode", "flash_decode_partials_launch", 7, 6)
-    rc = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-        acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-        b, nh, nkv, hd, t, DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    build.check(rc, "flash_decode_partials")
+    acc, m, l = _launch("flash_decode_partials", q, k, v, valid, partials=True)
     flash_decode_partials.launches += 1
     return acc, m, l
 

@@ -5,15 +5,26 @@ modes: the normalised output, and with ``return_partials`` the fp32
 ``(acc, m, l)`` partials over the request's pages, which merge exactly
 over disjoint page ranges (``ref.merge_partials_local``).
 
+The kernel splits each request's keys into chunks of :data:`CHUNK`; the
+last live split block of each (request, KV head) to finish merges the
+splits in the same launch (``csrc/decode_split.cuh``). The split count comes from
+static shapes only (:func:`split_count` of ``NB * bs``): the wrapper never
+reads ``lengths`` or the tables on the host. It allocates the fp32 split
+scratch with ``torch.empty`` and keeps the zeroed arrival counters
+(:func:`arrival_counters`) across calls; launches on one stream run in
+order, and each leaves the counters zero.
+
 On a CUDA tensor it launches the kernel (or raises on what the kernel does
 not take); on a CPU tensor it runs :func:`ref.paged_decode` or
 :func:`ref.paged_decode_partials`. ``flash_decode_paged.launches`` counts
-launches of the normalised mode, ``flash_decode_paged_partials.launches``
-those of the partials mode. A request of length 0 gives ``m = -1e30``,
-``l = 0``, ``acc = 0`` (as the dense partials).
+calls of the normalised mode, ``flash_decode_paged_partials.launches``
+those of the partials mode: one per call. A request of length 0 gives
+``m = -1e30``, ``l = 0``, ``acc = 0`` (as the dense partials).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -22,19 +33,52 @@ from repro_torch.kernels.flash_decode import ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GROUP = 16          # query heads per KV head held in one block
-SMEM_LIMIT = 48 * 1024  # static launch limit, no opt-in attribute
+MAX_HEAD_DIM = 256      # a multiple of 32 (csrc/decode_split.cuh MAX_HD)
+CHUNK = 64              # keys a chunk of a split (decode_split.cuh CHUNK)
+MAX_SPLITS = 32         # beyond 32 chunks a split takes several
+SMEM_LIMIT = 232448     # a block's opt-in shared memory on Hopper
+
+
+def split_count(n_keys: int) -> int:
+    """Splits of a call over ``n_keys`` key slots a request (``T`` dense,
+    ``NB * bs`` paged): one per chunk of :data:`CHUNK` keys, at most
+    :data:`MAX_SPLITS`. A static shape: no length or mask is read."""
+    return max(1, min(-(-n_keys // CHUNK), MAX_SPLITS))
+
+
+def smem_bytes(g: int, hd: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one split block (``decode_split.cuh``
+    ``smem_bytes``): the K and V tiles of a chunk with their row padding;
+    the q panel (fp32 at the group padded to 4, 8 or 16 heads, or bf16 at
+    8 or 16 rows for the tensor cores); the fp32 scores; p in bf16 (tensor
+    cores); the softmax state; each key's row offset and liveness, and the
+    request's live-split mask."""
+    ng = 4 if g <= 4 else 8 if g <= 8 else 16
+    tail = 4 * CHUNK * ng + 4 * 3 * MAX_GROUP + 12 * CHUNK + 16
+    if dtype == torch.float32:
+        return 2 * CHUNK * (hd * 4 + 32) + 4 * ng * hd + tail
+    nh = 8 if ng <= 8 else 16
+    return 2 * CHUNK * (hd * 2 + 16) + 2 * nh * (hd + 8) + 2 * nh * (CHUNK + 8) + tail
+
+
+@functools.lru_cache(maxsize=None)
+def shape_ok(nh: int, nkv: int, hd: int, dtype: torch.dtype) -> bool:
+    """The gate both decode kernels share: dtype, group, head dim and the
+    split block's shared memory."""
+    if dtype not in DTYPES or nkv <= 0 or nh % nkv:
+        return False
+    g = nh // nkv
+    return (1 <= g <= MAX_GROUP and hd % 32 == 0 and 0 < hd <= MAX_HEAD_DIM
+            and smem_bytes(g, hd, dtype) <= SMEM_LIMIT)
 
 
 def can_flash_decode_paged(page_size: int, nh: int, nkv: int, hd: int,
                            dtype: torch.dtype) -> bool:
-    """Hopper gate: GQA group of at most 16 heads, head dim a multiple of a
-    warp (lanes split it) up to 256, and the block's fp32 panels (q, acc,
-    one page of scores) within 48 KB of shared memory."""
-    if dtype not in DTYPES or nkv <= 0 or nh % nkv:
-        return False
-    g = nh // nkv
-    smem = 4 * (2 * g * hd + g * page_size + 3 * g)
-    return g <= MAX_GROUP and hd % 32 == 0 and hd <= 256 and smem <= SMEM_LIMIT
+    """Hopper gate: a GQA group of at most 16 heads, a head dim that is a
+    multiple of 32 up to 256, and the split block's shared memory
+    (:func:`smem_bytes`, at most 156,624 bytes at those limits) within a
+    block's 227 KB. Any page size: a row's page is looked up per row."""
+    return page_size > 0 and shape_ok(nh, nkv, hd, dtype)
 
 
 def _check(q, pool_k, pool_v, block_tables, lengths, name: str) -> None:
@@ -62,11 +106,80 @@ def _check(q, pool_k, pool_v, block_tables, lengths, name: str) -> None:
     for t in (q, pool_k, pool_v, block_tables, lengths):
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
+    if not aligned(q, pool_k, pool_v):
+        raise ValueError(f"{name}: q and the pools must start on 16 bytes")
 
 
-def _dims(q, pool_k, block_tables):
+def aligned(*tensors) -> bool:
+    """Whether every tensor starts on 16 bytes (the kernels read q and K/V
+    rows in 16-byte pieces)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+# Per device, the zeroed int32 counters on which the split blocks of each
+# (request, KV head) count their arrivals; the last block resets its
+# counter, so every launch leaves them zero for the next one on the stream.
+# They live here, not with the caller, because the wrappers keep the JAX
+# package's signatures; no call sees a value another call left.
+_ARRIVED: dict = {}
+
+
+def arrival_counters(device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed counters on ``device``, kept across calls (a
+    larger set replaces them when a call needs more)."""
+    buf = _ARRIVED.get(device)
+    if buf is None or buf.numel() < n:
+        buf = _ARRIVED[device] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+    return buf
+
+
+def split_buffers(q, nkv: int, n_keys: int, partials: bool):
+    """The outputs, the fp32 split scratch (S x B x H x (hd + 2)) and the
+    arrival counters of a call over ``n_keys`` key slots a request,
+    allocated on q's device from shapes alone. Returns (outputs, scratch,
+    counters, S)."""
     b, nh, hd = q.shape
-    return b, nh, pool_k.shape[2], hd, pool_k.shape[1], block_tables.shape[1]
+    s = split_count(n_keys)
+    scratch = torch.empty(s * b * nh * (hd + 2), dtype=torch.float32, device=q.device)
+    arrived = arrival_counters(q.device, b * nkv)
+    if partials:
+        outs = (torch.empty((b, nh, hd), dtype=torch.float32, device=q.device),
+                torch.empty((b, nh), dtype=torch.float32, device=q.device),
+                torch.empty((b, nh), dtype=torch.float32, device=q.device))
+    else:
+        outs = (torch.empty_like(q),)
+    return outs, scratch, arrived, s
+
+
+def stream(q) -> int:
+    """The handle of the current CUDA stream on q's device (the raw getter:
+    ``torch.cuda.current_stream(device).cuda_stream`` costs microseconds a
+    call, as much as a decode kernel's launch)."""
+    return torch._C._cuda_getCurrentRawStream(q.get_device())
+
+
+def _plan(q, pool_k, pool_v, block_tables, lengths, *, partials: bool, name: str):
+    """Check the inputs, allocate the outputs and the scratch: (outputs,
+    scratch, counters, the launch's int arguments). Reads shapes, never
+    values."""
+    _check(q, pool_k, pool_v, block_tables, lengths, name)
+    b, nh, hd = q.shape
+    bs, nkv, nb = pool_k.shape[1], pool_k.shape[2], block_tables.shape[1]
+    outs, scratch, arrived, s = split_buffers(q, nkv, nb * bs, partials)
+    return outs, scratch, arrived, (b, nh, nkv, hd, bs, nb, s, DTYPES[q.dtype])
+
+
+def _launch(fn_name: str, q, pool_k, pool_v, block_tables, lengths, *, partials: bool):
+    outs, scratch, arrived, ints = _plan(q, pool_k, pool_v, block_tables, lengths,
+                                         partials=partials, name=fn_name)
+    fn = build.entry("flash_decode_paged", f"{fn_name}_launch", 7 + len(outs), len(ints))
+    rc = fn(
+        q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+        block_tables.data_ptr(), lengths.data_ptr(), *(o.data_ptr() for o in outs),
+        scratch.data_ptr(), arrived.data_ptr(), *ints, stream(q),
+    )
+    build.check(rc, fn_name)
+    return outs
 
 
 def flash_decode_paged(q, pool_k, pool_v, block_tables, lengths, *,
@@ -79,16 +192,8 @@ def flash_decode_paged(q, pool_k, pool_v, block_tables, lengths, *,
         return flash_decode_paged_partials(q, pool_k, pool_v, block_tables, lengths)
     if not q.is_cuda:
         return ref.paged_decode(q, pool_k, pool_v, block_tables, lengths)
-    _check(q, pool_k, pool_v, block_tables, lengths, "flash_decode_paged")
-    out = torch.empty_like(q)
-    fn = build.entry("flash_decode_paged", "flash_decode_paged_launch", 6, 7)
-    rc = fn(
-        q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        *_dims(q, pool_k, block_tables), DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    build.check(rc, "flash_decode_paged")
+    (out,) = _launch("flash_decode_paged", q, pool_k, pool_v, block_tables, lengths,
+                     partials=False)
     flash_decode_paged.launches += 1
     return out
 
@@ -102,20 +207,8 @@ def flash_decode_paged_partials(q, pool_k, pool_v, block_tables, lengths):
     :func:`flash_decode_paged`)."""
     if not q.is_cuda:
         return ref.paged_decode_partials(q, pool_k, pool_v, block_tables, lengths)
-    _check(q, pool_k, pool_v, block_tables, lengths, "flash_decode_paged_partials")
-    b, nh, hd = q.shape
-    acc = torch.empty((b, nh, hd), dtype=torch.float32, device=q.device)
-    m = torch.empty((b, nh), dtype=torch.float32, device=q.device)
-    l = torch.empty((b, nh), dtype=torch.float32, device=q.device)
-    fn = build.entry("flash_decode_paged", "flash_decode_paged_partials_launch", 8, 7)
-    rc = fn(
-        q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-        block_tables.data_ptr(), lengths.data_ptr(),
-        acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-        *_dims(q, pool_k, block_tables), DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    build.check(rc, "flash_decode_paged_partials")
+    acc, m, l = _launch("flash_decode_paged_partials", q, pool_k, pool_v, block_tables,
+                        lengths, partials=True)
     flash_decode_paged_partials.launches += 1
     return acc, m, l
 

@@ -26,8 +26,12 @@ from repro_torch.kernels.flash_attention.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import ref as fd_ref
 from repro_torch.kernels.flash_decode.flash_decode import flash_decode, flash_decode_partials
 from repro_torch.kernels.flash_decode.paged import (
+    CHUNK,
+    MAX_SPLITS,
+    can_flash_decode_paged,
     flash_decode_paged,
     flash_decode_paged_partials,
+    split_count,
 )
 from repro_torch.kernels.gmm import ops as gmm_ops
 from repro_torch.kernels.gmm import ref as gmm_ref
@@ -90,15 +94,16 @@ def test_cuda_gmm_pair_matches_plain(cuda_device, dtype, tol, c):
         _check(y, gmm_ref.gmm_ragged(x32, wg32, gs, 2), ROUNDING)
 
 
-def _paged_inputs(dev, dtype, lengths):
-    """Requests of ``lengths`` over 4 scrambled pages of 32 each (pool of
-    4B + 1 pages): q, the pools, tables and lengths, every row past a
-    request's length (dead rows of its last page and dead pages) NaN."""
-    gen = torch.Generator(device=dev).manual_seed(1)
-    b, nb, bs = len(lengths), 4, 32
-    q = _rand(gen, dev, dtype, b, 8, 64)
-    pk = _rand(gen, dev, dtype, b * nb + 1, bs, 2, 64)
-    pv = _rand(gen, dev, dtype, b * nb + 1, bs, 2, 64)
+def _paged_inputs(dev, dtype, lengths, *, g=4, kv=2, hd=64, bs=32, nb=4, seed=1):
+    """Requests of ``lengths`` over ``nb`` scrambled pages of ``bs`` each
+    (pool of nb B + 1 pages), ``g`` query heads per KV head: q, the pools,
+    tables and lengths, every row past a request's length (dead rows of
+    its last page and dead pages) NaN."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b = len(lengths)
+    q = _rand(gen, dev, dtype, b, g * kv, hd)
+    pk = _rand(gen, dev, dtype, b * nb + 1, bs, kv, hd)
+    pv = _rand(gen, dev, dtype, b * nb + 1, bs, kv, hd)
     tables = torch.randperm(b * nb + 1, generator=gen, device=dev)[: b * nb]
     tables = tables.reshape(b, nb).to(torch.int32).contiguous()
     ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
@@ -109,6 +114,127 @@ def _paged_inputs(dev, dtype, lengths):
                 pk[int(tables[i, j]), lo:] = float("nan")
                 pv[int(tables[i, j]), lo:] = float("nan")
     return q, pk, pv, tables, ln
+
+
+def _dense_inputs(dev, dtype, valid, *, g=6, kv=2, hd=64, seed=4):
+    """q and a dense cache (B, T, kv, hd) for the int32 mask ``valid``
+    (B, T), every invalid K/V row NaN."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, t = valid.shape
+    q = _rand(gen, dev, dtype, b, g * kv, hd)
+    k = _rand(gen, dev, dtype, b, t, kv, hd)
+    v = _rand(gen, dev, dtype, b, t, kv, hd)
+    k[valid == 0] = float("nan")
+    v[valid == 0] = float("nan")
+    return q, k, v, valid
+
+
+def _prefix(dev, lengths, t):
+    ln = torch.tensor(lengths, device=dev)
+    return (torch.arange(t, device=dev)[None, :] < ln[:, None]).to(torch.int32)
+
+
+# the four modes of the two decode kernels: (kernel, plain version)
+DECODE_MODES = {
+    "dense": (flash_decode, lambda q, k, v, m: fd_ref.decode(q, k, v, m.bool())),
+    "dense_partials": (flash_decode_partials,
+                       lambda q, k, v, m: fd_ref.decode_partials(q, k, v, m.bool())),
+    "paged": (flash_decode_paged, fd_ref.paged_decode),
+    "paged_partials": (flash_decode_paged_partials, fd_ref.paged_decode_partials),
+}
+
+
+def _hold_decode(mode, case, tol):
+    """``mode`` on ``case`` (dense (q, k, v, valid) or paged (q, pk, pv,
+    tables, lengths)) against its plain version: the output, or acc at the
+    run's limit and m, l at the fp32 limit, a request with no live key
+    exactly (0, -1e30, 0). Returns the kernel's output."""
+    kernel, plain = DECODE_MODES[mode]
+    got, want = kernel(*case), plain(*case)
+    if mode.endswith("partials"):
+        (acc, m, l), (acc_r, m_r, l_r) = got, want
+        assert acc.dtype == m.dtype == l.dtype == torch.float32
+        _check(acc, acc_r, tol)
+        _check(m, m_r, PLAIN[torch.float32])
+        _check(l, l_r, PLAIN[torch.float32])
+        dead = l_r == 0
+        assert (m[dead] == -1e30).all() and (l[dead] == 0).all() and (acc[dead] == 0).all()
+    else:
+        _check(got, want, tol)
+    return got
+
+
+def _decode_case(dev, dtype, mode, lengths, *, bs, nb, **kw):
+    """Paged inputs of ``lengths``, or the dense cache of nb bs slots with
+    each request's first ``lengths`` valid."""
+    if mode.startswith("paged"):
+        return _paged_inputs(dev, dtype, lengths, bs=bs, nb=nb, **kw)
+    return _dense_inputs(dev, dtype, _prefix(dev, lengths, nb * bs), **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("nb", [4, 20])     # 8 chunks, one a split; 40, two a split
+@pytest.mark.parametrize("mode", list(DECODE_MODES))
+def test_cuda_decode_split_edges(cuda_device, mode, nb, dtype, tol):
+    """Lengths at the split edges: 0, 1, a chunk - 1, a chunk, a chunk + 1,
+    two chunks + 1 (into the second split when a split takes two chunks)
+    and the full cache (every slot valid), pages of 128; NaN past every
+    length."""
+    full = nb * 128
+    lengths = [0, 1, CHUNK - 1, CHUNK, CHUNK + 1, 2 * CHUNK + 1, full]
+    assert split_count(full) == min(full // CHUNK, MAX_SPLITS)
+    _hold_decode(mode, _decode_case(cuda_device, dtype, mode, lengths, bs=128, nb=nb, g=6),
+                 tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("mode", ["dense", "dense_partials"])
+def test_cuda_dense_decode_mask_holes(cuda_device, mode, dtype, tol):
+    """Masks that are not prefixes, over a cache that is not a whole number
+    of chunks: live chunks on both sides of a fully invalid one (with holes
+    in them), a wrapped ring, one key at the start of the second chunk, a
+    scattered half, and no valid key."""
+    t = 4 * CHUNK + 17
+    valid = torch.zeros((5, t), dtype=torch.int32, device=cuda_device)
+    valid[0, :CHUNK] = 1
+    valid[0, 5] = 0
+    valid[0, 2 * CHUNK:3 * CHUNK:3] = 1
+    valid[0, t - 1] = 1
+    valid[1, t - 40:] = 1
+    valid[1, :30] = 1
+    valid[2, CHUNK] = 1
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    valid[3] = (torch.rand(t, generator=gen, device=cuda_device) < 0.5).to(torch.int32)
+    _hold_decode(mode, _dense_inputs(cuda_device, dtype, valid), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("g", [1, 6, 16])
+@pytest.mark.parametrize("mode", list(DECODE_MODES))
+def test_cuda_decode_group_and_head_dim(cuda_device, mode, g, hd, dtype, tol):
+    """Every GQA group and head dim the gates take, over pages of 64 (a
+    chunk is one page) with NaN past every length."""
+    assert can_flash_decode_paged(64, 2 * g, 2, hd, dtype)
+    case = _decode_case(cuda_device, dtype, mode, [CHUNK + 1, 2, 3 * CHUNK], bs=64, nb=4,
+                        g=g, hd=hd)
+    _hold_decode(mode, case, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(DECODE_MODES))
+def test_cuda_decode_calls_bitwise_equal(cuda_device, mode):
+    """The split merge runs in split-index order with no atomics: two calls
+    on the same inputs are bitwise equal."""
+    case = _decode_case(cuda_device, torch.bfloat16, mode, [300, 0, 129, 64], bs=128, nb=4,
+                        g=6, hd=128)
+    first, second = DECODE_MODES[mode][0](*case), DECODE_MODES[mode][0](*case)
+    torch.cuda.synchronize()
+    for a, b in zip(*(x if isinstance(x, tuple) else (x,) for x in (first, second))):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

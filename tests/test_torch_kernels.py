@@ -23,6 +23,8 @@ from repro.kernels.gmm.ref import expert_ffn_ragged_ref, gmm_ragged_ref
 from repro_torch.kernels import registry, tolerance
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+from repro_torch.kernels.flash_decode import flash_decode as fd_dense
+from repro_torch.kernels.flash_decode import paged as fd_paged
 from repro_torch.kernels.flash_decode import ref as fd_ref
 from repro_torch.kernels.flash_decode.paged import flash_decode_paged
 from repro_torch.kernels.gmm import ref as gmm_ref
@@ -165,14 +167,61 @@ def test_mha_plain_matches_jax_and_pallas(s, t, window, causal):
 
 
 def test_gates_take_every_serving_shape():
-    """The DBRX main path's shapes pass every Hopper gate (bf16 and fp32)."""
+    """The served paths' shapes pass every Hopper gate (bf16 and fp32): the
+    DBRX and Mixtral widths, 48 query heads over 8 KV heads of 128, pages
+    of 128, a dense cache of 1024 slots. The decode gates hold the split
+    block's shared memory (K and V tiles of 64 keys, the q panel and p at
+    the padded group), the group (at most 16) and the head dim (a
+    multiple of 32 up to 256). The footprint's bytes are the kernels' own
+    (``chip_smoke.py`` holds the two counts equal on the card)."""
     for dt in (torch.bfloat16, torch.float32):
         assert registry.can_gmm(6144, 10752, dt) and registry.can_gmm(10752, 6144, dt)
         assert registry.can_flash_decode_paged(128, 48, 8, 128, dt)
+        assert registry.can_flash_decode(1024, 48, 8, 128, dt)
         assert registry.can_flash_attend(256, 256, 48, 8, 128, dt)
+        # the widest group and head dim the gates take fit one block
+        assert registry.can_flash_decode_paged(32, 32, 2, 256, dt)
+        assert registry.can_flash_decode(64, 32, 2, 256, dt)
+        assert fd_paged.smem_bytes(16, 256, dt) <= fd_paged.SMEM_LIMIT
+    assert fd_paged.smem_bytes(6, 128, torch.bfloat16) == 41168
+    assert fd_paged.smem_bytes(6, 128, torch.float32) == 76752
     assert not registry.can_gmm(6144, 10752, torch.float16)
     assert not registry.can_flash_decode_paged(128, 48, 8, 100, torch.float32)
+    assert not registry.can_flash_decode_paged(128, 34, 2, 128, torch.bfloat16)   # G 17
+    assert not registry.can_flash_decode(1024, 8, 2, 288, torch.bfloat16)         # hd 288
+    assert not registry.can_flash_decode(1024, 48, 8, 128, torch.float16)
     assert not registry.can_flash_attend(256, 128, 48, 8, 128, torch.float32)
+
+
+def test_decode_split_count_from_static_shapes():
+    """The decode wrappers size their split grid and scratch from shapes
+    alone: S = ceil(slots / 64) up to 32. Their planning step runs on meta
+    tensors, which hold no values, so it reads neither the lengths, the
+    tables nor the mask."""
+    for slots, s in [(1, 1), (63, 1), (64, 1), (65, 2), (200, 4), (1024, 16),
+                     (2048, 32), (2560, 32)]:
+        assert fd_paged.split_count(slots) == s
+    meta = dict(device="meta")
+    b, h, kv, hd = 8, 48, 8, 128
+    q = torch.empty((b, h, hd), dtype=torch.bfloat16, **meta)
+    for t, s in [(1024, 16), (200, 4)]:
+        k = torch.empty((b, t, kv, hd), dtype=torch.bfloat16, **meta)
+        valid = torch.empty((b, t), dtype=torch.int32, **meta)
+        for partials in (False, True):
+            outs, scratch, arrived, ints = fd_dense._plan(q, k, k, valid, partials=partials,
+                                                          name="flash_decode")
+            assert ints == (b, h, kv, hd, t, s, 1)
+            assert scratch.numel() == s * b * h * (hd + 2) and arrived.numel() >= b * kv
+            want = [(b, h, hd), (b, h), (b, h)] if partials else [(b, h, hd)]
+            assert [tuple(o.shape) for o in outs] == want
+    for bs, nb, s in [(128, 8, 16), (32, 4, 2)]:
+        pool = torch.empty((b * nb + 1, bs, kv, hd), dtype=torch.bfloat16, **meta)
+        tables = torch.empty((b, nb), dtype=torch.int32, **meta)
+        lengths = torch.empty((b,), dtype=torch.int32, **meta)
+        outs, scratch, _, ints = fd_paged._plan(q, pool, pool, tables, lengths,
+                                                partials=True, name="flash_decode_paged")
+        assert ints == (b, h, kv, hd, bs, nb, s, 1)
+        assert scratch.numel() == s * b * h * (hd + 2)
 
 
 def test_tolerance_is_elementwise_and_exact_on_dead_rows():

@@ -15,10 +15,12 @@ import torch.distributed as dist
 
 from repro.kernels.flash_decode.flash_decode import flash_decode as pallas_decode
 from repro.kernels.flash_decode.flash_decode import merge_partials as jax_merge
+from repro.kernels.flash_decode.paged import flash_decode_paged as pallas_paged
 from repro.kernels.flash_decode.ref import decode_ref
 from repro_torch.kernels import registry
 from repro_torch.kernels.flash_decode import ref
 from repro_torch.kernels.flash_decode.flash_decode import flash_decode
+from repro_torch.kernels.flash_decode.paged import CHUNK
 from repro_torch.parallel.collectives import merge_partials
 
 torch.set_num_threads(1)
@@ -134,3 +136,71 @@ def test_merge_of_masked_slices_gives_zeros():
     merged = ref.merge_partials_local(parts)
     assert (merged[2] == 0).all()
     assert (flash_decode(*(torch.tensor(a) for a in (q, k, v, valid)))[2] == 0).all()
+
+
+def _lse_partials(parts):
+    """The split kernels' partials-mode merge: (acc, m, l) at the common
+    max of the slices' partials."""
+    m = torch.stack([p[1] for p in parts]).amax(dim=0)
+    w = [torch.exp(p[1] - m) for p in parts]
+    return (sum(p[0] * wi[..., None] for p, wi in zip(parts, w)), m,
+            sum(p[2] * wi for p, wi in zip(parts, w)))
+
+
+def test_chunk_partials_merge_to_the_pallas_kernels():
+    """The algebra the split kernels rest on, at their chunk of CHUNK = 64
+    keys: the plain partials over chunk-sized slices, LSE-merged, equal the
+    JAX kernels in interpret mode (the normalised output, and the whole
+    cache's partials at the common max), fp32 within ``MERGE_ATOL``.
+
+    Dense (256 slots, 4 chunks): live chunks on both sides of a fully
+    masked one, a wrapped ring, one key at the start of the second chunk.
+    Paged (pages of 128, so each chunk is half a page and a chunk boundary
+    falls inside every page): lengths 200, 0 and 65; a chunk is read
+    through the pool viewed as pages of 64 (page p's half h is page
+    2p + h), as the kernel's rows are addressed."""
+    rng = np.random.default_rng(7)
+    b, h, kv, hd, t = 3, 8, 2, 16, 4 * CHUNK
+    q = rng.standard_normal((b, h, hd)).astype(np.float32)
+    k = rng.standard_normal((b, t, kv, hd)).astype(np.float32)
+    v = rng.standard_normal((b, t, kv, hd)).astype(np.float32)
+    valid = np.zeros((b, t), np.int32)
+    valid[0, :CHUNK:3] = 1
+    valid[0, 2 * CHUNK + 5:3 * CHUNK + 9] = 1       # chunk 1 fully masked
+    valid[1, t - 5:] = valid[1, :3] = 1
+    valid[2, CHUNK] = 1
+    assert not valid[0, CHUNK:2 * CHUNK].any()
+    parts = [ref.decode_partials(torch.tensor(q), torch.tensor(k[:, i:i + CHUNK]),
+                                 torch.tensor(v[:, i:i + CHUNK]),
+                                 torch.tensor(valid[:, i:i + CHUNK]).bool())
+             for i in range(0, t, CHUNK)]
+    args = [jnp.asarray(a) for a in (q, k, v, valid)]
+    want = np.asarray(pallas_decode(*args, interpret=True))
+    np.testing.assert_allclose(ref.merge_partials_local(parts).numpy(), want, rtol=0,
+                               atol=MERGE_ATOL)
+    j_parts = pallas_decode(*args, return_partials=True, interpret=True)
+    for got, w in zip(_lse_partials(parts), j_parts):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), rtol=0, atol=MERGE_ATOL)
+
+    bs, nb = 128, 2
+    pool_k = rng.standard_normal((b * nb + 1, bs, kv, hd)).astype(np.float32)
+    pool_v = rng.standard_normal((b * nb + 1, bs, kv, hd)).astype(np.float32)
+    tables = rng.permutation(b * nb + 1)[: b * nb].reshape(b, nb).astype(np.int32)
+    lengths = np.array([200, 0, 65], np.int32)
+    half = bs // CHUNK
+    pk, pv = (torch.tensor(p).reshape(-1, CHUNK, kv, hd) for p in (pool_k, pool_v))
+    chunk_tables = (torch.tensor(tables)[:, :, None] * half
+                    + torch.arange(half)[None, None, :]).reshape(b, -1).to(torch.int32)
+    parts = [ref.paged_decode_partials(
+        torch.tensor(q), pk, pv, chunk_tables[:, c:c + 1].contiguous(),
+        (torch.tensor(lengths) - c * CHUNK).clamp(0, CHUNK).to(torch.int32))
+        for c in range(nb * half)]
+    want = np.asarray(pallas_paged(*(jnp.asarray(a) for a in (q, pool_k, pool_v, tables,
+                                                               lengths)), interpret=True))
+    merged = ref.merge_partials_local(parts).numpy()
+    np.testing.assert_allclose(merged, want, rtol=0, atol=MERGE_ATOL)
+    assert (merged[1] == 0).all() and (want[1] == 0).all()   # the zero-length request
+    np.testing.assert_allclose(
+        merged, ref.paged_decode(*(torch.tensor(a) for a in (q, pool_k, pool_v, tables,
+                                                             lengths))).numpy(),
+        rtol=0, atol=MERGE_ATOL)
