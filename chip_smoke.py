@@ -9,7 +9,8 @@ Phases (one line each; any failure raises and the exit code is non-zero):
 
 1. the card's name and power limit (``nvidia-smi``); build the CUDA kernels
    from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel),
-   with ptxas's registers and spills of each, and the decode gates'
+   with ptxas's registers and spills of each (a spill in a ``wgmma`` body
+   or the decode GMM body fails the run), and the decode gates'
    shared-memory count held against the kernels';
 2. small fp32 models served on the card with the kernels and with the
    plain path: the greedy tokens must agree. One serves EP with the
@@ -61,7 +62,8 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    against the normalised kernel; deliberate faults (a dropped K tile, a
    dropped live row, offsets one row off, a dropped key, an invalid key
    read; for both decode kernels the first key of the second 64-key chunk
-   and one whole chunk dropped) must fail the bf16 limit. The op layer's kernels likewise:
+   and one whole chunk dropped; for every decode GMM form one K split of
+   the decode body's plan dropped) must fail the bf16 limit. The op layer's kernels likewise:
    ``gmm_dual_act`` and ``gmm`` with every row live at the EP path's
    bucket shapes (a dropped K tile, a dropped last row), ``gmm_gather`` at
    the mesh path's layouts (NaN gap rows; a dropped K tile, a dropped live
@@ -71,7 +73,10 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    plain version and a PyTorch library call the port never makes, with its
    roofline bound; the four decode attention modes (split-KV bodies) also
    by their device time under ``torch.profiler`` beside SDPA's, with the
-   GB/s of their live bytes and the times of the bodies they replaced;
+   GB/s of their live bytes and the times of the bodies they replaced; the
+   nine decode GMM forms with the GB/s of the bytes they must move, their
+   share of the bytes bound and their ratio to ``torch.bmm``, and every
+   redesigned body beside the time of the body it replaced;
 6. a ``{"kernels": [...]}`` line (thirteen entries, each partials mode
    apart), the card line, and the final ``{"ok": true, "device": {...}}``
    line.
@@ -105,9 +110,19 @@ GMM_BK = 32
 # measured by this script: the bf16 bodies the wgmma bodies replaced (the
 # WMMA GMM, the CUDA-core flash attention), three runs each; the decode
 # attention bodies the split-KV bodies replaced (one block per KV head and
-# request), the fastest and the slowest of six runs. They are logged beside
-# this run's times and go into no JSON line.
+# request), and the decode GMM body the TMA-ring body replaced (the skinny
+# register-streaming body), the fastest and the slowest of six runs. They
+# are logged beside this run's times and go into no JSON line.
 REPLACED_MS = {
+    "gmm_dual_act_ragged decode": (1.949, 2.000),
+    "gmm_ragged decode": (1.093, 1.120),
+    "gmm_dual_act_gather ESP decode": (0.937, 0.969),
+    "gmm_scatter ESP decode": (0.838, 0.853),
+    "gmm_dual_act_gather mesh decode": (1.941, 1.995),
+    "gmm_scatter mesh decode": (1.116, 1.143),
+    "gmm_gather mesh decode": (1.150, 1.178),
+    "gmm_dual_act decode": (2.306, 2.370),
+    "gmm decode": (1.259, 1.280),
     "flash_decode_paged": (0.1795, 0.1876),
     "flash_decode_paged partials": (0.1933, 0.2331),
     "flash_decode": (0.1835, 0.1855),
@@ -238,6 +253,19 @@ def _drop_k_tile(t):
     return t
 
 
+def _drop_k_split(t, splits: int):
+    """The last of ``splits`` K ranges of the decode body's plan (whole
+    stages, at least two ranges) zeroed along the last axis: a split merge
+    that loses one split's partials."""
+    from repro_torch.kernels.gmm.ragged import DECODE_BK
+
+    s = max(splits, 2)
+    nk = -(-t.shape[-1] // DECODE_BK)
+    t = t.clone()
+    t[..., (s - 1) * -(-nk // s) * DECODE_BK:] = 0
+    return t
+
+
 def _drop_last_row(t):
     """Every group's last row zeroed: (G, C, ·) buckets with one row less."""
     t = t.clone()
@@ -306,6 +334,16 @@ def gmm_cells(torch, groups, dtype, timer, time_it: bool):
                 f"{phase}: last live row dropped":
                     (lambda: R.gmm_ragged(hin, wd, short), y_ref),
             }, f"gmm_ragged {what}")
+            if C <= K.DECODE_ROWS:
+                sd, ss = K.decode_splits(G, D, F, dt), K.decode_splits(G, F, D, dt)
+                cell["gmm_dual_act_ragged"]["faults"].update(caught(tol, {
+                    f"{phase}: one K split of {max(sd, 2)} dropped":
+                        (lambda: R.gmm_dual_act_ragged(_drop_k_split(x, sd), wg, wu, gs), h_ref),
+                }, f"gmm_dual_act_ragged {what}"))
+                cell["gmm_ragged"]["faults"].update(caught(tol, {
+                    f"{phase}: one K split of {max(ss, 2)} dropped":
+                        (lambda: R.gmm_ragged(_drop_k_split(hin, ss), wd, gs), y_ref),
+                }, f"gmm_ragged {what}"))
         if time_it:
             reps = 10 if phase == "decode" else 3
             xz = torch.nan_to_num(x)
@@ -331,7 +369,7 @@ def gmm_cells(torch, groups, dtype, timer, time_it: bool):
                 b_ms, b_by = bound(nbytes, ops, dtype)
                 cell[name].update(
                     ms=timer(fn, reps), plain_ms=timer(plain, reps),
-                    library_ms=timer(lib, reps), bound_ms=b_ms, bound_by=b_by,
+                    library_ms=timer(lib, reps), bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
                     shape=f"G={G} C={C} D={D if name != 'gmm_ragged' else F} "
                           f"F={F if name != 'gmm_ragged' else D} sum(gs)={live_rows} "
                           f"live groups={live_groups}",
@@ -351,6 +389,7 @@ def padded_cells(torch, groups, dtype, timer, time_it: bool):
     against the fp32 product; timed beside torch.bmm over the same
     buckets."""
     from repro_torch.kernels.gmm import gmm as K
+    from repro_torch.kernels.gmm import ragged as KR
     from repro_torch.kernels.gmm import ref as R
     from repro_torch.kernels.tolerance import PLAIN, ROUNDING
 
@@ -389,6 +428,17 @@ def padded_cells(torch, groups, dtype, timer, time_it: bool):
                 f"{phase}: last row dropped":
                     (lambda: R.gmm(_drop_last_row(h_ref), wd), y_ref),
             }, f"gmm {what}")
+            if C <= KR.DECODE_ROWS:
+                sd = KR.decode_splits(G, D, F, dt, every_row=True)
+                ss = KR.decode_splits(G, F, D, dt, every_row=True)
+                cell["gmm_dual_act"]["faults"].update(caught(tol, {
+                    f"{phase}: one K split of {max(sd, 2)} dropped":
+                        (lambda: R.gmm_dual_act(_drop_k_split(x, sd), wg, wu), h_ref),
+                }, f"gmm_dual_act {what}"))
+                cell["gmm"]["faults"].update(caught(tol, {
+                    f"{phase}: one K split of {max(ss, 2)} dropped":
+                        (lambda: R.gmm(_drop_k_split(h_ref, ss), wd), y_ref),
+                }, f"gmm {what}"))
         if time_it:
             reps = 10 if phase == "decode" else 3
             wgu = torch.cat([wg, wu], dim=2)
@@ -410,7 +460,7 @@ def padded_cells(torch, groups, dtype, timer, time_it: bool):
                 b_ms, b_by = bound(nbytes, ops, dtype)
                 cell[name].update(
                     ms=timer(fn, reps), plain_ms=timer(plain, reps),
-                    library_ms=timer(lib, reps), bound_ms=b_ms, bound_by=b_by,
+                    library_ms=timer(lib, reps), bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
                     shape=f"G={G} C={C} D={D if name == 'gmm_dual_act' else F} "
                           f"F={F if name == 'gmm_dual_act' else D}, every row live",
                 )
@@ -639,6 +689,19 @@ def pair_cells(torch, rows, D, F, dtype, timer, time_it: bool, gather: bool = Fa
                 f"{phase}: offsets one row off":
                     (lambda: R.gmm_scatter(hin, wd, off1, gs, n_rows, gpw)[live], y_ref[live]),
             }, f"gmm_scatter {what}")
+            if cap <= K.DECODE_ROWS:
+                ng = len(counts)
+                sd, ss = K.decode_splits(ng, D, F, dt), K.decode_splits(ng, F, D, dt)
+                drop = f"{phase}: one K split of {max(sd, 2)} dropped"
+                cell["gmm_dual_act_gather"]["faults"].update(caught(tol, {
+                    drop: (lambda: R.gmm_dual_act_gather(_drop_k_split(x, sd), wg, wu, off, gs,
+                                                         cap, gpw), h_ref),
+                }, f"gmm_dual_act_gather {what}"))
+                cell["gmm_scatter"]["faults"].update(caught(tol, {
+                    f"{phase}: one K split of {max(ss, 2)} dropped":
+                        (lambda: R.gmm_scatter(_drop_k_split(hin, ss), wd, off, gs, n_rows,
+                                               gpw)[live], y_ref[live]),
+                }, f"gmm_scatter {what}"))
             if gather:
                 ref32 = R.gmm_gather(x.float(), wg.float(), off, gs, cap, gpw)
                 cell["gmm_gather"]["excess_fp32_product"] = held(
@@ -652,6 +715,11 @@ def pair_cells(torch, rows, D, F, dtype, timer, time_it: bool, gather: bool = Fa
                     f"{phase}: offsets one row off":
                         (lambda: R.gmm_gather(x, wg, off1, gs, cap, gpw), y1_ref),
                 }, f"gmm_gather {what}")
+                if cap <= K.DECODE_ROWS:
+                    cell["gmm_gather"]["faults"].update(caught(tol, {
+                        drop: (lambda: R.gmm_gather(_drop_k_split(x, sd), wg, off, gs, cap, gpw),
+                               y1_ref),
+                    }, f"gmm_gather {what}"))
         if time_it:
             reps = 10 if phase == "decode" else 3
             xz = torch.nan_to_num(x)
@@ -689,7 +757,7 @@ def pair_cells(torch, rows, D, F, dtype, timer, time_it: bool, gather: bool = Fa
                 b_ms, b_by = bound(nbytes, ops, dtype)
                 cell[name].update(
                     ms=timer(fn, reps), plain_ms=timer(plain, reps),
-                    library_ms=timer(lib, reps), bound_ms=b_ms, bound_by=b_by,
+                    library_ms=timer(lib, reps), bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
                     shape=f"G={len(counts)} cap={cap} R={n_rows} "
                           f"D={D if name != 'gmm_scatter' else F} "
                           f"F={F if name != 'gmm_scatter' else D} sum(gs)={live_rows} "
@@ -1643,9 +1711,10 @@ def main(argv=None) -> int:
                 entry = entry[:72]
             elif "registers" in line or "spill" in line:
                 log(f"  ptxas {name} {entry}: {line.split(':', 1)[-1].strip()}")
-                # the wgmma bodies hold their accumulators in registers:
-                # a spill would put them in local memory
-                if "wgmma" in entry and "spill" in line and not re.search(
+                # the wgmma and decode bodies hold their accumulators in
+                # registers: a spill would put them in local memory
+                held_in_regs = "wgmma" in entry or "gmm_decode_kernel" in entry
+                if held_in_regs and "spill" in line and not re.search(
                         r"\b0 bytes spill stores, 0 bytes spill loads", line):
                     raise AssertionError(f"ptxas: {entry} spills: {line.strip()}")
     # ptxas counts static shared memory only; the wgmma bodies take theirs
@@ -1848,6 +1917,22 @@ def main(argv=None) -> int:
            "flash_decode_paged partials": bf["paged_partials"]["ms"],
            "flash_decode": bf["dense_decode"]["ms"],
            "flash_decode partials": bf["partials"]["ms"]}
+    # the decode GMM forms (one body, csrc/gmm_ragged.cu gmm_decode_kernel)
+    decode_gmm = {
+        **{f"{n} decode": bf["gmm"]["decode"][n] for n in ("gmm_dual_act_ragged", "gmm_ragged")},
+        **{f"{n} {path} decode": bf[key]["decode"][n]
+           for path, key, names in (
+               ("ESP", "esp_gmm", ("gmm_dual_act_gather", "gmm_scatter")),
+               ("mesh", "mesh_gmm", ("gmm_dual_act_gather", "gmm_scatter", "gmm_gather")))
+           for n in names},
+        **{f"{n} decode": bf["padded"]["decode"][n] for n in ("gmm_dual_act", "gmm")},
+    }
+    for what, c in decode_gmm.items():
+        log(f"decode GMM {what} [{c['shape']}]: {c['bytes'] / c['ms'] / 1e6:.1f} GB/s over the "
+            f"bytes it must move ({c['ms']:.4f} ms), {c['bound_ms'] / c['ms']:.1%} of its bytes "
+            f"bound ({c['bound_ms']:.4f} ms at 3350 GB/s); torch.bmm {c['library_ms']:.4f} ms, "
+            f"the kernel at {c['ms'] / c['library_ms']:.3f}x it [{card}]")
+    now.update({what: c["ms"] for what, c in decode_gmm.items()})
     for what, ms in now.items():
         log(f"redesigned {what}: {ms:.4f} ms in this run [{card}]; replaced body as "
             "recorded in PERF.md (not measured here): "

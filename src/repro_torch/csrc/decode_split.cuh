@@ -55,6 +55,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace split_decode {
 
@@ -90,43 +91,12 @@ inline bool shape_ok(int G, int hd) {
   return G >= 1 && G <= MAX_G && hd % 32 == 0 && hd > 0 && hd <= MAX_HD;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool live) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(live ? 16 : 0)
-               : "memory");
-}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// four 8 x 8 bf16 tiles from shared memory (row addresses from lanes 8i..8i+7
-// for tile i), as mma fragments, transposed or not
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-// c += a (16 x 16, row) * b (16 x 8, col), bf16 in, fp32 accumulators
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ uint32_t lds32(const void* p) {
@@ -141,13 +111,6 @@ __device__ __forceinline__ void or_live_splits(const Src& src, int b, int span,
                                                unsigned* bits) {
   const unsigned part = __reduce_or_sync(0xffffffffu, src.live_splits(b, span));
   if ((threadIdx.x & 31) == 0 && part) atomicOr(bits, part);
-}
-
-// atomicAdd(c, 1) at device scope, acquire and release
-__device__ __forceinline__ int arrive(int* c) {
-  int prev;
-  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n" : "=r"(prev) : "l"(c) : "memory");
-  return prev;
 }
 
 // 16 staged bytes widened to fp32 (4 floats or 8 bf16)
@@ -302,13 +265,13 @@ split_kernel(const T* __restrict__ q, Src src, void* __restrict__ out,
     for (int i = tid; i < CHUNK * pieces; i += THREADS) {
       const int r = i / pieces, c = i % pieces;
       const T* from = ok[r] ? src.k + offs[r] + c * VEC : src.k;
-      cp_async16(ks + r * row_bytes + c * 16, from, ok[r]);
+      cp_async_zfill16(smem_addr(ks + r * row_bytes + c * 16), from, ok[r] ? 16 : 0);
     }
     cp_async_commit();
     for (int i = tid; i < CHUNK * pieces; i += THREADS) {
       const int r = i / pieces, c = i % pieces;
       const T* from = ok[r] ? src.v + offs[r] + c * VEC : src.v;
-      cp_async16(vs + r * row_bytes + c * 16, from, ok[r]);
+      cp_async_zfill16(smem_addr(vs + r * row_bytes + c * 16), from, ok[r] ? 16 : 0);
     }
     cp_async_commit();
     if (!seen) {   // the request's live splits and the q panel while K and V fly
@@ -361,11 +324,11 @@ split_kernel(const T* __restrict__ q, Src src, void* __restrict__ out,
             ks + (key0 + (lane & 7) + ((lane >> 3) & 1) * 8) * row_bytes + (lane >> 4) * 16;
         for (int kb = 0; kb < hd; kb += 16) {
           uint32_t a[4];
-          ldsm_x4(a, arow + 2 * kb);
+          ldmatrix_x4(a, smem_addr(arow + 2 * kb));
 #pragma unroll
           for (int n = 0; n < NT; ++n) {
             const unsigned char* qrow = qp + 2 * ((8 * n + gid) * qh_stride + kb + 2 * tig);
-            mma_bf16(c[n], a, lds32(qrow), lds32(qrow + 16));
+            mma_16816(c[n], a, lds32(qrow), lds32(qrow + 16));
           }
         }
       }
@@ -481,11 +444,12 @@ split_kernel(const T* __restrict__ q, Src src, void* __restrict__ out,
         if (dt < hd) {
           for (int kb = 0; kb < rows; kb += 16) {
             uint32_t a[4];
-            ldsm_x4_trans(a, vs + (kb + vkey) * row_bytes + 2 * (dt + vdim));
+            ldmatrix_x4_trans(a,
+                              smem_addr(vs + (kb + vkey) * row_bytes + 2 * (dt + vdim)));
 #pragma unroll
             for (int n = 0; n < NT; ++n) {
               const __nv_bfloat16* prow = pt + (8 * n + gid) * PT + kb + 2 * tig;
-              mma_bf16(oacc[j][n], a, lds32(prow), lds32(prow + 8));
+              mma_16816(oacc[j][n], a, lds32(prow), lds32(prow + 8));
             }
           }
         }
@@ -579,7 +543,7 @@ split_kernel(const T* __restrict__ q, Src src, void* __restrict__ out,
   const unsigned live = *live_bits;
   if (tid == 0) {
     int* c = arrived + (size_t)b * K + kh;
-    const bool last = arrive(c) == __popc(live) - 1;
+    const bool last = add_acq_rel(c) == __popc(live) - 1;
     if (last) *c = 0;
     ok[0] = last;
   }

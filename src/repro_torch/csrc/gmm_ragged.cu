@@ -36,26 +36,44 @@
 //
 // What bounds it on an H100: at decode (8 tokens x top-4 over 20 slots,
 // capacity 8) every live group streams its whole (D, F) weight panel for a
-// handful of rows, so the kernel is bound by weight bytes over HBM
-// bandwidth (3.35 TB/s). At prefill (capacity 820) it is bound by
-// operations, 2 * sum(gs) * D * F per product over the 989 TFLOP/s bf16
-// tensor-core peak (2.19 ms for the served dual form, 1.09 ms for the
-// single product). The every-row layout has no dead group or row to skip:
-// at decode it streams all G weight panels (the bound of torch.bmm over the
-// same buckets), at prefill it does 2 * G * C * D * F operations per
-// product.
+// handful of rows, so the kernel is bound by the live groups' weight bytes
+// over HBM bandwidth (3.35 TB/s); at about 1 us of latency that asks for
+// some 25 KB of loads in flight on each SM. At prefill (capacity 820) it
+// is bound by operations, 2 * sum(gs) * D * F per product over the 989
+// TFLOP/s bf16 tensor-core peak (2.19 ms for the served dual form, 1.09 ms
+// for the single product). The every-row layout has no dead group or row
+// to skip: at decode it streams all G weight panels (the bound of
+// torch.bmm over the same buckets), at prefill it does 2 * G * C * D * F
+// operations per product.
 //
 // What the design does about it: every block reads gs[g] itself; a group
 // (or row tile) with no live rows writes its zeros and exits without
 // touching the weights, so weight traffic tracks live groups. Three
 // bodies, chosen from the bucket capacity C and the dtype:
 //
-// * C <= 8 (decode): a skinny kernel. Each thread streams 16-byte weight
-//   vectors from HBM straight into registers and multiplies them by the
-//   (at most 8) live rows of x, read as warp-wide broadcasts; the block's
-//   warps split D and reduce once through shared memory. Each weight byte
-//   is read once and no shared-memory load sits in the inner loop, so the
-//   kernel streams weights at close to the HBM rate.
+// * C <= 8 (decode; replaces, at decode, ragged.py:151, 223, 371, 469 and
+//   605 and gmm.py:71 and 123): gmm_decode_kernel. A block takes a strip
+//   of 128 output columns (fp32: 64) of one group over a K range of whole
+//   64-deep stages; the number of K splits S comes from static shapes only
+//   (gmm/ragged.py::decode_splits: enough blocks for two waves of the
+//   card's resident blocks with half the groups live, or all of them in
+//   the every-row layout, at most one split per 512 k), so the wrapper
+//   reads no count. A producer warp keeps a
+//   ring of about 96 KB of weight tiles in flight through TMA (two blocks
+//   an SM, so some 190 KB of loads an SM, well past the 25 KB HBM needs)
+//   and stages each stage's x rows with cp.async, zero-filling the rows at
+//   or past the count without reading them. The loads hold no registers,
+//   and the products take no issue slots from them: bf16 runs mma.sync
+//   m16n8k16 with the output transposed (W^T by ldmatrix.trans from the
+//   swizzled tile, x^T by ldmatrix; C <= 8 is the mma's n), fp32 FMAs on
+//   the CUDA cores with x read as shared-memory broadcasts (TF32 would
+//   change the numbers). With S > 1 each block stores fp32 partials, and
+//   the last of a strip's S blocks to arrive (one acquire-release atomic
+//   on a self-resetting counter) adds them in split order before silu(a) *
+//   b and the one cast, so two calls are bitwise equal. mma.sync, not
+//   wgmma m64n8k16, because its 16-column A tile lets four warps each take
+//   32 columns of a 128-column strip with no warpgroup sync, and a decode
+//   stage is a few instructions a warp either way.
 // * C > 8, bf16 (prefill): output tiles of 128 rows x 128 columns of both
 //   products (dual) or 256 of one (single) on Hopper's warpgroup tensor
 //   cores (wgmma m64n128k16, fp32 accumulate), fed by a producer warp's TMA
@@ -199,109 +217,287 @@ gmm_ragged_kernel(const T* __restrict__ x, const T* __restrict__ wa,
 }
 
 // ---------------------------------------------------------------------------
-// decode: skinny GEMM, C <= SKINNY_ROWS rows per group
+// decode: C <= 8 rows per group, weights through a TMA ring
 // ---------------------------------------------------------------------------
 
-constexpr int SKINNY_ROWS = 8;
-constexpr int SKINNY_WARPS = 8;
+constexpr int DEC_ROWS = 8;                        // rows a group (the mma's n)
+constexpr int DEC_BK = 64;                         // k a stage
+constexpr int DEC_CONSUMERS = 4;                   // consumer warps
+constexpr int DEC_THREADS = DEC_CONSUMERS * 32 + 32;   // and one producer warp
+constexpr int DEC_BOX = 64;                        // columns a TMA box
+constexpr uint32_t DEC_W_BYTES = 16384;            // one product's weights a stage
+// output columns a block: 128 bf16 (two 128-byte-swizzled boxes), 64 fp32
+// (one box of 256-byte rows); either way 16 KB of weights a product a stage
+template <typename T> constexpr int dec_cols = DEC_W_BYTES / (DEC_BK * sizeof(T));
+template <typename T> constexpr uint32_t dec_box_bytes = DEC_BOX * DEC_BK * sizeof(T);
+// a stage's x rows: 8 x 64 k, bf16 rows padded by 16 bytes so that the
+// ldmatrix rows fall in distinct banks; fp32 rows are read as broadcasts
+template <typename T>
+constexpr uint32_t dec_x_row = DEC_BK * sizeof(T) + (sizeof(T) == 2 ? 16 : 0);
+template <typename T> constexpr uint32_t dec_x_bytes = DEC_ROWS * dec_x_row<T>;
+// stages in flight: about 96 KB of weights a block, two blocks an SM
+template <bool DUAL> constexpr int dec_stages = DUAL ? 3 : 6;
+template <typename T, bool DUAL>
+constexpr size_t dec_smem =
+    (size_t)dec_stages<DUAL> * ((DUAL ? 2 : 1) * DEC_W_BYTES + dec_x_bytes<T>) + 1024 +
+    16 * dec_stages<DUAL> + 16;
 
-// The single-product form must keep two blocks per SM (at most 128
-// registers a thread): it streams weights with little work per load, and
-// at one block per SM it runs at half the rate. The dual form holds two
-// accumulator sets and runs one block per SM either way.
+// One block per (column strip, K split, group): grid (strips * S, G), the S
+// splits of a strip adjacent. Warp 4 is the producer: lane 0 keeps the
+// ring full with TMA loads of the strip's weights (a box of 64 k x 64
+// columns; bf16 128-byte swizzled), and every lane stages the stage's x
+// chunk with cp.async (16 bytes a copy, 8 rows x 64 k): rows at or past the
+// count, and k at or past D, are never read (source size 0 zero-fills
+// them), so a NaN in a dead row, a gap row or past the array never reaches
+// a product. The stage's full barrier completes on the weights' bytes and
+// the 32 lanes' cp.async arrivals. Warps 0-3 consume: bf16 on the tensor
+// cores, mma.sync m16n8k16 with the output transposed (16 columns x 8
+// rows += W^T 16 x 16 k, by ldmatrix.trans from the [k][n] tile, times x^T
+// 16 k x 8 rows, by ldmatrix from the staged rows), each warp 32 columns;
+// fp32 on the CUDA cores, a thread a column and 4 rows, x read as
+// broadcasts. With S = 1 the consumers apply the epilogue to their fp32
+// sums and store by the layout; with S > 1 they store fp32 partials to
+// `part` (S, G, C, F) per product, count in on the strip's counter with one
+// acquire-release atomic, and the last block resets the counter and sums
+// the S partials in split order before the epilogue: no float atomics, so
+// two calls are bitwise equal. A group with no live row loads nothing; its
+// split 0 writes the padded layouts' zeros.
 template <typename T, bool DUAL, class RW>
-__global__ void __launch_bounds__(SKINNY_WARPS * 32, DUAL ? 1 : 2)
-gmm_skinny_kernel(const T* __restrict__ x, const T* __restrict__ wa,
-                  const T* __restrict__ wb, const int* __restrict__ gs,
-                  T* __restrict__ out, int C, int D, int F, int gpw, RW rw) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int COLS = 32 * VEC;          // output columns per block
-  constexpr int NT = SKINNY_WARPS * 32;
-  __shared__ float red_a[SKINNY_WARPS][COLS];
-  __shared__ float red_b[DUAL ? SKINNY_WARPS : 1][DUAL ? COLS : 1];
-
-  const int g = blockIdx.y;
-  const int n0 = blockIdx.x * COLS;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+__global__ void __launch_bounds__(DEC_THREADS, 2)
+gmm_decode_kernel(const __grid_constant__ CUtensorMap wamap,
+                  const __grid_constant__ CUtensorMap wbmap, const T* __restrict__ x,
+                  const int* __restrict__ gs, T* __restrict__ out, float* __restrict__ part,
+                  int* __restrict__ arrived, int C, int D, int F, int gpw, int S, int per,
+                  RW rw) {
+  constexpr bool BF16 = sizeof(T) == 2;
+  constexpr int NB = dec_cols<T>, ST = dec_stages<DUAL>, NP = DUAL ? 2 : 1;
+  constexpr uint32_t WST = NP * DEC_W_BYTES, XR = dec_x_row<T>, XST = dec_x_bytes<T>;
+  constexpr uint32_t BOX = dec_box_bytes<T>;
+  constexpr int EPT = DEC_ROWS * NB / (DEC_CONSUMERS * 32);   // outputs a consumer thread: 8, 4
+  extern __shared__ unsigned char dec_smem_raw[];
+  const int strip = blockIdx.x / S, s = blockIdx.x % S, g = blockIdx.y;
+  const int n0 = strip * NB;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int count = rw.count(gs, g, C);
   if (count == 0) {
-    T* og = rw.out(out, g, C, F);
-    for (int i = tid; i < rw.stored(C, 0) * COLS; i += NT) {
-      const int m = i / COLS, n = n0 + i % COLS;
-      if (n < F) og[(size_t)m * F + n] = from_f<T>(0.f);
+    // no live row: the padded layouts' zeros, no loads
+    if (s == 0) {
+      T* og = rw.out(out, g, C, F);
+      for (int i = tid; i < rw.stored(C, 0) * NB; i += DEC_THREADS) {
+        const int n = n0 + i % NB;
+        if (n < F) og[(size_t)(i / NB) * F + n] = from_f<T>(0.f);
+      }
     }
     return;
   }
-  const T* xg = rw.in(x, g, C, D);
-  const size_t wofs = (size_t)(g / gpw) * D * F;
-  const T* ag = wa + wofs;
-  const T* bg = DUAL ? wb + wofs : nullptr;
-  const int n = n0 + lane * VEC;
-  const bool n_ok = n < F;                 // F % VEC == 0: whole vectors
-  const int kper = (D + SKINNY_WARPS - 1) / SKINNY_WARPS;
-  const int k_lo = warp * kper, k_hi = min(D, k_lo + kper);
+  const int nk = (D + DEC_BK - 1) / DEC_BK;
+  const int t0 = s * per, nt = min(per, nk - t0);   // this split's stages
 
-  float acc_a[SKINNY_ROWS][VEC];
-  float acc_b[DUAL ? SKINNY_ROWS : 1][DUAL ? VEC : 1];
-#pragma unroll
-  for (int r = 0; r < SKINNY_ROWS; ++r)
-#pragma unroll
-    for (int v = 0; v < VEC; ++v) {
-      acc_a[r][v] = 0.f;
-      if constexpr (DUAL) acc_b[r][v] = 0.f;
+  // the ring (1024-byte aligned: swizzle atoms), the x chunks, full[ST],
+  // empty[ST], the last-arrival flag
+  const uint32_t base = smem_addr(dec_smem_raw);
+  const uint32_t ring = (base + 1023) & ~1023u;
+  const uint32_t xring = ring + ST * WST;
+  const uint32_t full = xring + ST * XST, empty = full + 8 * ST;
+  unsigned char* const gen = dec_smem_raw + (ring - base);   // generic view of the ring
+  int* const last_flag = reinterpret_cast<int*>(gen + (empty + 8 * ST - ring));
+  if (tid == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(full + 8 * i, 1 + 32);
+      mbar_init(empty + 8 * i, DEC_CONSUMERS);
     }
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-  if (n_ok) {
-#pragma unroll 4
-    for (int k = k_lo; k < k_hi; ++k) {
-      float wv[VEC], uv[VEC];
-      load_vec16(ag + (size_t)k * F + n, wv);
-      if constexpr (DUAL) load_vec16(bg + (size_t)k * F + n, uv);
+  if (warp == DEC_CONSUMERS) {
+    constexpr int VEC = 16 / sizeof(T), CPR = DEC_BK / VEC;   // 16-byte copies a row
+    const T* xg = rw.in(x, g, C, D);
+    const int gw = g / gpw;
+    for (int t = 0; t < nt; ++t) {
+      const int st = t % ST, k0 = (t0 + t) * DEC_BK;
+      if (t >= ST) mbar_wait(empty + 8 * st, (t / ST - 1) & 1);
+      const uint32_t bar = full + 8 * st, w = ring + st * WST;
+      if (lane == 0) {
+        mbar_expect_tx(bar, WST);
 #pragma unroll
-      for (int r = 0; r < SKINNY_ROWS; ++r) {
-        // rows at or past the count are never read (count is uniform
-        // across the block, so this branch does not diverge)
-        const float xr = r < count ? to_f(xg[(size_t)r * D + k]) : 0.f;
+        for (int p = 0; p < NP; ++p)
 #pragma unroll
-        for (int v = 0; v < VEC; ++v) {
-          acc_a[r][v] = fmaf(xr, wv[v], acc_a[r][v]);
-          if constexpr (DUAL) acc_b[r][v] = fmaf(xr, uv[v], acc_b[r][v]);
+          for (int h = 0; h < NB / DEC_BOX; ++h)
+            tma_load_3d(w + p * DEC_W_BYTES + h * BOX, p ? &wbmap : &wamap, bar,
+                        n0 + DEC_BOX * h, k0, gw);
+      }
+#pragma unroll
+      for (int i = lane; i < DEC_ROWS * CPR; i += 32) {
+        const int r = i / CPR, k = k0 + (i % CPR) * VEC;
+        const bool live = r < count && k < D;
+        cp_async_zfill16(xring + st * XST + r * XR + (i % CPR) * 16,
+                         live ? xg + (size_t)r * D + k : xg, live ? 16 : 0);
+      }
+      cp_async_mbar_arrive(bar);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");   // none in flight past exit
+    return;
+  }
+
+  // consumers: acc[p][e / 4][e % 4] is output e of this thread (row_of,
+  // col_of below) for product p; bf16: the two mma tiles' fragments
+  float acc[NP][EPT / 4][4];
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) acc[p][e / 4][e % 4] = 0.f;
+  const int gid = lane / 4, tig = lane % 4;
+  for (int t = 0; t < nt; ++t) {
+    const int st = t % ST;
+    mbar_wait(full + 8 * st, (t / ST) & 1);
+    if constexpr (BF16) {
+      // warp w: columns 32w..32w+31 = box w/2, two 16-column tiles j; lane
+      // addresses: ldmatrix.trans tile i = (k + 8 if i >= 2, columns + 8 if
+      // i odd), ldmatrix x tile i = k 8i..8i+7 of a 32-k group, row lane % 8
+      const uint32_t w = ring + st * WST + (warp / 2) * BOX;
+      const int a_k = (lane & 7) + (lane >> 4) * 8, a_c = (warp % 2) * 4 + ((lane >> 3) & 1);
+      const uint32_t xa = xring + st * XST + (lane & 7) * XR + (lane >> 3) * 16;
+#pragma unroll
+      for (int kg = 0; kg < DEC_BK / 32; ++kg) {
+        uint32_t b[4];
+        ldmatrix_x4(b, xa + kg * 64);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int kr = kg * 32 + h * 16 + a_k;
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            // 16-byte chunk (a_c + 2j) of row kr, 128-byte swizzled
+            const uint32_t off = kr * 128 + (((a_c + 2 * j) ^ (kr & 7)) << 4);
+#pragma unroll
+            for (int p = 0; p < NP; ++p) {
+              uint32_t a[4];
+              ldmatrix_x4_trans(a, w + p * DEC_W_BYTES + off);
+              mma_16816(acc[p][j], a, b[2 * h], b[2 * h + 1]);
+            }
+          }
+        }
+      }
+    } else {
+      // thread: column tid % 64, rows 4 (tid / 64) .. + 3
+      const float* w = reinterpret_cast<const float*>(gen + st * WST) + tid % NB;
+      const float* xs = reinterpret_cast<const float*>(gen + ST * WST + st * XST) +
+                        (tid / NB) * EPT * DEC_BK;
+#pragma unroll 8
+      for (int k = 0; k < DEC_BK; ++k) {
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          const float wv = w[p * (DEC_W_BYTES / 4) + k * NB];
+#pragma unroll
+          for (int e = 0; e < EPT; ++e)
+            acc[p][0][e] = fmaf(xs[e * DEC_BK + k], wv, acc[p][0][e]);
         }
       }
     }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * st);
   }
 
-  // reduce the warps' K slices, one row at a time (the output's layout is
-  // read only now, so it holds no register through the loop above)
+  // output e of this thread: (row, column of the strip)
+  auto row_of = [&](int e) {
+    return BF16 ? 2 * tig + (e & 1) : (tid / NB) * EPT + e;
+  };
+  auto col_of = [&](int e) {
+    return BF16 ? 32 * warp + 16 * (e / 4) + gid + ((e >> 1) & 1) * 8 : tid % NB;
+  };
   const int n_out = rw.stored(C, count);
+  if (S > 1) {
+    // partials of the live rows, then count in; the last block merges
+    const size_t plane = (size_t)S * gridDim.y * C * F;   // one product's partials
+    float* const mine = part + ((size_t)s * gridDim.y + g) * C * F;
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      const int r = row_of(e), n = n0 + col_of(e);
+      if (r < count && n < F) {
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+          mine[p * plane + (size_t)r * F + n] = acc[p][e / 4][e % 4];
+      }
+    }
+    __threadfence();
+    named_sync(1, DEC_CONSUMERS * 32);
+    if (tid == 0) {
+      int* c = arrived + (size_t)g * (gridDim.x / S) + strip;
+      const bool last = add_acq_rel(c) == S - 1;
+      if (last) *c = 0;
+      *last_flag = last;
+    }
+    named_sync(1, DEC_CONSUMERS * 32);
+    if (!*last_flag) return;
+    const float* const all = part + (size_t)g * C * F;
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      const int r = row_of(e), n = n0 + col_of(e);
+      if (r >= count || n >= F) continue;
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        float v = 0.f;
+        for (int q = 0; q < S; ++q)
+          v += __ldcg(all + p * plane + (size_t)q * gridDim.y * C * F + (size_t)r * F + n);
+        acc[p][e / 4][e % 4] = v;
+      }
+    }
+  }
+  // epilogue on the full fp32 sums: silu(a) * b (dual), one cast; rows in
+  // [count, n_out) are the padded layouts' zeros
   T* og = rw.out(out, g, C, F);
 #pragma unroll
-  for (int r = 0; r < SKINNY_ROWS; ++r) {
-    if (r >= n_out) break;   // block-uniform: the barriers below stay paired
-    __syncthreads();
-#pragma unroll
-    for (int v = 0; v < VEC; ++v) {
-      red_a[warp][lane * VEC + v] = acc_a[r][v];
-      if constexpr (DUAL) red_b[warp][lane * VEC + v] = acc_b[r][v];
+  for (int e = 0; e < EPT; ++e) {
+    const int r = row_of(e), n = n0 + col_of(e);
+    if (r >= n_out || n >= F) continue;
+    float v = 0.f;
+    if (r < count) {
+      const float a = acc[0][e / 4][e % 4];
+      if constexpr (DUAL) v = a / (1.f + expf(-a)) * acc[1][e / 4][e % 4];
+      else v = a;
     }
-    __syncthreads();
-    for (int c = tid; c < COLS; c += NT) {
-      const int col = n0 + c;
-      if (col >= F) continue;
-      float v = 0.f;
-      if (r < count) {
-        float a = 0.f, b = 0.f;
-#pragma unroll
-        for (int w = 0; w < SKINNY_WARPS; ++w) {
-          a += red_a[w][c];
-          if constexpr (DUAL) b += red_b[w][c];
-        }
-        if constexpr (DUAL) v = a / (1.f + expf(-a)) * b;
-        else v = a;
-      }
-      og[(size_t)r * F + col] = from_f<T>(v);
-    }
+    og[(size_t)r * F + n] = from_f<T>(v);
   }
+}
+
+// Encodes the weights' tensor maps, 3-D over (G / gpw, D, F), and launches
+// the decode body: grid (strips * S, G). `S` splits of ceil(nk / S) stages,
+// every split non-empty; with S > 1 `part` holds S * G * C * F floats per
+// product and `arrived` G * strips zeroed counters, which the launch leaves
+// zeroed. An encode or attribute failure is returned, never worked around.
+template <typename T, bool DUAL, class RW>
+cudaError_t launch_decode(const void* x, const void* wa, const void* wb, const int* gs,
+                          void* out, float* part, int* arrived, int G, int C, int D, int F,
+                          int gpw, int S, RW rw, cudaStream_t st) {
+  constexpr int NB = dec_cols<T>;
+  const int nk = (D + DEC_BK - 1) / DEC_BK;
+  const int per = S > 0 ? (nk + S - 1) / S : 0;
+  if (S < 1 || (nk == 0 ? S != 1 : (S - 1) * per >= nk) || (S > 1 && (!part || !arrived)))
+    return cudaErrorInvalidValue;
+  if (G == 0 || F == 0) return cudaSuccess;
+  CUtensorMap amap{}, bmap{};
+  if (nk > 0) {   // D = 0: no stage, no load reads the maps
+    const CUtensorMapDataType type =
+        sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+    const CUtensorMapSwizzle swz =
+        sizeof(T) == 2 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE;
+    const cuuint64_t dims[3] = {(cuuint64_t)F, (cuuint64_t)D, (cuuint64_t)(G / gpw)};
+    const cuuint64_t strides[2] = {(cuuint64_t)F * sizeof(T), (cuuint64_t)F * D * sizeof(T)};
+    const cuuint32_t box[3] = {DEC_BOX, DEC_BK, 1};
+    cudaError_t err = encode_map(&amap, type, wa, 3, dims, strides, box, swz);
+    if (err == cudaSuccess && DUAL) err = encode_map(&bmap, type, wb, 3, dims, strides, box, swz);
+    if (err != cudaSuccess) return err;
+  }
+  auto kern = gmm_decode_kernel<T, DUAL, RW>;
+  constexpr size_t smem = dec_smem<T, DUAL>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(((F + NB - 1) / NB) * S, G);
+  kern<<<grid, DEC_THREADS, smem, st>>>(amap, bmap, static_cast<const T*>(x), gs,
+                                        static_cast<T*>(out), part, arrived, C, D, F, gpw, S,
+                                        per, rw);
+  return cudaSuccess;
 }
 
 // ---------------------------------------------------------------------------
@@ -477,6 +673,7 @@ template <bool DUAL, class RW>
 cudaError_t launch_wgmma(const void* x, const void* wa, const void* wb, const int* gs,
                          void* out, int G, int C, int D, int F, int gpw, RW rw,
                          cudaStream_t st) {
+  constexpr CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap xmap{}, amap, bmap;
   const cuuint64_t row = (cuuint64_t)D * 2;
   cudaError_t err = cudaSuccess;
@@ -486,21 +683,21 @@ cudaError_t launch_wgmma(const void* x, const void* wa, const void* wb, const in
     const cuuint64_t strides[1] = {row};
     const cuuint32_t box[2] = {WG_BK, WG_BM};
     if (rw.in_rows > 0)
-      err = encode_bf16_map(&xmap, x, 2, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+      err = encode_map(&xmap, type, x, 2, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
   } else {
     const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)C, (cuuint64_t)G};
     const cuuint64_t strides[2] = {row, row * C};
     const cuuint32_t box[3] = {WG_BK, WG_BM, 1};
-    err = encode_bf16_map(&xmap, x, 3, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+    err = encode_map(&xmap, type, x, 3, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
   }
   if (err != cudaSuccess) return err;
   const cuuint64_t wdims[3] = {(cuuint64_t)F, (cuuint64_t)D, (cuuint64_t)(G / gpw)};
   const cuuint64_t wstrides[2] = {(cuuint64_t)F * 2, (cuuint64_t)F * 2 * D};
   const cuuint32_t wbox[3] = {64, WG_BK, 1};
-  err = encode_bf16_map(&amap, wa, 3, wdims, wstrides, wbox, CU_TENSOR_MAP_SWIZZLE_128B);
+  err = encode_map(&amap, type, wa, 3, wdims, wstrides, wbox, CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != cudaSuccess) return err;
   bmap = amap;   // the single product reads one weight
-  if (DUAL) err = encode_bf16_map(&bmap, wb, 3, wdims, wstrides, wbox, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (DUAL) err = encode_map(&bmap, type, wb, 3, wdims, wstrides, wbox, CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != cudaSuccess) return err;
   auto kern = gmm_wgmma_kernel<DUAL, RW>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)WG_SMEM);
@@ -524,20 +721,17 @@ void launch(const void* x, const void* wa, const void* wb, const int* gs,
 
 template <typename T, bool DUAL, class RW>
 cudaError_t dispatch(const void* x, const void* wa, const void* wb, const int* gs,
-                     void* out, int G, int C, int D, int F, int gpw, RW rw,
-                     cudaStream_t st) {
-  if (C <= SKINNY_ROWS) {
-    constexpr int COLS = 32 * (16 / sizeof(T));
-    dim3 grid((F + COLS - 1) / COLS, G);
-    gmm_skinny_kernel<T, DUAL, RW><<<grid, SKINNY_WARPS * 32, 0, st>>>(
-        static_cast<const T*>(x), static_cast<const T*>(wa),
-        static_cast<const T*>(wb), gs, static_cast<T*>(out), C, D, F, gpw, rw);
-  } else if constexpr (std::is_same<T, bf16>::value) {
+                     void* out, float* part, int* arrived, int G, int C, int D, int F,
+                     int gpw, int S, RW rw, cudaStream_t st) {
+  if (C <= DEC_ROWS)
+    return launch_decode<T, DUAL, RW>(x, wa, wb, gs, out, part, arrived, G, C, D, F, gpw, S,
+                                      rw, st);
+  if constexpr (std::is_same<T, bf16>::value) {
     return launch_wgmma<DUAL, RW>(x, wa, wb, gs, out, G, C, D, F, gpw, rw, st);
   } else {
     launch<T, 64, 128, 16, 4, 8, DUAL, RW>(x, wa, wb, gs, out, G, C, D, F, gpw, rw, st);
+    return cudaSuccess;
   }
-  return cudaSuccess;
 }
 
 // The forms the wrappers launch: padded with counts (both products),
@@ -546,26 +740,29 @@ cudaError_t dispatch(const void* x, const void* wa, const void* wb, const int* g
 // single product of the down projection).
 template <typename T>
 int dispatch_layout(const void* x, const void* wa, const void* wb, const int* gs,
-                    const int* xofs, const int* oofs, void* out, int G, int C,
-                    int D, int F, int gpw, int in_rows, int out_rows, bool dual,
-                    cudaStream_t st) {
+                    const int* xofs, const int* oofs, void* out, float* part, int* arrived,
+                    int G, int C, int D, int F, int gpw, int in_rows, int out_rows, bool dual,
+                    int S, cudaStream_t st) {
+  auto run = [&](auto rw, auto dual_form) {
+    constexpr bool DUAL = decltype(dual_form)::value;
+    return dispatch<T, DUAL>(x, wa, wb, gs, out, part, arrived, G, C, D, F, gpw, S, rw, st);
+  };
+  using Dual = std::true_type;
+  using Single = std::false_type;
   cudaError_t err;
   if (!gs) {
     if (xofs || oofs) return static_cast<int>(cudaErrorInvalidValue);
     const Rows<false, false, true> rw{nullptr, nullptr, 0, 0};
-    err = dual ? dispatch<T, true>(x, wa, wb, gs, out, G, C, D, F, gpw, rw, st)
-               : dispatch<T, false>(x, wa, wb, gs, out, G, C, D, F, gpw, rw, st);
+    err = dual ? run(rw, Dual{}) : run(rw, Single{});
   } else if (!xofs && !oofs) {
     const Rows<false, false> rw{nullptr, nullptr, 0, 0};
-    err = dual ? dispatch<T, true>(x, wa, wb, gs, out, G, C, D, F, gpw, rw, st)
-               : dispatch<T, false>(x, wa, wb, gs, out, G, C, D, F, gpw, rw, st);
+    err = dual ? run(rw, Dual{}) : run(rw, Single{});
   } else if (xofs && !oofs) {
     const Rows<true, false> rw{xofs, nullptr, in_rows, 0};
-    err = dual ? dispatch<T, true>(x, wa, wb, gs, out, G, C, D, F, gpw, rw, st)
-               : dispatch<T, false>(x, wa, wb, gs, out, G, C, D, F, gpw, rw, st);
+    err = dual ? run(rw, Dual{}) : run(rw, Single{});
   } else if (!xofs && oofs && !dual) {
     const Rows<false, true> rw{nullptr, oofs, 0, out_rows};
-    err = dispatch<T, false>(x, wa, wb, gs, out, G, C, D, F, gpw, rw, st);
+    err = run(rw, Single{});
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -580,23 +777,30 @@ int dispatch_layout(const void* x, const void* wa, const void* wb, const int* gs
 // or, with oofs, flat (out_rows, F); xofs and oofs (G,) int32 or null:
 // padded, gather or scatter (single product only). All contiguous,
 // 16-byte aligned, D and F multiples of 16 / sizeof(T). wb is read only
-// when dual != 0. Returns cudaGetLastError() after launch.
+// when dual != 0. At decode (C <= 8) `splits` is the K split count S (the
+// wrapper's gmm/ragged.py::decode_splits, from static shapes), and with
+// S > 1 part holds S * G * C * F floats per product and arrived
+// G * ceil(F / strip) zeroed int32 counters (strip 128 bf16, 64 fp32), left
+// zeroed; both may be null when S = 1, and all three are ignored for
+// C > 8. Returns cudaGetLastError() after launch.
 extern "C" int gmm_ragged_launch(const void* x, const void* wa, const void* wb,
                                  const void* gs, const void* xofs,
-                                 const void* oofs, void* out, int G, int C,
-                                 int D, int F, int gpw, int in_rows,
-                                 int out_rows, int dtype, int dual,
+                                 const void* oofs, void* out, void* part, void* arrived,
+                                 int G, int C, int D, int F, int gpw, int in_rows,
+                                 int out_rows, int dtype, int dual, int splits,
                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* g = static_cast<const int*>(gs);
   const int* xo = static_cast<const int*>(xofs);
   const int* oo = static_cast<const int*>(oofs);
+  float* pt = static_cast<float*>(part);
+  int* ar = static_cast<int*>(arrived);
   if (dtype == DT_F32)
-    return dispatch_layout<float>(x, wa, wb, g, xo, oo, out, G, C, D, F, gpw,
-                                  in_rows, out_rows, dual != 0, st);
+    return dispatch_layout<float>(x, wa, wb, g, xo, oo, out, pt, ar, G, C, D, F, gpw,
+                                  in_rows, out_rows, dual != 0, splits, st);
   if (dtype == DT_BF16)
-    return dispatch_layout<__nv_bfloat16>(x, wa, wb, g, xo, oo, out, G, C, D, F,
-                                          gpw, in_rows, out_rows, dual != 0, st);
+    return dispatch_layout<__nv_bfloat16>(x, wa, wb, g, xo, oo, out, pt, ar, G, C, D, F,
+                                          gpw, in_rows, out_rows, dual != 0, splits, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

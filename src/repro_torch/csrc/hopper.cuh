@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the port's tensor-core kernels
-// (gmm_ragged.cu's prefill body, flash_attention.cu's bf16 body): TMA
-// tensor maps and loads, mbarriers, and warpgroup matrix multiplies
-// (wgmma) on shared-memory operand descriptors. Raw PTX for sm_90a, no
+// (gmm_ragged.cu's prefill and decode bodies, flash_attention.cu's bf16
+// body): TMA tensor maps and loads, cp.async into an mbarrier, mbarriers,
+// warp-level mma.sync on ldmatrix fragments, and warpgroup matrix
+// multiplies (wgmma) on shared-memory operand descriptors. Raw PTX for sm_90a, no
 // library headers beyond the CUDA toolkit's own.
 #pragma once
 
@@ -23,12 +24,12 @@ using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t
                                    CUtensorMapSwizzle, CUtensorMapL2promotion,
                                    CUtensorMapFloatOOBfill);
 
-// A bf16 tensor map of `rank` dims (innermost first; strides in bytes for
-// dims 1..rank-1) whose boxes land in shared memory with the given swizzle.
-// Elements outside the tensor read as zeros.
-inline cudaError_t encode_bf16_map(CUtensorMap* map, const void* base, int rank,
-                                   const cuuint64_t* dims, const cuuint64_t* strides,
-                                   const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+// A tensor map of `rank` dims (innermost first; strides in bytes for dims
+// 1..rank-1) over elements of `type`, whose boxes land in shared memory with
+// the given swizzle. Elements outside the tensor read as zeros.
+inline cudaError_t encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                              int rank, const cuuint64_t* dims, const cuuint64_t* strides,
+                              const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
   static EncodeTiledFn encode = nullptr;
   if (!encode) {
     void* fn = nullptr;
@@ -40,8 +41,7 @@ inline cudaError_t encode_bf16_map(CUtensorMap* map, const void* base, int rank,
     encode = reinterpret_cast<EncodeTiledFn>(fn);
   }
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-                            const_cast<void*>(base), dims, strides, box, unit,
+  const CUresult r = encode(map, type, rank, const_cast<void*>(base), dims, strides, box, unit,
                             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -108,6 +108,60 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
          "r"(c2), "r"(c3)
       : "memory");
+}
+
+// 16 bytes from device memory into shared memory, asynchronously; `bytes` 0
+// reads nothing and zero-fills the 16 bytes (src must still be a valid
+// address).
+__device__ __forceinline__ void cp_async_zfill16(uint32_t dst, const void* src,
+                                                 uint32_t bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+// One arrival on `bar` once every cp.async this thread issued so far has
+// landed (.noinc: the arrival is one of the barrier's expected count).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(bar) : "memory");
+}
+
+// A barrier of the first `n` threads of the block (a multiple of 32) on
+// hardware barrier `id` (0 is __syncthreads').
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+// atomicAdd(c, 1) at device scope, acquire and release: returns the old value
+__device__ __forceinline__ int add_acq_rel(int* c) {
+  int prev;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n" : "=r"(prev) : "l"(c) : "memory");
+  return prev;
+}
+
+// ---------------------------------------------------------------------------
+// device: warp-level tensor cores (mma.sync) on ldmatrix fragments
+// ---------------------------------------------------------------------------
+
+// four 8 x 8 bf16 tiles (lanes 8i..8i+7 give the shared address of tile i's
+// rows) as mma fragments, as stored or transposed
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+// c (16 x 8, fp32) += a (16 x 16, row-major) * b (16 x 8, column-major), bf16.
+// Lane l holds a's rows l/4 (+8) at k 2(l%4) (+1, +8, +9); b's column l/4 at
+// k 2(l%4) (+1) in b0, + 8 in b1; c's rows l/4 (+8 in c2, c3) at columns
+// 2(l%4) (+1 in c1, c3).
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ---------------------------------------------------------------------------

@@ -21,6 +21,8 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = (
@@ -119,3 +121,22 @@ def check(rc: int, what: str) -> None:
     """Raise when a launch returned a CUDA error code."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+# Per device, the zeroed int32 counters on which the blocks of a split
+# launch count their arrivals (the split-KV decode attention per (request,
+# KV head), the decode GMM per (group, column strip)); the last block of
+# each resets its counter, so every launch leaves them zero for the next
+# one on the stream. They live here, not with the caller, because the
+# wrappers keep the JAX package's signatures; launches that share them run
+# in order on one stream, so no call sees a value another call left.
+_ARRIVED: dict = {}
+
+
+def arrival_counters(device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed counters on ``device``, kept across calls (a
+    larger set replaces them when a call needs more)."""
+    buf = _ARRIVED.get(device)
+    if buf is None or buf.numel() < n:
+        buf = _ARRIVED[device] = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+    return buf

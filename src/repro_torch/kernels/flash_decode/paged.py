@@ -11,8 +11,8 @@ splits in the same launch (``csrc/decode_split.cuh``). The split count comes fro
 static shapes only (:func:`split_count` of ``NB * bs``): the wrapper never
 reads ``lengths`` or the tables on the host. It allocates the fp32 split
 scratch with ``torch.empty`` and keeps the zeroed arrival counters
-(:func:`arrival_counters`) across calls; launches on one stream run in
-order, and each leaves the counters zero.
+(:func:`repro_torch.kernels.build.arrival_counters`) across calls;
+launches on one stream run in order, and each leaves the counters zero.
 
 On a CUDA tensor it launches the kernel (or raises on what the kernel does
 not take); on a CPU tensor it runs :func:`ref.paged_decode` or
@@ -116,23 +116,6 @@ def aligned(*tensors) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
-# Per device, the zeroed int32 counters on which the split blocks of each
-# (request, KV head) count their arrivals; the last block resets its
-# counter, so every launch leaves them zero for the next one on the stream.
-# They live here, not with the caller, because the wrappers keep the JAX
-# package's signatures; no call sees a value another call left.
-_ARRIVED: dict = {}
-
-
-def arrival_counters(device, n: int) -> torch.Tensor:
-    """At least ``n`` zeroed counters on ``device``, kept across calls (a
-    larger set replaces them when a call needs more)."""
-    buf = _ARRIVED.get(device)
-    if buf is None or buf.numel() < n:
-        buf = _ARRIVED[device] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-    return buf
-
-
 def split_buffers(q, nkv: int, n_keys: int, partials: bool):
     """The outputs, the fp32 split scratch (S x B x H x (hd + 2)) and the
     arrival counters of a call over ``n_keys`` key slots a request,
@@ -141,7 +124,7 @@ def split_buffers(q, nkv: int, n_keys: int, partials: bool):
     b, nh, hd = q.shape
     s = split_count(n_keys)
     scratch = torch.empty(s * b * nh * (hd + 2), dtype=torch.float32, device=q.device)
-    arrived = arrival_counters(q.device, b * nkv)
+    arrived = build.arrival_counters(q.device, b * nkv)
     if partials:
         outs = (torch.empty((b, nh, hd), dtype=torch.float32, device=q.device),
                 torch.empty((b, nh), dtype=torch.float32, device=q.device),

@@ -6,7 +6,11 @@ kernels of ``repro/kernels/gmm/ragged.py``:
   ``gmm_scatter`` (flat rows out) — one body per capacity in
   ``csrc/gmm_ragged.cu``, which differ only in where a group's rows live
   (the padded ``gmm`` and ``gmm_dual_act`` of :mod:`.gmm` are a further
-  layout of the same bodies);
+  layout of the same bodies). At decode (capacity <= 8) the body splits K
+  into :func:`decode_splits` ranges, a count taken from static shapes; the
+  wrapper allocates the fp32 split partials with ``torch.empty`` and the
+  shared zeroed arrival counters (:func:`decode_buffers`), so it never
+  reads a count on the host;
 * ``gmm_fused_ffn`` — flat rows in, the hidden block on chip, flat rows out
   (``csrc/gmm_fused_ffn.cu``).
 
@@ -30,6 +34,47 @@ from repro_torch.kernels import build
 from repro_torch.kernels.gmm import ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The decode body (capacity C <= DECODE_ROWS, csrc/gmm_ragged.cu
+# gmm_decode_kernel): a block takes a strip of output columns of one group
+# over a K range of whole stages.
+DECODE_ROWS = 8             # DEC_ROWS: rows a group, the mma's n
+DECODE_BK = 64              # DEC_BK: k a stage
+RESIDENT_BLOCKS = 264       # two decode blocks on each of an H100's 132 SMs
+MIN_SPLIT_STAGES = 8        # at most one K split per 512 k
+
+
+def decode_strip(dtype: torch.dtype) -> int:
+    """Output columns a decode block takes (``dec_cols``): 16 KB of one
+    product's weights a stage, 128 bf16 or 64 fp32 columns."""
+    return 16384 // (DECODE_BK * torch.empty((), dtype=dtype).element_size())
+
+
+def decode_splits(g: int, d: int, f: int, dtype: torch.dtype,
+                  every_row: bool = False) -> int:
+    """K splits S of the decode body, from static shapes only: the smallest
+    S for which the blocks of the live groups cover two waves of resident
+    blocks, at most one split per :data:`MIN_SPLIT_STAGES` stages; splits
+    of ceil(stages / S) stages, none empty. No count is read: with counts,
+    dead groups are a run's data, so the plan assumes half the G groups
+    live; ``every_row`` (no counts) has all G live."""
+    nk = -(-d // DECODE_BK)
+    blocks = (g if every_row else -(-g // 2)) * -(-f // decode_strip(dtype))
+    s = max(1, min(-(-2 * RESIDENT_BLOCKS // max(blocks, 1)), nk // MIN_SPLIT_STAGES))
+    per = -(-nk // s) if nk else 1
+    return max(1, -(-nk // per))
+
+
+def decode_buffers(g: int, c: int, d: int, f: int, dtype: torch.dtype, dual: bool,
+                   every_row: bool, device):
+    """The split count S of a decode launch (C <= 8), its fp32 partials
+    (S x G x C x F per product, ``torch.empty``) and the arrival counters
+    (G x strips), from shapes alone; no buffer when S = 1."""
+    s = decode_splits(g, d, f, dtype, every_row)
+    if s == 1:
+        return 1, None, None
+    part = torch.empty(s * g * c * f * (2 if dual else 1), dtype=torch.float32, device=device)
+    return s, part, build.arrival_counters(device, g * -(-f // decode_strip(dtype)))
 
 
 def can_gmm(d: int, f: int, dtype: torch.dtype) -> bool:
@@ -82,13 +127,15 @@ def _check(x, ws, group_sizes, gpw: int, name: str, g: int | None = None):
     return g, c, d, f
 
 
-def _launch(x, wa, wb, group_sizes, gpw: int, dual: bool, *, name: str,
-            capacity: int | None = None, offsets=None, out=None,
-            out_rows: int | None = None) -> torch.Tensor:
-    """One launch of ``gmm_ragged_launch``: padded buckets by default
-    (every row live when ``group_sizes`` is None); a flat (R, D) input with
+def _plan(x, wa, wb, group_sizes, gpw: int, dual: bool, *, name: str,
+          capacity: int | None = None, offsets=None, out=None,
+          out_rows: int | None = None):
+    """Check the operands of one ``gmm_ragged_launch`` and allocate its
+    output and, at decode, its split partials and counters: (out, part,
+    arrived, the launch's int arguments). Padded buckets by default (every
+    row live when ``group_sizes`` is None); a flat (R, D) input with
     ``capacity`` (gather); a flat (out_rows, F) output with ``out_rows``
-    (scatter)."""
+    (scatter). Reads shapes, never values."""
     ws = (wa, wb) if dual else (wa,)
     gather, scatter = capacity is not None, out_rows is not None
     g = offsets.shape[0] if gather else None
@@ -100,15 +147,31 @@ def _launch(x, wa, wb, group_sizes, gpw: int, dual: bool, *, name: str,
         out = _flat_out(out, (out_rows, f), x, name)
     else:
         out = torch.empty((g, cap, f), dtype=x.dtype, device=x.device)
-    fn = build.entry("gmm_ragged", "gmm_ragged_launch", 7, 9)
+    splits, part, arrived = (decode_buffers(g, cap, d, f, x.dtype, dual,
+                                            group_sizes is None, x.device)
+                             if cap <= DECODE_ROWS else (1, None, None))
+    ints = (g, cap, d, f, gpw, c if gather else 0, out_rows or 0, DTYPES[x.dtype],
+            int(dual), splits)
+    return out, part, arrived, ints
+
+
+def _launch(x, wa, wb, group_sizes, gpw: int, dual: bool, *, name: str,
+            capacity: int | None = None, offsets=None, out=None,
+            out_rows: int | None = None) -> torch.Tensor:
+    """One launch of ``gmm_ragged_launch`` (the layouts of :func:`_plan`)."""
+    out, part, arrived, ints = _plan(x, wa, wb, group_sizes, gpw, dual, name=name,
+                                     capacity=capacity, offsets=offsets, out=out,
+                                     out_rows=out_rows)
+    gather, scatter = capacity is not None, out_rows is not None
+    fn = build.entry("gmm_ragged", "gmm_ragged_launch", 9, len(ints))
     rc = fn(
         x.data_ptr(), wa.data_ptr(), (wb if dual else wa).data_ptr(),
         None if group_sizes is None else group_sizes.data_ptr(),
         offsets.data_ptr() if gather else None,
         offsets.data_ptr() if scatter else None, out.data_ptr(),
-        g, cap, d, f, gpw, c if gather else 0, out_rows or 0,
-        DTYPES[x.dtype], int(dual),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        None if part is None else part.data_ptr(),
+        None if arrived is None else arrived.data_ptr(),
+        *ints, torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(rc, name)
     return out

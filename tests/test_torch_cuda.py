@@ -44,6 +44,7 @@ from repro_torch.kernels.gmm.ragged import (
     gmm_ragged,
     gmm_scatter,
 )
+from repro_torch.kernels.gmm.ragged import decode_splits
 from repro_torch.kernels.tolerance import PLAIN, ROUNDING, excess
 
 torch.set_num_threads(1)
@@ -644,6 +645,105 @@ def test_cuda_gmm_bf16_prefill_gather_no_rows(cuda_device, dual):
     dt, g, d, f, cap = torch.bfloat16, 4, 64, 96, 24
     x = torch.empty((0, d), dtype=dt, device=cuda_device)
     w = _rand(gen, cuda_device, dt, g, d, f, scale=0.1)
+    zeros = torch.zeros(g, dtype=torch.int32, device=cuda_device)
+    y = (gmm_dual_act_gather(x, w, w, zeros, zeros, cap) if dual
+         else gmm_gather(x, w, zeros, zeros, cap))
+    torch.cuda.synchronize()
+    assert y.shape == (g, cap, f) and (y == 0).all()
+
+
+# (D, F, S): a K tail and one column strip (S = 1); two K splits of 9
+# stages with an F tail in the second bf16 strip; three splits, the last
+# one stage shorter
+DECODE_SHAPES = [(200, 96, 1), (1096, 200, 2), (1608, 96, 3)]
+
+
+def _decode_forms(dev, dt, layout, c, d, f, gpw, gen):
+    """Each product the layout has at decode capacity ``c``: (name, the
+    kernel call, the plain version of the inputs, the inputs, the live-row
+    mask of a flat output or None)."""
+    g = 6
+    counts = [0, c, 1, c, min(2, c), 0]        # counts 0, 1 and C; dead groups
+    gs = torch.tensor(counts, dtype=torch.int32, device=dev)
+    wg = _rand(gen, dev, dt, g // gpw, d, f, scale=0.1)
+    wu = _rand(gen, dev, dt, g // gpw, d, f, scale=0.1)
+    if layout == "every_row":
+        x = _rand(gen, dev, dt, g, c, d)
+        return [
+            ("gmm_dual_act", lambda: gmm_dual_act(x, wg, wu),
+             lambda a, b, u: gmm_ref.gmm_dual_act(a, b, u), (x, wg, wu), None),
+            ("gmm", lambda: gmm(x, wg), lambda a, b: gmm_ref.gmm(a, b), (x, wg), None),
+        ]
+    if layout in ("padded", "scatter"):
+        x = _rand(gen, dev, dt, g, c, d)
+        x[torch.arange(c, device=dev)[None, :] >= gs[:, None]] = float("nan")
+        if layout == "padded":
+            return [
+                ("gmm_dual_act_ragged", lambda: gmm_dual_act_ragged(x, wg, wu, gs, gpw),
+                 lambda a, b, u: gmm_ref.gmm_dual_act_ragged(a, b, u, gs, gpw), (x, wg, wu),
+                 None),
+                ("gmm_ragged", lambda: gmm_ragged(x, wg, gs, gpw),
+                 lambda a, b: gmm_ref.gmm_ragged(a, b, gs, gpw), (x, wg), None),
+            ]
+        offsets, r, live = _flat_layout(dev, counts, 3, c)
+        nan = lambda: torch.full((r, f), float("nan"), dtype=dt, device=dev)
+        return [
+            ("gmm_scatter", lambda: gmm_scatter(x, wg, offsets, gs, r, gpw, out=nan()),
+             lambda a, b: gmm_ref.gmm_scatter(a, b, offsets, gs, r, gpw), (x, wg), live),
+        ]
+    offsets, r, live = _flat_layout(dev, counts, 3, c)
+    x = _rand(gen, dev, dt, r, d)
+    x[~live] = float("nan")
+    return [
+        ("gmm_dual_act_gather", lambda: gmm_dual_act_gather(x, wg, wu, offsets, gs, c, gpw),
+         lambda a, b, u: gmm_ref.gmm_dual_act_gather(a, b, u, offsets, gs, c, gpw),
+         (x, wg, wu), None),
+        ("gmm_gather", lambda: gmm_gather(x, wg, offsets, gs, c, gpw),
+         lambda a, b: gmm_ref.gmm_gather(a, b, offsets, gs, c, gpw), (x, wg), None),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("d,f,splits", DECODE_SHAPES)
+@pytest.mark.parametrize("c", [1, 3, 8])
+@pytest.mark.parametrize("layout,gpw", [
+    ("padded", 1), ("padded", 2), ("every_row", 1), ("gather", 1), ("gather", 2),
+    ("scatter", 1), ("scatter", 2),
+])
+def test_cuda_gmm_decode_body(cuda_device, layout, gpw, c, d, f, splits, dtype, tol):
+    """The decode body (C <= 8) in each row layout and product against the
+    plain version, bf16 also against the fp32 product of the same inputs:
+    counts 0, 1 and C, dead groups, dead and gap rows NaN, a NaN-filled
+    scatter output whose rows outside the live segments stay NaN, one to
+    three K splits; two calls bitwise equal."""
+    assert decode_splits(6, d, f, dtype, layout == "every_row") == splits
+    gen = torch.Generator(device=cuda_device).manual_seed(15 + c)
+    for name, call, plain, args, live in _decode_forms(cuda_device, dtype, layout, c, d, f,
+                                                       gpw, gen):
+        y, again = call(), call()
+        want = plain(*args)
+        torch.cuda.synchronize()
+        if live is not None:
+            assert torch.isnan(y[~live]).all() and torch.isnan(again[~live]).all(), name
+            y, again, want = y[live], again[live], want[live]
+        assert torch.equal(y, again), name
+        _check(y, want, tol)
+        if dtype == torch.bfloat16:   # the fp32 product of the same bf16 inputs
+            want32 = plain(*(t.float() for t in args))
+            _check(y, want32 if live is None else want32[live], ROUNDING)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dual", [True, False])
+def test_cuda_gmm_decode_gather_no_rows(cuda_device, dual, dtype):
+    """A flat input of no rows at a decode capacity: every group is empty,
+    the padded output all zeros (no load is issued)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(16)
+    g, d, f, cap = 4, 1096, 96, 8
+    x = torch.empty((0, d), dtype=dtype, device=cuda_device)
+    w = _rand(gen, cuda_device, dtype, g, d, f, scale=0.1)
     zeros = torch.zeros(g, dtype=torch.int32, device=cuda_device)
     y = (gmm_dual_act_gather(x, w, w, zeros, zeros, cap) if dual
          else gmm_gather(x, w, zeros, zeros, cap))

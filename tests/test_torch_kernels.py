@@ -27,6 +27,7 @@ from repro_torch.kernels.flash_decode import flash_decode as fd_dense
 from repro_torch.kernels.flash_decode import paged as fd_paged
 from repro_torch.kernels.flash_decode import ref as fd_ref
 from repro_torch.kernels.flash_decode.paged import flash_decode_paged
+from repro_torch.kernels.gmm import ragged as gmm_port
 from repro_torch.kernels.gmm import ref as gmm_ref
 from repro_torch.kernels.gmm.ragged import gmm_dual_act_ragged, gmm_ragged
 
@@ -77,6 +78,100 @@ def test_gmm_dual_act_plain_matches_pallas_with_poisoned_tails():
     got = gmm_dual_act_ragged(_t(poisoned), _t(wg), _t(wu), _t(gs)).numpy()
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, kern, **TOL)
+
+
+@pytest.mark.parametrize("dual", [False, True])
+def test_gmm_decode_split_algebra_matches_pallas(dual):
+    """What the decode body's K-split merge relies on: plain fp32 products
+    over K ranges, summed in split order with silu applied only after the
+    full sum (dual), and rows past the count zero-filled before any
+    product, equal the Pallas kernels in interpret mode. Ranges: the
+    decode plan's two splits of whole 64-deep stages (a K tail after
+    them), and the same with a boundary at k = 37, off the 16-byte vector
+    width; a dead group; the Pallas K tile of 137 is off both. fp32,
+    (1e-5, 1e-5): only the summation order differs."""
+    rng = np.random.default_rng(5)
+    g, c, d, f = 4, 8, 1096, 16
+    x = rng.standard_normal((g, c, d)).astype(np.float32)
+    wg, wu = [(rng.standard_normal((g, d, f)) * 0.05).astype(np.float32) for _ in range(2)]
+    gs = np.asarray([3, 0, 8, 1], np.int32)
+    live = np.arange(c)[None, :, None] < gs[:, None, None]
+    x = np.where(live, x, np.nan).astype(np.float32)   # rows past the count: NaN
+    if dual:
+        want = pallas_dual(jnp.asarray(x), jnp.asarray(wg), jnp.asarray(wu), jnp.asarray(gs),
+                           bm=8, bn=16, bk=137, interpret=True)
+    else:
+        want = pallas_gmm(jnp.asarray(x), jnp.asarray(wg), jnp.asarray(gs), bm=8, bn=16,
+                          bk=137, interpret=True)
+    s = gmm_port.decode_splits(g, d, f, torch.float32)
+    nk = -(-d // gmm_port.DECODE_BK)
+    edge = -(-nk // s) * gmm_port.DECODE_BK
+    assert (s, edge) == (2, 576)
+    staged = _t(np.where(live, x, 0.0))        # zero-filled, as the kernel stages them
+    for bounds in ([0, edge, d], [0, 37, edge, d]):
+        def split_sum(w):
+            total = torch.zeros((g, c, f))
+            for lo, hi in zip(bounds, bounds[1:]):
+                total = total + torch.bmm(staged[:, :, lo:hi], _t(w)[:, lo:hi])
+            return total
+        a = split_sum(wg)
+        got = torch.nn.functional.silu(a) * split_sum(wu) if dual else a
+        got = torch.where(_t(live), got, 0.0)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_gmm_decode_plan_from_static_shapes():
+    """The decode body's strips and K splits come from shapes alone (and the
+    layout: every row live or not). The served forms' splits; every split
+    of a plan holds a stage, at most one split per 8 stages; the planning
+    step runs on meta tensors, which hold no counts or offsets, and sizes
+    the fp32 partials (S x G x C x F a product) and the counters (G x
+    strips)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    assert (gmm_port.decode_strip(bf), gmm_port.decode_strip(f32)) == (128, 64)
+    for (g, d, f, every_row), s in [
+        ((20, 6144, 10752, False), 1),    # EP / mesh dual
+        ((20, 10752, 6144, False), 2),    # EP single, mesh scatter
+        ((8, 6144, 16384, False), 2),     # ESP dual gather
+        ((8, 16384, 6144, False), 3),     # ESP scatter
+        ((20, 6144, 10752, True), 1),     # every row live: all G groups
+        ((20, 10752, 6144, True), 1),
+        ((6, 1096, 200, False), 2), ((6, 1608, 96, False), 3), ((4, 0, 96, False), 1),
+    ]:
+        assert gmm_port.decode_splits(g, d, f, bf, every_row) == s
+    for nk in range(1, 300):
+        for g, f, dt in [(1, 8, bf), (8, 6144, bf), (20, 10752, f32)]:
+            s = gmm_port.decode_splits(g, nk * gmm_port.DECODE_BK - 8, f, dt)
+            assert (s - 1) * -(-nk // s) < nk                 # the kernel's own check
+            assert s == 1 or nk // s >= gmm_port.MIN_SPLIT_STAGES
+    meta = dict(device="meta")
+    g, c, d, f = 8, 8, 16384, 6144
+    x = torch.empty((g, c, d), dtype=bf, **meta)
+    w = torch.empty((g, d, f), dtype=bf, **meta)
+    gs = torch.empty((g,), dtype=torch.int32, **meta)
+    offsets = torch.empty((g,), dtype=torch.int32, **meta)
+    out, part, arrived, ints = gmm_port._plan(x, w, None, gs, 1, False, name="gmm_scatter",
+                                              offsets=offsets, out_rows=16)
+    assert tuple(out.shape) == (16, f) and ints[-1] == 3
+    assert part.numel() == 3 * g * c * f and arrived.numel() >= g * f // 128
+    x = torch.empty((20, 8, 6144), dtype=bf, **meta)
+    w = torch.empty((20, 6144, 10752), dtype=bf, **meta)
+    out, part, arrived, ints = gmm_port._plan(x, w, w, None, 1, True, name="gmm_dual_act")
+    assert tuple(out.shape) == (20, 8, 10752) and ints[-1] == 1
+    assert part is None and arrived is None
+    flat = torch.empty((16, 6144), dtype=bf, **meta)
+    w = torch.empty((8, 6144, 16384), dtype=bf, **meta)
+    out, part, arrived, ints = gmm_port._plan(flat, w, w, gs, 1, True,
+                                              name="gmm_dual_act_gather", capacity=8,
+                                              offsets=offsets)
+    assert tuple(out.shape) == (8, 8, 16384) and ints[-1] == 2
+    assert part.numel() == 2 * 2 * 8 * 8 * 16384
+    # prefill capacity: the wgmma body, no split
+    x = torch.empty((20, 820, 6144), dtype=bf, **meta)
+    w = torch.empty((20, 6144, 10752), dtype=bf, **meta)
+    gs = torch.empty((20,), dtype=torch.int32, **meta)
+    assert gmm_port._plan(x, w, w, gs, 1, True, name="gmm_dual_act_ragged")[1:] == (
+        None, None, (20, 820, 6144, 10752, 1, 0, 0, 1, 1, 1))
 
 
 @pytest.mark.parametrize("gpw", [1, 2])
