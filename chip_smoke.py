@@ -9,9 +9,10 @@ Phases (one line each; any failure raises and the exit code is non-zero):
 
 1. the card's name and power limit (``nvidia-smi``); build the CUDA kernels
    from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel),
-   with ptxas's registers and spills of each (a spill in a ``wgmma`` body
-   or the decode GMM body fails the run), and the decode gates'
-   shared-memory count held against the kernels';
+   with ptxas's registers and spills of each (a spill in a ``wgmma`` body,
+   the decode GMM body or a bf16 body of ``gmm_fused_ffn`` fails the run),
+   and the decode gates' and the fused bodies' shared-memory counts held
+   against the kernels';
 2. small fp32 models served on the card with the kernels and with the
    plain path: the greedy tokens must agree. One serves EP with the
    balancer on the paged cache, the other ESP on the dense cache with its
@@ -56,7 +57,10 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    the gather/scatter pair at both paths that run it (mixtral's 8 experts
    under ESP; dbrx's 20 slots with the mesh path's rank-compacted rows);
    ``gmm_fused_ffn`` at the widest shape its gate admits (D = D_out =
-   4096) with mixtral's F, also against the kernel pair; ``flash_decode``'s
+   4096) with mixtral's F, also against the kernel pair (and, logged, both
+   against the fp32 products), two calls bitwise equal, one hidden split
+   (decode) or one cluster rank's hidden slice (prefill) dropped as a
+   fault; ``flash_decode``'s
    partials mode with ``acc`` at the run's dtype limit and ``m``, ``l`` at
    the fp32 limit, a slice with no valid key, and the merge of four slices
    against the normalised kernel; deliberate faults (a dropped K tile, a
@@ -76,7 +80,9 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    GB/s of their live bytes and the times of the bodies they replaced; the
    nine decode GMM forms with the GB/s of the bytes they must move, their
    share of the bytes bound and their ratio to ``torch.bmm``, and every
-   redesigned body beside the time of the body it replaced;
+   redesigned body beside the time of the body it replaced (the two bf16
+   bodies of ``gmm_fused_ffn`` also beside the kernel pair, timed in the
+   same run, and their share of the bound);
 6. a ``{"kernels": [...]}`` line (thirteen entries, each partials mode
    apart), the card line, and the final ``{"ok": true, "device": {...}}``
    line.
@@ -111,7 +117,9 @@ GMM_BK = 32
 # WMMA GMM, the CUDA-core flash attention), three runs each; the decode
 # attention bodies the split-KV bodies replaced (one block per KV head and
 # request), and the decode GMM body the TMA-ring body replaced (the skinny
-# register-streaming body), the fastest and the slowest of six runs. They
+# register-streaming body), the fastest and the slowest of six runs; the
+# FMA bodies of gmm_fused_ffn the hidden-slice decode body and the cluster
+# prefill body replaced, the fastest and the slowest of six runs. They
 # are logged beside this run's times and go into no JSON line.
 REPLACED_MS = {
     "gmm_dual_act_ragged decode": (1.949, 2.000),
@@ -137,6 +145,8 @@ REPLACED_MS = {
     "gmm_gather mesh prefill": (7.103, 7.100, 7.126),
     "gmm_dual_act prefill": (25.558, 25.701, 26.192),
     "gmm prefill": (16.214, 15.006, 15.436),
+    "gmm_fused_ffn decode": (102.713, 103.279),
+    "gmm_fused_ffn prefill": (1396.010, 1397.208),
 }
 
 
@@ -773,15 +783,67 @@ def pair_cells(torch, rows, D, F, dtype, timer, time_it: bool, gather: bool = Fa
     return results
 
 
+def _drop_hidden_rows(wd, lo: int, hi: int):
+    """w_down with hidden rows [lo, hi) zeroed: the FFN without those hidden
+    columns' contribution."""
+    wd = wd.clone()
+    wd[:, lo:hi] = 0
+    return wd
+
+
+def _fused_truth(torch, x, wg, wu, wd, off, gs, cap):
+    """The live rows of the SwiGLU FFN in float64 with the hidden values
+    rounded to x.dtype, as every bf16 version stores them: (live rows,
+    D_out), group by group."""
+    out = []
+    for g, (o, c) in enumerate(zip(off.tolist(), gs.clamp(max=cap).tolist())):
+        if c <= 0:
+            continue
+        xs = x[o : o + c].double()
+        h = torch.nn.functional.silu(xs @ wg[g].double()) * (xs @ wu[g].double())
+        out.append(h.to(x.dtype).double() @ wd[g].double())
+    return torch.cat(out)
+
+
+def _fused_slice_ms(torch, timer, x, wg, wu, wd, off, gs, cap, fs: int, reps: int) -> float:
+    """Time of the bf16 decode body with hidden slices of ``fs`` columns
+    instead of the planned width (the plan's own launch, its slice argument
+    replaced): the measurement behind ``fused_decode_slice``."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.gmm import ragged as K
+
+    fn = build.entry("gmm_fused_ffn", "gmm_fused_ffn_launch", 9, 9)
+
+    def call():
+        out, _, _, ints = K._fused_plan(x, wg, wu, wd, off, gs, cap, 1)
+        g, f, d_out = ints[0], ints[3], ints[4]
+        s = -(-f // fs)
+        part = (torch.empty(s * g * cap * d_out, dtype=torch.float32, device="cuda")
+                if s > 1 else None)
+        arrived = build.arrival_counters(x.device, g * -(-d_out // K.FUSED_OUT_STRIP))
+        build.check(fn(x.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
+                       off.data_ptr(), gs.data_ptr(), out.data_ptr(),
+                       None if part is None else part.data_ptr(), arrived.data_ptr(),
+                       *ints[:-1], fs, torch.cuda.current_stream().cuda_stream),
+                    f"gmm_fused_ffn slice {fs}")
+
+    return timer(call, reps, warmup=1)
+
+
 def fused_cells(torch, rows, dtype, timer, time_it: bool):
     """gmm_fused_ffn at the widest shape its gate admits (D = D_out = 4096)
     with mixtral's F = 16384 and the ESP main path's flat-row layouts:
     against its plain version and against the kernel pair, live rows only;
-    every other output row must still be NaN."""
+    every other output row must still be NaN, and two calls must be
+    bitwise equal. bf16 also against the fp32 products of the same inputs
+    (the hidden tensor rounded to bf16 between them, as the kernel keeps
+    it), and one hidden split of the decode body's plan, or one cluster
+    rank's 64-column hidden slice of the prefill body's first block,
+    dropped as a fault."""
     from repro_torch.kernels.gmm import ragged as K
     from repro_torch.kernels.gmm import ref as R
     from repro_torch.kernels.registry import FUSED_FFN_MAX_DOWN_DIM, can_gmm_fused
-    from repro_torch.kernels.tolerance import PLAIN
+    from repro_torch.kernels.tolerance import PLAIN, ROUNDING, excess
 
     dt = getattr(torch, dtype)
     tol = PLAIN[dt]
@@ -797,18 +859,50 @@ def fused_cells(torch, rows, dtype, timer, time_it: bool):
         live = _flat_live(torch, off, gs, n_rows)
         x = torch.randn((n_rows, D), generator=gen, device="cuda").to(dt)
         x[~live] = float("nan")
+        body = K.fused_body(cap, dt)
         what = f"gmm_fused_ffn {phase} {dtype}"
         y = K.gmm_fused_ffn(x, wg, wu, wd, off, gs, cap, out=_nan_rows(torch, (n_rows, D), dt))
-        if not bool(torch.isnan(y[~live]).all()):
+        again = K.gmm_fused_ffn(x, wg, wu, wd, off, gs, cap,
+                                out=_nan_rows(torch, (n_rows, D), dt))
+        torch.cuda.synchronize()
+        if not (bool(torch.isnan(y[~live]).all()) and bool(torch.isnan(again[~live]).all())):
             raise AssertionError(f"{what}: a row outside the live segments was written")
+        if not torch.equal(y[live], again[live]):
+            raise AssertionError(f"{what}: two calls differ")
+        del again
         y_ref = R.gmm_fused_ffn(x, wg, wu, wd, off, gs, cap)
         pair = K.gmm_scatter(K.gmm_dual_act_gather(x, wg, wu, off, gs, cap), wd, off, gs, n_rows)
         cell = held(torch, y[live], y_ref[live], tol, what)
         cell["excess_vs_pair"] = held(torch, y[live], pair[live], tol, f"{what} vs pair")["excess"]
+        cell["body"] = body
+        if dt == torch.bfloat16:
+            # logged, not held: at these reduction lengths the bf16 tensor-core
+            # products (the pair's as much as this kernel's) read above the
+            # rounding limit against fp32 (PERF.md); the card tests hold
+            # both bodies to it at their shapes
+            h32 = R.gmm_dual_act_gather(x.float(), wg.float(), wu.float(), off, gs, cap)
+            want32 = R.gmm_scatter(h32.to(dt).float(), wd.float(), off, gs, n_rows)
+            cell["excess_fp32_product"] = excess(y[live], want32[live], *ROUNDING)
+            cell["pair_excess_fp32_product"] = excess(pair[live], want32[live], *ROUNDING)
+            truth = _fused_truth(torch, x, wg, wu, wd, off, gs, cap)
+            cell["excess_float64"] = {
+                name: excess(v, truth, *ROUNDING)
+                for name, v in (("kernel", y[live]), ("pair", pair[live]),
+                                ("fp32 products", want32[live]))}
+            del h32, want32, truth
         del pair
         if dt == torch.bfloat16:
             short = (gs - 1).clamp(min=0).to(torch.int32)
             off1 = (off + 1).to(torch.int32)
+            if body == "decode":
+                fs = K.fused_decode_slice(G, F)
+                s = -(-F // fs)
+                drop = (f"{phase}: one hidden split of {s} dropped", (s - 1) * fs, F)
+            else:
+                lo = (K.FUSED_RANKS - 1) * 64
+                drop = (f"{phase}: cluster rank {K.FUSED_RANKS - 1}'s hidden slice of the "
+                        "first block dropped", lo, lo + 64)
+            wd_drop = _drop_hidden_rows(wd, drop[1], drop[2])
             cell["faults"] = caught(tol, {
                 f"{phase}: K tile of {GMM_BK} dropped":
                     (lambda: R.gmm_fused_ffn(_drop_k_tile(x), wg, wu, wd, off, gs, cap)[live],
@@ -817,15 +911,21 @@ def fused_cells(torch, rows, dtype, timer, time_it: bool):
                     (lambda: R.gmm_fused_ffn(x, wg, wu, wd, off, short, cap)[live], y_ref[live]),
                 f"{phase}: offsets one row off":
                     (lambda: R.gmm_fused_ffn(x, wg, wu, wd, off1, gs, cap)[live], y_ref[live]),
+                drop[0]:
+                    (lambda: R.gmm_fused_ffn(x, wg, wu, wd_drop, off, gs, cap)[live],
+                     y_ref[live]),
             }, what)
+            del wd_drop
         if time_it:
-            reps = 3 if phase == "decode" else 1
+            reps = 10 if phase == "decode" else 5
             xz = torch.nan_to_num(x)
             isz = x.element_size()
             live_rows = int(gs.sum())
             live_groups = int((gs > 0).sum())
             b_ms, b_by = bound(isz * (2 * live_rows * D + 3 * live_groups * D * F),
                                2 * 3 * live_rows * D * F, dtype)
+            plan = (f"hidden slices of {K.fused_decode_slice(G, F)}" if body == "decode" else
+                    f"clusters of {K.FUSED_RANKS} CTAs" if body == "cluster" else "FMA tiles")
             cell.update(
                 ms=timer(lambda: K.gmm_fused_ffn(xz, wg, wu, wd, off, gs, cap), reps, warmup=1),
                 plain_ms=timer(lambda: R.gmm_fused_ffn(xz, wg, wu, wd, off, gs, cap), reps,
@@ -834,8 +934,12 @@ def fused_cells(torch, rows, dtype, timer, time_it: bool):
                     xz, wg, wu, off, gs, cap), wd, off, gs, n_rows), reps, warmup=1),
                 library_ms=None, bound_ms=b_ms, bound_by=b_by,
                 shape=f"G={G} cap={cap} R={n_rows} D=D_out={D} F={F} sum(gs)={live_rows} "
-                      f"live groups={live_groups}",
+                      f"live groups={live_groups}, {body} body ({plan})",
             )
+            if body == "decode":
+                cell["slice_ms"] = {fs: _fused_slice_ms(torch, timer, xz, wg, wu, wd, off, gs,
+                                                        cap, fs, reps)
+                                    for fs in K.FUSED_SLICES}
             del xz
         results[phase] = cell
         del x, y, y_ref
@@ -1713,7 +1817,8 @@ def main(argv=None) -> int:
                 log(f"  ptxas {name} {entry}: {line.split(':', 1)[-1].strip()}")
                 # the wgmma and decode bodies hold their accumulators in
                 # registers: a spill would put them in local memory
-                held_in_regs = "wgmma" in entry or "gmm_decode_kernel" in entry
+                held_in_regs = any(k in entry for k in (
+                    "wgmma", "gmm_decode_kernel", "fused_decode_kernel", "fused_cluster_kernel"))
                 if held_in_regs and "spill" in line and not re.search(
                         r"\b0 bytes spill stores, 0 bytes spill loads", line):
                     raise AssertionError(f"ptxas: {entry} spills: {line.strip()}")
@@ -1726,6 +1831,20 @@ def main(argv=None) -> int:
     log(f"  dynamic shared memory per block at launch: gmm_wgmma_kernel {gmm_smem()} B; "
         "flash_attention_wgmma_kernel "
         + ", ".join(f"{fa_smem(hd)} B (hd {hd})" for hd in (32, 64, 128)))
+    # the fused bodies' plan counts the shared memory they take
+    from repro_torch.kernels.gmm.ragged import fused_decode_slice, fused_smem_bytes
+
+    fused = build.load("gmm_fused_ffn")
+    fused.gmm_fused_ffn_smem_bytes.restype = ctypes.c_longlong
+    fused.gmm_fused_ffn_smem_bytes.argtypes = [ctypes.c_int]
+    for code, body in enumerate(("decode", "cluster")):
+        if fused.gmm_fused_ffn_smem_bytes(code) != fused_smem_bytes(body):
+            raise AssertionError(f"gmm_fused_ffn: the plan counts {fused_smem_bytes(body)} B of "
+                                 f"shared memory for the {body} body, the kernel takes "
+                                 f"{fused.gmm_fused_ffn_smem_bytes(code)} B")
+    log(f"  gmm_fused_ffn bf16 bodies: decode {fused_smem_bytes('decode')} B a block, cluster "
+        f"{fused_smem_bytes('cluster')} B a CTA of dynamic shared memory, as the plan counts; "
+        f"{fused.gmm_fused_ffn_max_clusters()} clusters of 16 CTAs fit the card at once")
     log("  split-KV decode kernels (registers, spill bytes stored/loaded): "
         + "; ".join(split_kernel_ptxas(report)))
     # the decode gates count the split block's shared memory as the kernel does
@@ -1842,7 +1961,12 @@ def main(argv=None) -> int:
                     + ", ".join(f"{k} {v:.2f}" for k, v in c["faults"].items()))
     for phase in ("decode", "prefill"):
         c = bf["fused"][phase]
-        log(f"gmm_fused_ffn {phase} bf16 faults caught: "
+        log(f"gmm_fused_ffn {phase} bf16 ({c['body']} body) vs the fp32 products at "
+            f"{ROUNDING}: {c['excess_fp32_product']:.3f} (the kernel pair "
+            f"{c['pair_excess_fp32_product']:.3f}; logged, not held), against float64 with the "
+            "hidden values rounded to bf16: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in c["excess_float64"].items())
+            + "; two calls bitwise equal; faults caught: "
             + ", ".join(f"{k} {v:.2f}" for k, v in c["faults"].items()))
     log("flash_decode bf16 faults caught: "
         + ", ".join(f"{k} {v:.2f}" for k, v in bf["dense_decode"]["faults"].items()))
@@ -1903,6 +2027,18 @@ def main(argv=None) -> int:
         log(f"time gmm_fused_ffn {phase} [{c['shape']}]: kernel {c['ms']:.3f} ms, plain "
             f"{c['plain_ms']:.3f} ms, kernel pair {c['pair_ms']:.3f} ms, no library call, "
             f"bound {c['bound_ms']:.3f} ms ({c['bound_by']}) [{card}]")
+        what = f"gmm_fused_ffn {phase}"
+        if "slice_ms" in c:
+            log(f"gmm_fused_ffn decode body by hidden slice width (the plan takes "
+                f"{fused_decode_slice(8, 16384)}): "
+                + ", ".join(f"{fs} columns ({-(-16384 // fs)} slices) {ms:.4f} ms"
+                            for fs, ms in c["slice_ms"].items()) + f" [{card}]")
+        log(f"redesigned {what} ({c['body']} body): {c['ms']:.4f} ms in this run, "
+            f"{c['bound_ms'] / c['ms']:.1%} of its {c['bound_by']} bound ({c['bound_ms']:.4f} "
+            f"ms); the gather + scatter pair {c['pair_ms']:.4f} ms in this run (the fused "
+            f"kernel at {c['ms'] / c['pair_ms']:.3f}x it); replaced body as recorded in PERF.md "
+            "(not measured here): " + " / ".join(f"{t:.3f}" for t in REPLACED_MS[what])
+            + f" ms ({min(REPLACED_MS[what]) / c['ms']:.1f}x its fastest) [{card}]")
 
     now = {"flash_attention": bf["attn"]["ms"],
            **{f"{n} prefill": bf["gmm"]["prefill"][n]["ms"]
@@ -2005,6 +2141,11 @@ def main(argv=None) -> int:
                 ex32 = max(c32["excess"], pre32["excess"])
                 extra = {"faults": {**c["faults"], **pre["faults"]},
                          "excess_vs_pair": max(c["excess_vs_pair"], pre["excess_vs_pair"]),
+                         "excess_fp32_product": max(c["excess_fp32_product"],
+                                                    pre["excess_fp32_product"]),
+                         "pair_excess_fp32_product": max(c["pair_excess_fp32_product"],
+                                                         pre["pair_excess_fp32_product"]),
+                         "bodies": {"decode": c["body"], "prefill": pre["body"]},
                          "pair_ms": c["pair_ms"], "prefill_ms": pre["ms"],
                          "prefill_plain_ms": pre["plain_ms"], "prefill_pair_ms": pre["pair_ms"],
                          "prefill_bound_ms": pre["bound_ms"], "prefill_bound_by": pre["bound_by"],

@@ -12,7 +12,11 @@ kernels of ``repro/kernels/gmm/ragged.py``:
   shared zeroed arrival counters (:func:`decode_buffers`), so it never
   reads a count on the host;
 * ``gmm_fused_ffn`` — flat rows in, the hidden block on chip, flat rows out
-  (``csrc/gmm_fused_ffn.cu``).
+  (``csrc/gmm_fused_ffn.cu``): fp32 FMA tiles; in bf16 a decode body that
+  splits the hidden dimension into :func:`fused_decode_slice` slices (fp32
+  partials summed in slice order, as the decode GMM's K splits) and a
+  prefill body on clusters of 16 CTAs that hold the (128, D_out)
+  accumulator between them (:func:`fused_body`, :func:`fused_smem_bytes`).
 
 Flat layouts: group g's rows are ``[offsets[g], offsets[g] + count_g)`` of
 an (R, ·) array, ``count_g = min(group_sizes[g], capacity)``. The kernels
@@ -75,6 +79,51 @@ def decode_buffers(g: int, c: int, d: int, f: int, dtype: torch.dtype, dual: boo
         return 1, None, None
     part = torch.empty(s * g * c * f * (2 if dual else 1), dtype=torch.float32, device=device)
     return s, part, build.arrival_counters(device, g * -(-f // decode_strip(dtype)))
+
+
+# gmm_fused_ffn's bf16 bodies (csrc/gmm_fused_ffn.cu): the decode body
+# (capacity <= DECODE_ROWS) takes a slice of the hidden dimension a block,
+# the prefill body a cluster of FUSED_RANKS CTAs a (group, 128-row tile).
+FUSED_SLICES = (512, 256, 128)   # hidden columns a decode block: FD_MAX_SLICE .. FD_STRIP
+FUSED_SLICE_BLOCKS = 128         # live decode blocks a slice width aims at: about one an SM
+FUSED_OUT_STRIP = 256            # FD_OSTRIP: output columns a decode partial strip
+FUSED_RANKS = 16                 # FC_RANKS: CTAs a prefill cluster (non-portable)
+
+
+def fused_body(capacity: int, dtype: torch.dtype) -> str:
+    """The body a ``gmm_fused_ffn`` launch takes: ``"fma"`` (fp32), or in
+    bf16 ``"decode"`` at capacity <= 8 and ``"cluster"`` above."""
+    if dtype == torch.float32:
+        return "fma"
+    return "decode" if capacity <= DECODE_ROWS else "cluster"
+
+
+def fused_decode_slice(g: int, f: int) -> int:
+    """Hidden columns FS a bf16 decode block of ``gmm_fused_ffn`` takes,
+    from static shapes only: the widest of :data:`FUSED_SLICES` whose
+    S = ceil(F / FS) slices give half the G groups (a run's live groups are
+    its data) at least :data:`FUSED_SLICE_BLOCKS` blocks; the narrowest
+    when none does. No count is read."""
+    live = -(-g // 2)
+    for fs in FUSED_SLICES:
+        if -(-f // fs) * live >= FUSED_SLICE_BLOCKS:
+            return fs
+    return FUSED_SLICES[-1]
+
+
+def fused_smem_bytes(body: str) -> int:
+    """Dynamic shared memory a block of a bf16 body of ``gmm_fused_ffn``
+    takes, counted as the kernel counts it (``gmm_fused_ffn_smem_bytes``):
+    1 KB of alignment, then for ``"decode"`` 3 stages of 32 KB of weights
+    and 8 x rows of 144 bytes, 8 hidden rows of 1040 bytes and the
+    barriers; for ``"cluster"`` 5 stages of 32 KB (a 128 x 64 x tile and
+    64 x 64 boxes of wg and wu, or four of wd), two 16 KB staging slices,
+    two 16 KB chunk buffers and 10 barriers."""
+    if body == "decode":
+        return 1024 + 3 * (32768 + 8 * 144) + 8 * 1040 + 16 * 3 + 16
+    if body == "cluster":
+        return 1024 + 5 * 32768 + 4 * 16384 + 8 * 10
+    raise ValueError(f"fused_smem_bytes: no shared-memory body {body!r}")
 
 
 def can_gmm(d: int, f: int, dtype: torch.dtype) -> bool:
@@ -258,6 +307,33 @@ def gmm_scatter(x, w, offsets, group_sizes, out_rows: int,
     return out
 
 
+def _fused_plan(x, wg, wu, wd, offsets, group_sizes, capacity: int, gpw: int, out=None):
+    """Check the operands of one ``gmm_fused_ffn_launch`` and allocate its
+    flat output and, for the bf16 decode body with more than one hidden
+    slice, its fp32 partials (S x G x capacity x D_out) and arrival
+    counters (G x ceil(D_out / 256)): (out, part, arrived, the launch's int
+    arguments). Reads shapes, never values."""
+    name = "gmm_fused_ffn"
+    g = offsets.shape[0]
+    _, r, d, f = _check(x, (wg, wu), group_sizes, gpw, name, g)
+    d_out = wd.shape[-1]
+    # w_down as the weight of a flat (0, F) input: shape, dtype, gate, layout
+    _check(x.new_empty((0, f)), (wd,), group_sizes, gpw, name, g)
+    _check_offsets(offsets, g, x.device, name)
+    if min(d, f, d_out) == 0:
+        raise ValueError(f"{name}: D, F and D_out must be positive, got {d}, {f}, {d_out}")
+    out = _flat_out(out, (r, d_out), x, name)
+    fs, part, arrived = 0, None, None
+    if fused_body(capacity, x.dtype) == "decode":
+        fs = fused_decode_slice(g, f)
+        s = -(-f // fs)
+        if s > 1:
+            part = torch.empty(s * g * capacity * d_out, dtype=torch.float32, device=x.device)
+            arrived = build.arrival_counters(x.device, g * -(-d_out // FUSED_OUT_STRIP))
+    ints = (g, capacity, d, f, d_out, gpw, r, DTYPES[x.dtype], fs)
+    return out, part, arrived, ints
+
+
 def gmm_fused_ffn(x, wg, wu, wd, offsets, group_sizes, capacity: int,
                   groups_per_weight: int = 1, out=None) -> torch.Tensor:
     """out[offsets[g] + i] = (silu(r @ wg) * (r @ wu)) @ wd for the rows
@@ -268,22 +344,17 @@ def gmm_fused_ffn(x, wg, wu, wd, offsets, group_sizes, capacity: int,
     if not x.is_cuda:
         return ref.gmm_fused_ffn(x, wg, wu, wd, offsets, group_sizes, capacity,
                                  groups_per_weight, out)
-    name = "gmm_fused_ffn"
-    g = offsets.shape[0]
-    _, r, d, f = _check(x, (wg, wu), group_sizes, groups_per_weight, name, g)
-    d_out = wd.shape[-1]
-    # w_down as the weight of a flat (0, F) input: shape, dtype, gate, layout
-    _check(x.new_empty((0, f)), (wd,), group_sizes, groups_per_weight, name, g)
-    _check_offsets(offsets, g, x.device, name)
-    out = _flat_out(out, (r, d_out), x, name)
-    fn = build.entry("gmm_fused_ffn", "gmm_fused_ffn_launch", 7, 8)
+    out, part, arrived, ints = _fused_plan(x, wg, wu, wd, offsets, group_sizes, capacity,
+                                           groups_per_weight, out)
+    fn = build.entry("gmm_fused_ffn", "gmm_fused_ffn_launch", 9, len(ints))
     rc = fn(
         x.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
         offsets.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),
-        g, capacity, d, f, d_out, groups_per_weight, r, DTYPES[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream,
+        None if part is None else part.data_ptr(),
+        None if arrived is None else arrived.data_ptr(),
+        *ints, torch.cuda.current_stream(x.device).cuda_stream,
     )
-    build.check(rc, name)
+    build.check(rc, "gmm_fused_ffn")
     gmm_fused_ffn.launches += 1
     return out
 

@@ -328,6 +328,51 @@ def test_cuda_gather_scatter_fused_match_plain(cuda_device, dtype, tol, cap):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("cap,gpw,d,f,d_out", [
+    (8, 2, 64, 96, 64),          # decode body, one hidden slice wider than F
+    (8, 1, 136, 1160, 200),      # decode, 10 slices of 128 (F tail of 8), D and D_out tails
+    (24, 2, 64, 96, 64),         # prefill cluster, 8 ranks' slices over 96 hidden columns
+    (72, 1, 200, 1096, 520),     # two row tiles, 3 hidden blocks (tail), D_out past one rank
+    (40, 2, 64, 96, 4160),       # two output passes of 4096 columns
+])
+def test_cuda_fused_ffn_bodies(cuda_device, dtype, tol, cap, gpw, d, f, d_out):
+    """gmm_fused_ffn's bodies (bf16: the hidden-slice decode body at
+    capacity 8, the cluster body above; fp32: the FMA tiles) over flat rows
+    with NaN gap rows, a count over the capacity, dead groups and shapes no
+    tile divides, into NaN-filled outputs: live rows within the limit of the
+    plain version and of the kernel pair, every other row still NaN, two
+    calls bitwise equal; bf16 also at (2^-8, 2^-10) against the fp32
+    products of the same inputs (the hidden tensor rounded to bf16 between
+    them, as the kernel keeps it)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(21 + cap)
+    counts = [0, cap, 5, cap + 3, 1, 3]
+    g = len(counts)
+    offsets, r, live = _flat_layout(cuda_device, counts, 2, cap)
+    gs = torch.tensor(counts, dtype=torch.int32, device=cuda_device)   # one over capacity
+    x = _rand(gen, cuda_device, dtype, r, d)
+    x[~live] = float("nan")
+    wg = _rand(gen, cuda_device, dtype, g // gpw, d, f, scale=0.1)
+    wu = _rand(gen, cuda_device, dtype, g // gpw, d, f, scale=0.1)
+    wd = _rand(gen, cuda_device, dtype, g // gpw, f, d_out, scale=0.1)
+    nan = lambda: torch.full((r, d_out), float("nan"), dtype=dtype, device=cuda_device)
+    y = gmm_fused_ffn(x, wg, wu, wd, offsets, gs, cap, gpw, out=nan())
+    again = gmm_fused_ffn(x, wg, wu, wd, offsets, gs, cap, gpw, out=nan())
+    torch.cuda.synchronize()
+    assert torch.isnan(y[~live]).all() and torch.isnan(again[~live]).all()
+    assert torch.equal(y[live], again[live])
+    _check(y[live], gmm_ref.gmm_fused_ffn(x, wg, wu, wd, offsets, gs, cap, gpw)[live], tol)
+    pair = gmm_scatter(gmm_dual_act_gather(x, wg, wu, offsets, gs, cap, gpw), wd, offsets,
+                       gs, r, gpw)
+    _check(y[live], pair[live], tol)
+    if dtype == torch.bfloat16:
+        h = gmm_ref.gmm_dual_act_gather(x.float(), wg.float(), wu.float(), offsets, gs, cap,
+                                        gpw).to(dtype).float()
+        want32 = gmm_ref.gmm_scatter(h, wd.float(), offsets, gs, r, gpw)
+        _check(y[live], want32[live], ROUNDING)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
 @pytest.mark.parametrize("t", [200, 256])
 def test_cuda_dense_decode_matches_plain(cuda_device, dtype, tol, t):
     """Prefix, wrapped-ring and empty validity rows, NaN in every invalid
