@@ -37,8 +37,26 @@ Phases (one line each; any failure raises and the exit code is non-zero):
       NCCL mesh: EP through ``ep_moe_shardmap``, the dense cache of 1024
       slots attended through the partials kernel and the LSE merge, the
       balancer live with one forced migration;
+   d. serving under faults: 12 requests through the ``RequestScheduler``
+      over the paged EP ``Server`` at dbrx-132b width (4 layers, bf16,
+      virtual EP 4 x 8 slots, capacity factor 5.0, alpha 0.1, page 128,
+      batch 8, a 24-page pool; prompts of 64-256 tokens from the run's
+      seed, 32 new tokens, request i at tick i // 2, request 0 stopping at
+      its own third fault-free token) under ``FaultPlan.chaos`` (seed
+      ``CHAOS_SEED``, 24 ticks, pressure 6 pages, NaN on slot 0, revival):
+      device death, revival with blank rows, a straggler, stolen pages and
+      a NaN step all fire and a request is preempted; every request
+      finishes; never-preempted streams equal the fault-free run of the
+      same batch on a fully backed pool bit for bit (recomputed streams
+      log the prefix they share); no decode tick routes to the dead device
+      before its first re-committed replica; the table is consistent; a
+      migration commits; both runs' launches equal the prediction from
+      their admissions and decode ticks. First a small fp32 model serves
+      the same plan with the kernels and on the plain path: every stream,
+      recomputed ones included, equals its fault-free run's, and the two
+      runs agree event for event;
    The expert groups' row counts (and offsets) of layer 0 in one prefill
-   and one decode tick of each are kept for phases 4-5 (the EP path's
+   and one decode tick of 3a-3c are kept for phases 4-5 (the EP path's
    dispatched buckets too);
 4. the kernel op layer (``kernels/*/ops.py``), driven after the servers are
    freed, in bf16, with its launch counts set to 0 before and read after:
@@ -1337,9 +1355,6 @@ def expert_groups(torch, srv, prompt) -> dict:
 
 def main_path(torch, card: str):
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
-    from repro_torch.kernels.flash_decode.paged import flash_decode_paged
-    from repro_torch.kernels.gmm.ragged import gmm_dual_act_ragged, gmm_ragged
     from repro_torch.models import transformer as T
     from repro_torch.parallel.ctx import ParallelCtx
     from repro_torch.runtime.data import request_stream
@@ -1361,8 +1376,7 @@ def main_path(torch, card: str):
     # slices land one per decode tick and it commits at a step boundary.
     forced = force_migration(srv)
     srv.generate(prompt, 2)     # warm-up: first-call costs stay out of the timed run
-    kernels = (gmm_dual_act_ragged, gmm_ragged, flash_decode_paged, flash_attention,
-               *op_layer_kernels())
+    kernels = (*ep_kernels(), *op_layer_kernels())
     for k in kernels:
         k.launches = 0
     migs_before = srv.migrations
@@ -1773,6 +1787,299 @@ def profile_decode(torch, srv, prompt, card: str, steps: int = 8) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3d: serving under faults through the RequestScheduler
+# ---------------------------------------------------------------------------
+
+# The chaos plan's seed: under it all five fault kinds fire within the run
+# and at least one request is preempted, on the full-width path and on the
+# small fp32 model (asserted below, never assumed).
+CHAOS_SEED = 5
+FAULT_KINDS = {"device_death", "device_revival", "straggler", "pool_pressure",
+               "nan_logits"}
+
+
+def chaos_plan(seed: int = CHAOS_SEED):
+    """One death of a device in 1-3 and its revival with blank rows, a
+    straggler report, 6 pool pages stolen and returned, one NaN step on
+    batch slot 0; every fault drawn within 24 ticks."""
+    from repro_torch.runtime.faults import FaultPlan
+
+    return FaultPlan.chaos(seed, n_steps=24, n_devices=4, pressure_pages=6,
+                           nan_slots=(0,), revive=True)
+
+
+def scheduled_prompts(vocab: int, n: int, lo: int, hi: int, seed: int = 0) -> list:
+    """``n`` prompts of lengths drawn in ``[lo, hi]`` from ``seed``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, size=int(k)).astype(np.int32)
+            for k in rng.integers(lo, hi + 1, size=n)]
+
+
+def run_scheduler(torch, srv, prompts, n_new: int, plan=None, eos=None, kernels=(),
+                  warm=()) -> dict:
+    """Serve ``prompts`` through a ``RequestScheduler`` over ``srv`` under
+    ``plan``: request i arrives at tick i // 2, request 0 stops at ``eos``.
+    ``warm`` prompts are served first (2 tokens each, no plan) so first-call
+    costs stay out of the timed run. Records, per decode tick, whether the
+    revived device is in the committed routing view, and times the death
+    and revival calls; kernel launch counts are set to 0 just before the
+    timed run and read just after it."""
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.faults import DEVICE_REVIVAL
+    from repro_torch.runtime.scheduler import RequestScheduler
+
+    sync = torch.cuda.synchronize
+    if warm:
+        w = RequestScheduler(srv)
+        for p in warm:
+            w.submit(p, 2)
+        w.run()
+    dev = next((f.device for f in plan if f.kind == DEVICE_REVIVAL), None) if plan else None
+    routed, marks, fault_ms = [], {}, {}
+    decode_step = T.decode_step
+
+    def spy_step(*args, **kw):
+        routed.append((srv.t, dev in srv.table.committed_devices()))
+        return decode_step(*args, **kw)
+
+    def timed(name, fn):
+        def call(device):
+            marks[name] = srv.t
+            sync()
+            t0 = time.perf_counter()
+            out = fn(device)
+            sync()
+            fault_ms[name] = (time.perf_counter() - t0) * 1e3
+            return out
+        return call
+
+    sched = RequestScheduler(srv, faults=plan)
+    for i, p in enumerate(prompts):
+        sched.submit(p, n_new, eos_id=eos if i == 0 else None, arrival=i // 2)
+    t_before, migs_before = srv.t, srv.migrations
+    for k in kernels:
+        k.launches = 0
+    T.decode_step = spy_step
+    srv.mark_dead, srv.revive = timed("death", srv.mark_dead), timed("revival", srv.revive)
+    try:
+        sync()
+        t0 = time.perf_counter()
+        results = sched.run()
+        sync()
+        wall_s = time.perf_counter() - t0
+    finally:
+        T.decode_step = decode_step
+        del srv.mark_dead, srv.revive
+    return {"sched": sched, "results": results, "wall_s": wall_s, "ticks": sched.step_no,
+            "decode_ticks": srv.t - t_before, "migrations": srv.migrations - migs_before,
+            "admits": sum(k == "admit" for _, k, _ in sched.events),
+            "tokens": sum(len(v) for v in results.values()),
+            "launches": {k.__name__: k.launches for k in kernels},
+            "revived_device": dev, "routed": routed, "marks": marks, "fault_ms": fault_ms}
+
+
+def path_launches(n_layers: int, run: dict) -> dict:
+    """The four path kernels' launches a scheduler run must make: one
+    batch-1 prefill per admission (recomputes included) and one decode step
+    per decode tick, each layer once."""
+    steps = run["admits"] + run["decode_ticks"]
+    return {"gmm_dual_act_ragged": n_layers * steps, "gmm_ragged": n_layers * steps,
+            "flash_decode_paged": n_layers * run["decode_ticks"],
+            "flash_attention": n_layers * run["admits"]}
+
+
+def check_chaos(run: dict, free: dict, what: str, recomputed_equal: bool) -> dict:
+    """Hold a chaos run to its fault-free oracle (``free``: rid -> stream,
+    request 0 cut at its eos): every fault kind fired, a request was
+    preempted, every request finished, every never-preempted stream (with
+    ``recomputed_equal`` every stream) equals the oracle's; no decode tick
+    between the death and the revived device's first re-committed replica
+    routed to the device; the table is consistent; a migration committed.
+    Returns what the run logs."""
+    import numpy as np
+
+    sched = run["sched"]
+    srv = sched.server
+    fired = {d[0] for _, k, d in sched.events if k == "fault"}
+    if not FAULT_KINDS <= fired:
+        raise AssertionError(f"{what}: fault kinds {sorted(FAULT_KINDS - fired)} never fired")
+    if sched.n_preempted < 1:
+        raise AssertionError(f"{what}: the chaos preempted no request")
+    prefix = {}
+    for r in sched.requests:
+        if r.state != "FINISHED":
+            raise AssertionError(f"{what}: request {r.rid} {r.state} ({r.error})")
+        got, want = np.asarray(r.tokens_out), free[r.rid]
+        if r.preemptions and not recomputed_equal:
+            n = min(len(got), len(want))
+            diff = np.flatnonzero(got[:n] != want[:n])
+            prefix[r.rid] = int(diff[0]) if diff.size else n
+        elif not np.array_equal(got, want):
+            raise AssertionError(f"{what}: request {r.rid} (preempted {r.preemptions}x) "
+                                 f"stream {got.tolist()} != fault-free {want.tolist()}")
+    dev, marks = run["revived_device"], run["marks"]
+    commits = [h["committed"] for h in srv.driver.history
+               if h["mig"][2] == dev and h["committed"] > marks["revival"]]
+    if not commits:
+        raise AssertionError(f"{what}: no replica re-committed on revived device {dev}")
+    first = min(commits)
+    blackout = [t for t, present in run["routed"] if marks["death"] <= t < first and present]
+    if blackout:
+        raise AssertionError(f"{what}: device {dev} routed at ticks {blackout} between its "
+                             f"death (tick {marks['death']}) and its first re-commit ({first})")
+    srv.table.check()
+    if run["migrations"] < 1:
+        raise AssertionError(f"{what}: no migration committed")
+    plans = {k: d[1] for _, k, d in sched.events if k in ("evacuated", "revived")}
+    return {"preempted": {r.rid: r.preemptions for r in sched.requests if r.preemptions},
+            "recomputed_shared_prefix": prefix, "evacuation_plan": plans["evacuated"],
+            "revival_plan": plans["revived"], "revival_to_first_commit_ticks":
+            first - marks["revival"], "fault_ms": run["fault_ms"]}
+
+
+def eos_cut(results: dict):
+    """Request 0's eos (its own third fault-free token) and the fault-free
+    streams with request 0 cut there."""
+    import numpy as np
+
+    eos = int(results[0][2])
+    free = {rid: np.asarray(v) for rid, v in results.items()}
+    free[0] = free[0][: int(np.argmax(free[0] == eos)) + 1]
+    return eos, free
+
+
+def ep_kernels():
+    """The four kernels of the paged EP path (3a and 3d)."""
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode.paged import flash_decode_paged
+    from repro_torch.kernels.gmm.ragged import gmm_dual_act_ragged, gmm_ragged
+
+    return (gmm_dual_act_ragged, gmm_ragged, flash_decode_paged, flash_attention)
+
+
+def small_chaos_parity(torch, seed: int = CHAOS_SEED) -> dict:
+    """A small fp32 MoE (4 experts top-2, virtual EP 4 x 3 slots, paged)
+    serving 12 requests through the scheduler under the chaos plan, with the
+    kernels and on the plain path: every stream, recomputed ones included,
+    equals the fault-free run's (same batch, an ample pool, no plan), the
+    two runs agree event for event, and the kernel run's launches equal the
+    prediction."""
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.ctx import ParallelCtx
+    from repro_torch.runtime.serve import ServeConfig, Server
+
+    cfg = dataclasses.replace(smoke(get_config("dbrx-132b")), head_dim=32)
+    prompts = scheduled_prompts(cfg.vocab_size, 12, 8, 32)
+    kernels = ep_kernels()
+
+    def server(use_kernels, pool_pages):
+        params = T.init_params(cfg, seed=5, device="cuda")
+        return Server(cfg, ParallelCtx(capacity_factor=8.0, use_kernels=use_kernels), params,
+                      ServeConfig(max_seq=64, batch=8, slots_per_device=3, virtual_ep=4,
+                                  alpha=0.1, paged=True, page_size=8, pool_pages=pool_pages),
+                      device="cuda")
+
+    eos, free = eos_cut(run_scheduler(torch, server("auto", None), prompts, 16)["results"])
+    runs, held = {}, {}
+    for uk in ("auto", False):
+        runs[uk] = run_scheduler(torch, server(uk, 24), prompts, 16, chaos_plan(seed), eos,
+                                 kernels)
+        held[uk] = check_chaos(runs[uk], free, f"small fp32 chaos (use_kernels={uk})", True)
+    ev = {uk: [(s, k) for s, k, _ in run["sched"].events] for uk, run in runs.items()}
+    if ev["auto"] != ev[False]:
+        raise AssertionError("small fp32 chaos: kernel and plain runs' events differ")
+    want = path_launches(cfg.n_layers, runs["auto"])
+    if runs["auto"]["launches"] != want or any(runs[False]["launches"].values()):
+        raise AssertionError(f"small fp32 chaos launches {runs['auto']['launches']} != {want} "
+                             f"(plain run {runs[False]['launches']})")
+    return {"launches": runs["auto"]["launches"], "ticks": runs["auto"]["ticks"],
+            "n_preempted": runs["auto"]["sched"].n_preempted, **held["auto"]}
+
+
+def scheduler_path(torch, card: str) -> dict:
+    """Phase 3d: dbrx-132b width (4 layers, bf16), virtual EP 4 x 8 slots,
+    paged (page 128, max_seq 1024), batch 8, capacity factor 5.0, alpha
+    0.1; 12 requests (prompts of 64-256 tokens, 32 new tokens, request i at
+    tick i // 2, request 0 stopping at its own third fault-free token) over
+    a 24-page pool under the chaos plan, held to the fault-free run of the
+    same batch on a fully backed pool (64 pages)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.ctx import ParallelCtx
+    from repro_torch.runtime.serve import ServeConfig, Server
+
+    n_layers, n_new, spd = 4, 32, 8
+    cfg = dataclasses.replace(get_config("dbrx-132b"), n_layers=n_layers)
+    prompts = scheduled_prompts(cfg.vocab_size, 12, 64, 256)
+    # one warm-up prompt per prefill bucket a run admits (a recompute's
+    # context of up to 288 tokens takes the bucket of 512)
+    warm = [np.resize(prompts[0], n) for n in (64, 128, 256, 400)]
+    kernels = ep_kernels()
+    peak_gb = {}
+
+    def server(pool_pages):
+        """A fresh server, and the peak memory of its setup (the slot
+        expansion holds the expanded tensors beside the last unexpanded
+        one); the peak of the run that follows is read apart."""
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+        srv = Server(cfg, ParallelCtx(capacity_factor=5.0), params,
+                     ServeConfig(max_seq=1024, batch=8, slots_per_device=spd, virtual_ep=4,
+                                 alpha=0.1, paged=True, page_size=128, pool_pages=pool_pages),
+                     device="cuda")
+        torch.cuda.synchronize()
+        peak_gb["setup"] = max(peak_gb.get("setup", 0.0), torch.cuda.max_memory_allocated() / 1e9)
+        torch.cuda.reset_peak_memory_stats()
+        return srv, time.perf_counter() - t0
+
+    srv, setup_s = server(None)
+    runs = {"fault-free": run_scheduler(torch, srv, prompts, n_new, kernels=kernels, warm=warm)}
+    peak_gb["fault-free"] = torch.cuda.max_memory_allocated() / 1e9
+    eos, free = eos_cut(runs["fault-free"]["results"])
+    runs["fault-free"].pop("sched")
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    srv, _ = server(24)
+    runs["chaos"] = run_scheduler(torch, srv, prompts, n_new, chaos_plan(), eos, kernels, warm)
+    peak_gb["chaos"] = torch.cuda.max_memory_allocated() / 1e9
+    held = check_chaos(runs["chaos"], free, "phase 3d", recomputed_equal=False)
+    for name, run in runs.items():
+        want = path_launches(n_layers, run)
+        if run["launches"] != want:
+            raise AssertionError(f"phase 3d {name}: launches {run['launches']} != {want}")
+    out = {"setup_s": setup_s, "peak_gb": peak_gb, **held}
+    for name, run in runs.items():
+        ms_tick = run["wall_s"] * 1e3 / run["ticks"]
+        tok_s = run["tokens"] / run["wall_s"]
+        out[name] = {k: run[k] for k in ("ticks", "decode_ticks", "admits", "tokens", "wall_s",
+                                         "migrations", "launches")}
+        out[name].update(ms_per_tick=ms_tick, tok_s=tok_s)
+        log(f"phase 3d {name}: {run['ticks']} ticks ({run['decode_ticks']} decode), "
+            f"{run['admits']} admissions, {run['tokens']} tokens in {run['wall_s']:.3f} s = "
+            f"{ms_tick:.2f} ms a tick, {tok_s:.1f} tok/s, {run['migrations']} migrations "
+            f"committed, launches {run['launches']} as predicted [{card}]")
+    sched = runs["chaos"]["sched"]
+    log(f"phase 3d chaos (seed {CHAOS_SEED}): faults "
+        + ", ".join(f"{f.kind}@{f.step}" for f in sched.faults)
+        + f"; preempted {sched.n_preempted} ({held['preempted']}; recomputed streams' prefix "
+        f"shared with the fault-free run {held['recomputed_shared_prefix']}); evacuation plan "
+        f"{held['evacuation_plan']}, revival plan {held['revival_plan']} migrations, "
+        f"{held['revival_to_first_commit_ticks']} ticks from revival to the first re-commit; "
+        f"mark_dead {held['fault_ms'].get('death', 0):.2f} ms, revive "
+        f"{held['fault_ms'].get('revival', 0):.2f} ms (host, synchronised); peak memory "
+        + ", ".join(f"{k} {v:.2f} GB" for k, v in peak_gb.items())
+        + f"; setup {setup_s:.2f} s a server [{card}]")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1888,6 +2195,16 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mesh_launches, mesh_rows, mesh_run = mesh_path(torch, mesh, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    small_chaos = small_chaos_parity(torch)
+    log(f"small fp32 model under the chaos plan (seed {CHAOS_SEED}): with the kernels and on "
+        f"the plain path every stream equals the fault-free run's, recomputed ones included "
+        f"(preempted {small_chaos['preempted']}, {small_chaos['ticks']} ticks, evacuation "
+        f"plan {small_chaos['evacuation_plan']}, revival plan {small_chaos['revival_plan']}, "
+        f"first re-commit {small_chaos['revival_to_first_commit_ticks']} ticks after the "
+        f"revival; kernel run launches {small_chaos['launches']} as predicted)")
+    sched_run = scheduler_path(torch, card)
     gc.collect()
     torch.cuda.empty_cache()
     op_launches, op_excess = op_layer_path(torch, groups, mesh_rows, card)
@@ -2207,7 +2524,8 @@ def main(argv=None) -> int:
             "shape": c["shape"], **extra,
         })
     print(json.dumps({"kernels": entries, "run": run, "run_esp": esp_run,
-                      "run_mesh": mesh_run, "op_layer_excess": op_excess}), flush=True)
+                      "run_mesh": mesh_run, "run_scheduler": sched_run,
+                      "op_layer_excess": op_excess}), flush=True)
     import torch.distributed as dist
 
     dist.destroy_process_group()

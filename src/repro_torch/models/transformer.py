@@ -195,6 +195,7 @@ def prefill(
     n_pages: int | None = None,
     tables: torch.Tensor | None = None,    # (B, NB) allocator block tables
     lengths: torch.Tensor | None = None,   # (B,) true prompt lengths
+    placement=None,             # (slot_of, n_replicas); None = native homes
 ):
     """Process the prompts; return (last-position logits ``(B, 1, V)``,
     primed cache, dense or with ``paged`` paged). The cache takes the
@@ -202,7 +203,9 @@ def prefill(
     dense prefill caches in fp32 whatever the params' dtype). Paged mode:
     ``tables`` are allocator block tables and ``lengths`` marks true prompt
     lengths of right-padded ragged batches (logits come from each request's
-    last true position)."""
+    last true position). ``placement`` routes the EP experts as in
+    ``decode_step``; the reference's prefill takes none and routes every
+    copy to the expert's native slot, which a revival may have scrubbed."""
     _check_pattern(cfg)
     b, s = tokens.shape
     x = _embed(params, tokens)
@@ -228,7 +231,7 @@ def prefill(
         else:
             dense_prefill_fill(c_l, k, v, cfg, length, lo)
         z2 = rms_norm(x, p_l["ln2"], cfg.norm_eps)
-        y, _ = _block_ffn(p_l, z2, cfg, ctx, None, None)
+        y, _ = _block_ffn(p_l, z2, cfg, ctx, placement, None)
         x = x + y
     cache["pos"] = s
     if lengths is not None:

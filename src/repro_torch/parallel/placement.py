@@ -1,12 +1,13 @@
 """The one placement table, from balancer to device (copy of
-``repro.parallel.placement``, cut to what the serving slice calls).
+``repro.parallel.placement``).
 
 Two views, one commit point:
 
 * **routing view** (:meth:`device_view`) — the *committed* ``(slot_of,
   n_replicas)`` pair handed to the decode step as int32 tensors on the
-  server's device. It changes only inside :meth:`commit`, which the serving
-  loop calls at decode-step boundaries: that is the atomic swap. A replica
+  server's device. It changes only inside :meth:`commit` /
+  :meth:`drop_device` / :meth:`remove_replica`, which the serving loop
+  calls at decode-step boundaries: that is the atomic swap. A replica
   being copied slice-by-slice is *pending* and invisible here.
 * **planning view** (:meth:`replica_devices`, :meth:`slots_used`,
   :meth:`free_slot`) — committed **plus pending** replicas, so the balancer
@@ -99,6 +100,28 @@ class PlacementTable:
         return cls(n_experts, n_slots, slots_per_device or n_slots,
                    slot_of, n_replicas)
 
+    @classmethod
+    def round_robin(
+        cls, n_experts: int, n_devices: int, slots_per_device: int,
+        r_max: int | None = None,
+    ) -> "PlacementTable":
+        """Expert e -> device ``e % n_devices`` (the balancer's initial
+        layout), first-fit slot within the device."""
+        if n_experts > n_devices * slots_per_device:
+            raise PlacementError(
+                f"{n_experts} experts need more than "
+                f"{n_devices}x{slots_per_device} slots"
+            )
+        r_max = r_max or max(4, n_devices)
+        slot_of = np.zeros((n_experts, r_max), dtype=np.int32)
+        e = np.arange(n_experts)
+        slot_of[:] = ((e % n_devices) * slots_per_device + e // n_devices)[
+            :, None
+        ]
+        n_replicas = np.ones(n_experts, dtype=np.int32)
+        return cls(n_experts, n_devices * slots_per_device,
+                   slots_per_device, slot_of, n_replicas)
+
     # -- routing view (committed only) ---------------------------------------
 
     @property
@@ -129,6 +152,24 @@ class PlacementTable:
     def device_of(self, slot: int) -> int:
         return int(slot) // self.slots_per_device
 
+    def _live(self) -> np.ndarray:
+        return np.arange(self.r_max)[None, :] < self.n_replicas[:, None]
+
+    def owner_of_slots(self) -> np.ndarray:
+        """Expert committed to each physical slot, ``-1`` for free slots."""
+        owner = np.full(self.n_slots, -1, dtype=np.int64)
+        live = self._live()
+        experts = np.broadcast_to(
+            np.arange(self.n_experts)[:, None], self.slot_of.shape
+        )
+        owner[self.slot_of[live]] = experts[live]
+        return owner
+
+    def committed_devices(self) -> set[int]:
+        """Devices referenced by any committed replica: the set a token can
+        route to this tick."""
+        return {int(d) for d in self.slot_of[self._live()] // self.slots_per_device}
+
     def committed_slots(self, e: int) -> list[int]:
         return [int(s) for s in self.slot_of[e, : self.n_replicas[e]]]
 
@@ -147,8 +188,7 @@ class PlacementTable:
 
     def used_slots(self, include_pending: bool = True) -> np.ndarray:
         used = np.zeros(self.n_slots, dtype=bool)
-        live = np.arange(self.r_max)[None, :] < self.n_replicas[:, None]
-        used[self.slot_of[live]] = True
+        used[self.slot_of[self._live()]] = True
         if include_pending:
             for _, s in self._pending:
                 used[s] = True
@@ -223,14 +263,58 @@ class PlacementTable:
         self.n_replicas[e] = r + 1
         self._bump()
 
+    def apply(self, e: int, device: int) -> int | None:
+        """Reserve + commit in one step (balancer simulation, evacuation).
+        Returns the slot, or None when the replica cannot be placed."""
+        slot = self.try_reserve(e, device)
+        if slot is not None:
+            self.commit(e, slot)
+        return slot
+
+    # -- removal -------------------------------------------------------------
+
+    def remove_replica(self, e: int, r: int) -> int:
+        """Drop committed replica column ``r`` of expert ``e`` (swap with
+        the last); returns the freed slot."""
+        n = int(self.n_replicas[e])
+        if not (0 <= r < n):
+            raise PlacementError(f"expert {e} has no replica column {r}")
+        if n == 1:
+            raise PlacementError(f"cannot remove expert {e}'s only replica")
+        freed = int(self.slot_of[e, r])
+        self.slot_of[e, r] = self.slot_of[e, n - 1]
+        self.n_replicas[e] = n - 1
+        self.slot_of[e, n - 1 :] = self.slot_of[e, 0]
+        self._bump()
+        return freed
+
+    def drop_device(self, device: int) -> int:
+        """Remove every committed replica on ``device`` wherever the expert
+        has another (an expert whose only copy sits there keeps it). Tail
+        columns are repointed at a live replica, so no entry targets the
+        device. One stable argsort partitions each row into kept and
+        dropped entries. Returns the number of experts that dropped one."""
+        live = self._live()
+        on_dead = live & (self.slot_of // self.slots_per_device == device)
+        keep = live & ~on_dead
+        sole = ~keep.any(axis=1)          # only-copy-was-there experts
+        keep[sole] = live[sole]
+        order = np.argsort(~keep, axis=1, kind="stable")
+        slot_of = np.take_along_axis(self.slot_of, order, axis=1)
+        n_rep = keep.sum(axis=1).astype(np.int32)
+        tail = np.arange(self.r_max)[None, :] >= n_rep[:, None]
+        self.slot_of = np.where(tail, slot_of[:, :1], slot_of).astype(np.int32)
+        self.n_replicas = n_rep
+        self._bump()
+        return int((on_dead.any(axis=1) & ~sole).sum())
+
     # -- invariants -----------------------------------------------------------
 
     def check(self) -> None:
         """Internal-consistency assertions (tests call this every tick)."""
         if (self.n_replicas < 1).any() or (self.n_replicas > self.r_max).any():
             raise PlacementError(f"n_replicas out of range: {self.n_replicas}")
-        live = np.arange(self.r_max)[None, :] < self.n_replicas[:, None]
-        slots = self.slot_of[live]
+        slots = self.slot_of[self._live()]
         if slots.size and (slots.min() < 0 or slots.max() >= self.n_slots):
             raise PlacementError("committed slot out of range")
         flat = [int(s) for s in slots]

@@ -1,6 +1,5 @@
 """Live stepped expert migration, driven through the decode loop (PyTorch
-port of ``repro.runtime.migration_driver``, without the device-death
-handling, which comes with the fault-tolerance slice).
+port of ``repro.runtime.migration_driver``).
 
 Lifecycle of one migration ``(expert, src_device, dst_device)``:
 
@@ -22,11 +21,19 @@ Lifecycle of one migration ``(expert, src_device, dst_device)``:
    table commit publishes the replica to the routing view. Stream order
    guarantees the copy landed before any kernel that reads the new routing
    view; that single host-side table swap is the atomic commit point.
+
+Device death mid-migration (``Server.mark_dead``) never publishes a torn
+replica: in-flight migrations *to* the dead device abort (the reservation
+is released) and requeue toward a live destination from slice zero;
+migrations *from* it fast-forward (the remaining slices are issued at once
+and committed), which is safe under the logical death model (routing stops
+but the device's memory stays addressable; see ``Server.mark_dead``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import torch
 import torch.distributed as dist
@@ -102,7 +109,7 @@ class InFlightMigration:
 
 class MigrationDriver:
     """Owns the in-flight migrations; the Server ticks it once per decode
-    step."""
+    step (and the scheduler on idle ticks, via ``drain_migrations``)."""
 
     def __init__(self, table: PlacementTable, min_slices: int = 4,
                  mapping: Mapping | None = None, mesh: Mesh | None = None):
@@ -117,6 +124,7 @@ class MigrationDriver:
         self.expert_bytes: float | None = None
         self.in_flight: list[InFlightMigration] = []
         self.history: list[dict] = []
+        self.aborted: list[dict] = []
 
     def _slot_bytes(self, moe: dict) -> float:
         if self.expert_bytes is None:
@@ -182,6 +190,59 @@ class MigrationDriver:
         self.in_flight = remaining
         return committed
 
+    def handle_device_death(
+        self,
+        device: int,
+        moe: dict,
+        t: int,
+        retarget: Callable[[Migration], Migration | None] | None = None,
+    ) -> dict:
+        """Resolve in-flight migrations touching a dead device before
+        evacuation plans against the table. Migrations **to** it abort (the
+        reservation is released; routing never saw the slot) and requeue as
+        ``retarget(mig)`` from slice zero; migrations **from** it
+        fast-forward (remaining slices issued now, then committed)."""
+        survivors: list[InFlightMigration] = []
+        out = {"aborted": [], "requeued": [], "fast_forwarded": []}
+        requeue: list[Migration] = []
+        for fl in self.in_flight:
+            e = fl.expert
+            if self.table.device_of(fl.dst_slot) == device:
+                self.table.release_pending(e, fl.dst_slot)
+                rec = fl.record(committed=None)
+                self.aborted.append(rec)
+                out["aborted"].append(rec)
+                new_mig = retarget(fl.mig) if retarget else None
+                if new_mig is not None:
+                    requeue.append(new_mig)
+            elif self.table.device_of(fl.src_slot) == device:
+                while not fl.copied:
+                    self._issue_slice(moe, fl, t)
+                self.table.commit(e, fl.dst_slot)
+                rec = fl.record(committed=t)
+                self.history.append(rec)
+                out["fast_forwarded"].append(rec)
+            else:
+                survivors.append(fl)
+        self.in_flight = survivors
+        if requeue:
+            out["requeued"] = self.submit(requeue, moe, t)
+        return out
+
     @property
     def pending(self) -> int:
         return len(self.in_flight)
+
+    def export_in_flight(self) -> list[dict]:
+        """JSON-able ledger of in-flight migrations, for crash snapshots: the
+        plan entry and its progress only (a restore re-submits from slice
+        zero against the restored table)."""
+        return [
+            {
+                "mig": list(fl.mig),
+                "next_slice": fl.next_slice,
+                "n_slices": fl.n_slices,
+                "submitted": fl.submitted,
+            }
+            for fl in self.in_flight
+        ]

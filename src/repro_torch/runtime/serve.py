@@ -30,8 +30,16 @@ observes the global counts and plans the same migrations, and moves
 migration slices between ranks. ``generate`` gathers the tokens of every
 request. ESP and the paged cache under a mesh are not ported yet.
 
-Device failure handling (``mark_dead``/``revive``), snapshot restore and
-the chunked-prefill lane come with later slices.
+Device failures: ``mark_dead`` aborts or fast-forwards in-flight migration
+slices, evacuates orphaned experts (placement table and weight rows) and
+drops the dead device's replicas from the routing table; ``revive``
+re-admits it with blank slot rows and seeds them through the stepped
+migration driver. Stragglers: per-device step-time EMAs scale heats,
+draining load away. Both run without a mesh; under one they raise (the dead
+device's rows sit on another rank). Request-level serving (admission,
+preemption, faults) lives one layer up in :mod:`repro_torch.runtime.
+scheduler`. Snapshot restore and the chunked-prefill lane come with later
+slices.
 """
 
 from __future__ import annotations
@@ -45,6 +53,8 @@ import torch.distributed as dist
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.ni_balancer import (
     BalancerState,
+    evacuate,
+    revival_plan,
     should_trigger,
     topology_aware_balance,
 )
@@ -124,6 +134,15 @@ def validate_prefill_chunk(chunk: int | None, page_size: int, max_seq: int,
         raise ValueError("ServeConfig: prefill_chunk requires paged=True")
 
 
+# A revived device's HBM is blank (no on-wafer disk): its free slot rows are
+# scrubbed with this loud finite sentinel until migration slices overwrite
+# them. Finite so inert paths stay exactly zero (an empty expert bucket
+# computes FFN(0 @ W) = 0 whatever W), loud so any route to an uncommitted
+# replica gives non-finite logits instead of decoding stale weights. In
+# bf16 it rounds to a finite value too.
+BLANK_WEIGHT = 1e30
+
+
 class SlotReleaseError(RuntimeError):
     """``Server.release`` of a slot that holds no pages (double release, or
     a slot that was never admitted)."""
@@ -179,8 +198,8 @@ class Server:
             )
         if serve_cfg.prefill_chunk:
             raise NotImplementedError(
-                "ServeConfig(prefill_chunk=...) is not ported yet (ROADMAP: "
-                "chunk lane)"
+                "ServeConfig(prefill_chunk=...) is not ported yet (ROADMAP "
+                "Queue 1 item 4, the chunk lane)"
             )
         self.mesh = ctx.mesh
         if self.mesh is not None:
@@ -305,15 +324,19 @@ class Server:
             raise ValueError(f"{what} requires ServeConfig(paged=True)")
 
     def _prefill(self, tokens, tables=None, lengths=None):
+        # Prefill routes by the committed table, as decode does: a native
+        # slot may hold another expert (or BLANK_WEIGHT) after a revival.
+        placement = self.table.device_view(self.device) if self.use_balancer else None
         if not self.scfg.paged:
             return T.prefill(self.params, tokens, self.cfg, self.ctx,
-                             max_seq=self.scfg.max_seq)
+                             max_seq=self.scfg.max_seq, placement=placement)
         return T.prefill(
             self.params, tokens, self.cfg, self.ctx,
             max_seq=self.scfg.max_seq, paged=True,
             page_size=self.scfg.page_size, n_pages=self.n_pool_pages,
             tables=torch.as_tensor(tables, device=self.device),
             lengths=torch.as_tensor(lengths, dtype=torch.int32, device=self.device),
+            placement=placement,
         )
 
     def _tokens(self, tokens) -> torch.Tensor:
@@ -602,3 +625,133 @@ class Server:
         self._copy_expert_rows(int(self.table.slot_of[e, 0]), slot)
         self.table.commit(e, slot)
         return True
+
+    # -- fault tolerance ------------------------------------------------------
+
+    def _no_mesh(self, what: str) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"{what} under a mesh is not ported yet (ROADMAP Queue 1 item "
+                f"5): the dead device's slot rows sit on another rank, and a "
+                f"rank keeps only sharding.slot_rows"
+            )
+
+    def _ep_device(self, what: str, device) -> int:
+        device = int(device)
+        if not 0 <= device < self.ep:
+            raise ValueError(
+                f"{what}: device {device} is outside the EP axis "
+                f"(want 0 <= device < {self.ep})"
+            )
+        return device
+
+    def _retarget(self, dead: int, mig):
+        """Replacement for a migration aborted by ``dead``'s death: same
+        expert, sourced from a live committed replica, aimed at the nearest
+        live device with a free slot that neither hosts nor expects it.
+        None when no such device exists."""
+        e, _src, _dst = mig
+        src = next(
+            (
+                d
+                for d in self.table.replica_devices(e, include_pending=False)
+                if d != dead and d not in self.state.dead
+            ),
+            None,
+        )
+        if src is None:
+            return None            # evacuation will recreate the expert
+        cand = [
+            d
+            for d in range(self.ep)
+            if d != dead
+            and d not in self.state.dead
+            and d not in self.table.replica_devices(e)
+            and self.table.free_slot(d) is not None
+        ]
+        if not cand:
+            return None
+        return (e, src, min(cand, key=lambda d: self.distance(src, d)))
+
+    def mark_dead(self, device: int) -> list:
+        """Node failure, the full evacuation path:
+
+        1. in-flight stepped migrations touching the device are resolved
+           first (to it: abort and requeue toward a live destination; from
+           it: fast-forward), so no torn replica is ever committed;
+        2. ``evacuate`` pins the device's heat to infinity and commits a
+           replica for every expert whose only live copy sat there;
+        3. each evacuation entry's weight rows are copied whole, read from
+           the dead device's slot: in this logical death model routing
+           stops but the memory stays addressable (a real die failure
+           would restore the rows from checkpoint shards instead);
+        4. the device's replicas drop out of the routing view.
+
+        Returns the evacuation plan ``[(expert, src, dst), ...]``."""
+        self._no_mesh("mark_dead")
+        if self.state is None:
+            return []
+        if self.driver is not None:
+            self.driver.handle_device_death(
+                device, self._moe(), self.t,
+                retarget=lambda mig: self._retarget(device, mig),
+            )
+        plan = evacuate(self.state, device, self.distance)
+        for e, _src, dst in plan:
+            # The orphan's copy: usually on the dying device; after repeated
+            # failures it may sit on an earlier-dead one (column 0).
+            src_slot = self.table.slot_on_device(e, device)
+            if src_slot is None:
+                src_slot = int(self.table.slot_of[e, 0])
+            self._copy_expert_rows(src_slot, self.table.slot_on_device(e, dst))
+        self.table.drop_device(device)
+        return plan
+
+    def revive(self, device: int) -> list:
+        """Re-admit a repaired device with blank HBM:
+
+        1. the balancer forgets the death (finite heat, straggler penalty
+           reset);
+        2. the device's free slot rows are scrubbed with ``BLANK_WEIGHT``,
+           in place; slots still committed there (sole-copy orphans of a
+           failed evacuation) are spared;
+        3. ``revival_plan`` seeds the blank slots with the hottest
+           per-replica experts from their nearest live hosts, through
+           ``apply_plan`` (the stepped driver when configured), so routing
+           references the device only once each copy commits.
+
+        Returns the revival plan."""
+        self._no_mesh("revive")
+        if self.state is None:
+            raise ValueError("revive requires the balancer serving path")
+        device = self._ep_device("revive", device)
+        if device not in self.state.dead:
+            raise ValueError(f"revive: device {device} is not dead")
+        self.state.revive(device)
+        spd = self.table.slots_per_device
+        used = self.table.used_slots()
+        blank = [s for s in range(device * spd, (device + 1) * spd) if not used[s]]
+        if blank:
+            idx = torch.as_tensor(blank, dtype=torch.long, device=self.device)
+            moe = self._moe()
+            for w in MOE_WEIGHTS:
+                moe[w][:, idx] = BLANK_WEIGHT
+        plan = revival_plan(self.state, device, self.distance)
+        self.apply_plan(plan)
+        return plan
+
+    def report_step_time(self, device: int, ratio: float) -> None:
+        """Straggler mitigation: fold a measured step-time ratio (measured /
+        median) into the device's heat multiplier."""
+        if self.state is None:
+            return
+        device = self._ep_device("report_step_time", device)
+        ratio = float(ratio)
+        if not np.isfinite(ratio) or ratio <= 0:
+            raise ValueError(
+                f"report_step_time: ratio {ratio} must be a finite positive "
+                f"step-time ratio (measured / median)"
+            )
+        if self.state.slowdown is None:
+            self.state.slowdown = np.ones(self.ep)
+        self.state.slowdown[device] = 0.8 * self.state.slowdown[device] + 0.2 * ratio

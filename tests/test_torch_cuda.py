@@ -794,3 +794,22 @@ def test_cuda_gmm_decode_gather_no_rows(cuda_device, dual, dtype):
          else gmm_gather(x, w, zeros, zeros, cap))
     torch.cuda.synchronize()
     assert y.shape == (g, cap, f) and (y == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [5, 14])
+def test_cuda_scheduler_chaos_small_model(cuda_device, seed):
+    """``chip_smoke.small_chaos_parity`` on the card: a small fp32 MoE under
+    the chaos plan (death, revival with blank rows, straggler, pool
+    pressure, NaN) through the ``RequestScheduler``, with the kernels and on
+    the plain path. Every stream, recomputed ones included, equals the
+    fault-free run's; the runs agree event for event; no decode tick routes
+    to the dead device before its first re-committed replica; the kernel
+    run's launches equal the prediction."""
+    import sys
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    held = chip_smoke.small_chaos_parity(torch, seed)
+    assert held["n_preempted"] > 0 and held["launches"]["flash_attention"] > 0

@@ -52,7 +52,8 @@ def test_port_imports_neither_jax_nor_repro():
     assert len(_port_files()) > 20
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     for mod in ("parallel/mesh.py", "parallel/sharding.py", "parallel/collectives.py",
-                "kernels/gmm/ops.py", "kernels/gmm/gmm.py"):
+                "kernels/gmm/ops.py", "kernels/gmm/gmm.py", "runtime/faults.py",
+                "runtime/scheduler.py"):
         assert f"src/repro_torch/{mod}" in names
 
 
