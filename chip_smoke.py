@@ -55,6 +55,25 @@ Phases (one line each; any failure raises and the exit code is non-zero):
       the same plan with the kernels and on the plain path: every stream,
       recomputed ones included, equals its fault-free run's, and the two
       runs agree event for event;
+   e. chunked admission and crash-safe snapshots: a small fp32 model first
+      (chunked against splice admission with the kernels and on the plain
+      path, every stream equal; a crash with a request mid-prefill restored
+      from the snapshot file, every stream equal to the uninterrupted
+      run's), then at dbrx-132b width with 3d's model, slots, capacity
+      factor, batch and requests and ``prefill_chunk=128``: a probe of where
+      a recomputed bf16 context's K/V leave the K/V decode wrote (per layer,
+      and layer 0's K projection at 8 rows against the context's rows);
+      (i) a fault-free chunked run on 64 pages beside 3d's splice run (no
+      live request stalls, each first token within ceil(len/128) + 1 ticks
+      of admission, no chunk-lane copy dropped, launches as predicted with
+      no ``flash_attention``; prefixes shared with the splice run logged);
+      (ii) a chunked run under 3d's chaos plan on 24 pages with a
+      ``crash_restart`` landing on the first tick from the death that
+      starts with a request mid-prefill: the crashed server is freed, the
+      scheduler restored from the snapshot file serves on, every request
+      finishes, streams neither preempted nor live at the crash equal run
+      (i)'s, the restore's peak memory stays within the setup peak plus the
+      restored cache; snapshot ms and bytes, restore ms;
    The expert groups' row counts (and offsets) of layer 0 in one prefill
    and one decode tick of 3a-3c are kept for phases 4-5 (the EP path's
    dispatched buckets too);
@@ -1818,76 +1837,152 @@ def scheduled_prompts(vocab: int, n: int, lo: int, hi: int, seed: int = 0) -> li
 
 
 def run_scheduler(torch, srv, prompts, n_new: int, plan=None, eos=None, kernels=(),
-                  warm=()) -> dict:
+                  warm=(), crash_after=None, crash_path="") -> dict:
     """Serve ``prompts`` through a ``RequestScheduler`` over ``srv`` under
     ``plan``: request i arrives at tick i // 2, request 0 stops at ``eos``.
     ``warm`` prompts are served first (2 tokens each, no plan) so first-call
-    costs stay out of the timed run. Records, per decode tick, whether the
-    revived device is in the committed routing view, and times the death
-    and revival calls; kernel launch counts are set to 0 just before the
-    timed run and read just after it."""
-    from repro_torch.models import transformer as T
-    from repro_torch.runtime.faults import DEVICE_REVIVAL
+    costs stay out of the timed run. Kernel launch counts are set to 0 just
+    before the timed run. With ``crash_after``, a ``crash_restart`` fault
+    (snapshot to ``crash_path``) joins the plan at the first tick from
+    ``crash_after`` on that starts with a request mid-prefill, and the run
+    ends there (see ``drive``)."""
     from repro_torch.runtime.scheduler import RequestScheduler
 
-    sync = torch.cuda.synchronize
     if warm:
         w = RequestScheduler(srv)
         for p in warm:
             w.submit(p, 2)
         w.run()
-    dev = next((f.device for f in plan if f.kind == DEVICE_REVIVAL), None) if plan else None
-    routed, marks, fault_ms = [], {}, {}
-    decode_step = T.decode_step
+    sched = RequestScheduler(srv, faults=plan)
+    for i, p in enumerate(prompts):
+        sched.submit(p, n_new, eos_id=eos if i == 0 else None, arrival=i // 2)
+    for k in kernels:
+        k.launches = 0
+    return drive(torch, sched, kernels, crash_after, crash_path)
+
+
+def drive(torch, sched, kernels=(), crash_after=None, crash_path="") -> dict:
+    """Run ``sched`` to its end, or to a crash. Records each tick's wall
+    time (each tick ends in a host read of the logits; a synchronise closes
+    it), the decode ticks, the ticks that carried a chunk, whether the
+    revived device is in each decode tick's committed routing view, and the
+    host time of the death and revival calls; reads the launch counts just
+    after, and holds every tick's launches to what the tick's kind predicts
+    (``path_launches`` of its splice admissions, decode step and chunk).
+    With ``crash_after`` (see ``run_scheduler``) the crash raises
+    ``SimulatedCrash``; the returned run then holds the crash's tick and
+    snapshot and the host time of the snapshot write, and no reference to
+    the scheduler or its server, so both can be freed."""
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import faults as F
+    from repro_torch.runtime import snapshot as S
+
+    srv = sched.server
+    sync = torch.cuda.synchronize
+    dev = next((f.device for f in sched.faults if f.kind == F.DEVICE_REVIVAL), None)
+    routed, marks, fault_ms, tick_ms, chunk_ticks = [], {}, {}, [], [0]
+    chunked, kinds, wrong, tick_kind = bool(srv.scfg.prefill_chunk), {}, [], []
+
+    def launches():
+        return {k.__name__: k.launches for k in kernels}
+    decode_step, save_snapshot, step = T.decode_step, S.save_snapshot, sched.step
 
     def spy_step(*args, **kw):
         routed.append((srv.t, dev in srv.table.committed_devices()))
+        chunk_ticks[0] += kw.get("chunk") is not None and kw["chunk"]["length"] > 0
         return decode_step(*args, **kw)
 
     def timed(name, fn):
-        def call(device):
+        def call(*args):
             marks[name] = srv.t
             sync()
             t0 = time.perf_counter()
-            out = fn(device)
+            out = fn(*args)
             sync()
             fault_ms[name] = (time.perf_counter() - t0) * 1e3
             return out
         return call
 
-    sched = RequestScheduler(srv, faults=plan)
-    for i, p in enumerate(prompts):
-        sched.submit(p, n_new, eos_id=eos if i == 0 else None, arrival=i // 2)
-    t_before, migs_before = srv.t, srv.migrations
-    for k in kernels:
-        k.launches = 0
-    T.decode_step = spy_step
+    def timed_step():
+        pf = sched._prefilling
+        if (crash_after is not None and sched.step_no >= crash_after and pf is not None
+                and pf.prefill_pos > 0 and "crash" not in marks):
+            marks["crash"] = sched.step_no
+            sched.faults = F.FaultPlan([*sched.faults, F.Fault(
+                step=sched.step_no, kind=F.CRASH_RESTART, path=crash_path)])
+        before, t_b, c_b, e_b = launches(), srv.t, chunk_ticks[0], len(sched.events)
+        t0 = time.perf_counter()
+        out = step()
+        sync()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        tick = {"chunked": chunked, "decode_ticks": srv.t - t_b, "chunk_ticks": chunk_ticks[0] - c_b,
+                "admits": sum(k == "admit" for _, k, _ in sched.events[e_b:])}
+        kind = (tick["decode_ticks"], tick["chunk_ticks"], 0 if chunked else tick["admits"])
+        kinds[kind] = kinds.get(kind, 0) + 1
+        tick_kind.append(kind)
+        if kernels:
+            got = {k: v - before[k] for k, v in launches().items()}
+            want = path_launches(srv.cfg.n_layers, tick)
+            if srv.ctx.use_kernels is False:
+                want = dict.fromkeys(want, 0)
+            if got != want:
+                wrong.append((sched.step_no - 1, got, want))
+        return out
+
+    t_before, migs_before, step_before = srv.t, srv.migrations, sched.step_no
+    T.decode_step, S.save_snapshot = spy_step, timed("snapshot", save_snapshot)
     srv.mark_dead, srv.revive = timed("death", srv.mark_dead), timed("revival", srv.revive)
+    sched.step = timed_step
+    crash = None
     try:
         sync()
         t0 = time.perf_counter()
-        results = sched.run()
+        try:
+            results = sched.run()
+        except F.SimulatedCrash as exc:
+            if crash_after is None:
+                raise
+            crash = {"step": exc.step, "snapshot": exc.snapshot, "path": exc.path}
+            results = sched.results()
         sync()
         wall_s = time.perf_counter() - t0
     finally:
-        T.decode_step = decode_step
-        del srv.mark_dead, srv.revive
-    return {"sched": sched, "results": results, "wall_s": wall_s, "ticks": sched.step_no,
-            "decode_ticks": srv.t - t_before, "migrations": srv.migrations - migs_before,
-            "admits": sum(k == "admit" for _, k, _ in sched.events),
-            "tokens": sum(len(v) for v in results.values()),
-            "launches": {k.__name__: k.launches for k in kernels},
-            "revived_device": dev, "routed": routed, "marks": marks, "fault_ms": fault_ms}
+        T.decode_step, S.save_snapshot = decode_step, save_snapshot
+        del srv.mark_dead, srv.revive, sched.step
+    if crash_after is not None and crash is None:
+        raise AssertionError(f"no tick from {crash_after} on started with a request "
+                             f"mid-prefill: the crash never fired")
+    if wrong:
+        raise AssertionError(f"launches off the prediction on ticks (tick, got, want) {wrong[:4]}")
+    run = {"results": results, "wall_s": wall_s, "ticks": sched.step_no - step_before,
+           "tick_ms": tick_ms, "tick_kind": tick_kind, "decode_ticks": srv.t - t_before,
+           "chunk_ticks": chunk_ticks[0], "chunked": bool(srv.scfg.prefill_chunk),
+           "migrations": srv.migrations - migs_before,
+           "admits": sum(k == "admit" for _, k, _ in sched.events),
+           "tokens": sum(len(v) for v in results.values()),
+           "launches": launches(), "tick_kinds": {
+               f"decode {d}, chunk {c}, splice admissions {a}": n for (d, c, a), n in kinds.items()},
+           "revived_device": dev, "routed": routed, "marks": marks, "fault_ms": fault_ms,
+           "events": list(sched.events), "stats": sched.stats()}
+    if crash is None:
+        run["sched"] = sched
+    else:
+        run["crash"] = crash
+        run["states_at_crash"] = {r.rid: r.state for r in sched.requests}
+    return run
 
 
 def path_launches(n_layers: int, run: dict) -> dict:
     """The four path kernels' launches a scheduler run must make: one
-    batch-1 prefill per admission (recomputes included) and one decode step
-    per decode tick, each layer once."""
-    steps = run["admits"] + run["decode_ticks"]
+    batch-1 prefill per splice admission (recomputes included), one decode
+    step per decode tick and one chunk-lane pass per tick that carried a
+    chunk, each layer once. Chunked admission runs no ``flash_attention``:
+    its chunk attends as plain math, as the reference's does."""
+    splice = 0 if run["chunked"] else run["admits"]
+    steps = splice + run["decode_ticks"] + run["chunk_ticks"]
     return {"gmm_dual_act_ragged": n_layers * steps, "gmm_ragged": n_layers * steps,
             "flash_decode_paged": n_layers * run["decode_ticks"],
-            "flash_attention": n_layers * run["admits"]}
+            "flash_attention": n_layers * splice}
 
 
 def check_chaos(run: dict, free: dict, what: str, recomputed_equal: bool) -> dict:
@@ -2041,14 +2136,16 @@ def scheduler_path(torch, card: str) -> dict:
     srv, setup_s = server(None)
     runs = {"fault-free": run_scheduler(torch, srv, prompts, n_new, kernels=kernels, warm=warm)}
     peak_gb["fault-free"] = torch.cuda.max_memory_allocated() / 1e9
+    splice = runs["fault-free"].pop("sched")
+    splice = {"results": runs["fault-free"]["results"], "requests": splice.requests}
     eos, free = eos_cut(runs["fault-free"]["results"])
-    runs["fault-free"].pop("sched")
     del srv
     gc.collect()
     torch.cuda.empty_cache()
     srv, _ = server(24)
     runs["chaos"] = run_scheduler(torch, srv, prompts, n_new, chaos_plan(), eos, kernels, warm)
     peak_gb["chaos"] = torch.cuda.max_memory_allocated() / 1e9
+    del srv
     held = check_chaos(runs["chaos"], free, "phase 3d", recomputed_equal=False)
     for name, run in runs.items():
         want = path_launches(n_layers, run)
@@ -2056,15 +2153,9 @@ def scheduler_path(torch, card: str) -> dict:
             raise AssertionError(f"phase 3d {name}: launches {run['launches']} != {want}")
     out = {"setup_s": setup_s, "peak_gb": peak_gb, **held}
     for name, run in runs.items():
-        ms_tick = run["wall_s"] * 1e3 / run["ticks"]
-        tok_s = run["tokens"] / run["wall_s"]
-        out[name] = {k: run[k] for k in ("ticks", "decode_ticks", "admits", "tokens", "wall_s",
-                                         "migrations", "launches")}
-        out[name].update(ms_per_tick=ms_tick, tok_s=tok_s)
-        log(f"phase 3d {name}: {run['ticks']} ticks ({run['decode_ticks']} decode), "
-            f"{run['admits']} admissions, {run['tokens']} tokens in {run['wall_s']:.3f} s = "
-            f"{ms_tick:.2f} ms a tick, {tok_s:.1f} tok/s, {run['migrations']} migrations "
-            f"committed, launches {run['launches']} as predicted [{card}]")
+        out[name] = tick_summary(run)
+        log(f"phase 3d {name}: {tick_line(run, out[name])}, launches {run['launches']} as "
+            f"predicted [{card}]")
     sched = runs["chaos"]["sched"]
     log(f"phase 3d chaos (seed {CHAOS_SEED}): faults "
         + ", ".join(f"{f.kind}@{f.step}" for f in sched.faults)
@@ -2076,6 +2167,384 @@ def scheduler_path(torch, card: str) -> dict:
         f"{held['fault_ms'].get('revival', 0):.2f} ms (host, synchronised); peak memory "
         + ", ".join(f"{k} {v:.2f} GB" for k, v in peak_gb.items())
         + f"; setup {setup_s:.2f} s a server [{card}]")
+    return out, splice
+
+
+def tick_summary(run: dict) -> dict:
+    """A scheduler run's ticks, ms a tick (mean over the run's wall time,
+    median and max of the ticks), tok/s and launches."""
+    import numpy as np
+
+    out = {k: run[k] for k in ("ticks", "decode_ticks", "chunk_ticks", "admits", "tokens",
+                               "wall_s", "migrations", "launches", "tick_kinds")}
+    out.update(ms_per_tick=run["wall_s"] * 1e3 / run["ticks"],
+               ms_tick_median=float(np.median(run["tick_ms"])),
+               ms_tick_max=float(max(run["tick_ms"])), tok_s=run["tokens"] / run["wall_s"])
+    # median ms of each tick kind: a decode tick alone, one with a chunk,
+    # one with n splice admissions (the tick with the crash is not timed)
+    by_kind = {}
+    for (d, c, a), ms in zip(run["tick_kind"], run["tick_ms"]):
+        name = "idle" if not d else "decode" + " + chunk" * c + f" + {a} splice" * bool(a)
+        by_kind.setdefault(name, []).append(ms)
+    out["ms_tick_median_by_kind"] = {k: float(np.median(v)) for k, v in by_kind.items()}
+    return out
+
+
+def tick_line(run: dict, t: dict) -> str:
+    return (f"{t['ticks']} ticks ({t['decode_ticks']} decode, {t['chunk_ticks']} with a chunk), "
+            f"{t['admits']} admissions, {t['tokens']} tokens in {t['wall_s']:.3f} s = "
+            f"{t['ms_per_tick']:.2f} ms a tick (median {t['ms_tick_median']:.2f}, max "
+            f"{t['ms_tick_max']:.2f}), {t['tok_s']:.1f} tok/s, {t['migrations']} migrations "
+            f"committed; median ms by tick kind "
+            + ", ".join(f"{k} {v:.2f}" for k, v in t["ms_tick_median_by_kind"].items())
+            + f"; every tick's launches as its kind predicts ({t['tick_kinds']})")
+
+
+# ---------------------------------------------------------------------------
+# phase 3e: chunked admission and crash-safe snapshots with restore
+# ---------------------------------------------------------------------------
+
+# the chunk size at full width: one page
+CHUNK = 128
+
+
+def held_streams(got: dict, want: dict, skip=()) -> dict:
+    """Hold every stream of ``got`` (rid -> tokens) but those in ``skip`` to
+    ``want`` bit for bit; return the prefix each skipped stream shares."""
+    import numpy as np
+
+    prefix = {}
+    for rid, tokens in got.items():
+        a, b = np.asarray(tokens), np.asarray(want[rid])
+        if rid in skip:
+            n = min(len(a), len(b))
+            diff = np.flatnonzero(a[:n] != b[:n])
+            prefix[rid] = int(diff[0]) if diff.size else n
+        elif not np.array_equal(a, b):
+            raise AssertionError(f"request {rid}: stream {a.tolist()} != {b.tolist()}")
+    return prefix
+
+
+def restore_run(torch, path: str, cfg, ctx, make_params, plan, kernels) -> tuple:
+    """Rebuild a scheduler from the snapshot file on the card (logical
+    params from ``make_params``) and serve on. Returns the restored run and
+    the restore's host ms (server rebuild and slot expansion)."""
+    from repro_torch.runtime import snapshot as S
+
+    params = make_params()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sched = S.restore_scheduler(path, cfg, ctx, params, faults=plan, device="cuda")
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    del params
+    return sched, restore_ms
+
+
+def combined_launches(n_layers: int, *runs) -> dict:
+    want = {}
+    for run in runs:
+        for k, v in path_launches(n_layers, run).items():
+            want[k] = want.get(k, 0) + v
+    return want
+
+
+def small_chunk_parity(torch) -> dict:
+    """A small fp32 MoE (3d's small model: 4 experts top-2, virtual EP 4 x
+    3 slots, page 8) serving 12 requests through the scheduler, with the
+    kernels and on the plain path: chunked admission (chunks of 8) gives
+    every stream of splice admission, and launches as predicted (no
+    ``flash_attention``); then a crash at the first tick that starts with a
+    request mid-prefill, the server freed, restored from the snapshot file:
+    every stream equals the uninterrupted chunked run's."""
+    import tempfile
+
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.ctx import ParallelCtx
+    from repro_torch.runtime.serve import ServeConfig, Server
+
+    cfg = dataclasses.replace(smoke(get_config("dbrx-132b")), head_dim=32)
+    prompts = scheduled_prompts(cfg.vocab_size, 12, 8, 32)
+    kernels = ep_kernels()
+    out = {}
+
+    def scfg(chunk):
+        return ServeConfig(max_seq=64, batch=8, slots_per_device=3, virtual_ep=4, alpha=0.1,
+                           paged=True, page_size=8, prefill_chunk=chunk)
+
+    for uk in ("auto", False):
+        ctx = ParallelCtx(capacity_factor=8.0, use_kernels=uk)
+
+        def server(chunk):
+            return Server(cfg, ctx, T.init_params(cfg, seed=5, device="cuda"), scfg(chunk),
+                          device="cuda")
+
+        splice = run_scheduler(torch, server(None), prompts, 16)
+        chunked = run_scheduler(torch, server(8), prompts, 16, kernels=kernels)
+        held_streams(chunked["results"], splice["results"])
+        if chunked["sched"].stats()["max_stall_ticks"]:
+            raise AssertionError(f"small chunked run (use_kernels={uk}): a live request stalled")
+        want = path_launches(cfg.n_layers, chunked) if uk else dict.fromkeys(want, 0)
+        if chunked["launches"] != want:
+            raise AssertionError(f"small chunked run (use_kernels={uk}) launches "
+                                 f"{chunked['launches']} != {want}")
+        with tempfile.TemporaryDirectory() as tmp:
+            path = f"{tmp}/snap.npz"
+            pre = run_scheduler(torch, server(8), prompts, 16, kernels=kernels, crash_after=1,
+                                crash_path=path)
+            gc.collect()
+            post, _ = restore_run(torch, path, cfg, ctx,
+                                  lambda: T.init_params(cfg, seed=5, device="cuda"), None, kernels)
+            post = drive(torch, post, kernels)
+        held_streams(post["results"], chunked["results"])
+        if post["launches"] != (combined_launches(cfg.n_layers, pre, post) if uk else want):
+            raise AssertionError(f"small crash run (use_kernels={uk}) launches {post['launches']}")
+        mid = pre["crash"]["snapshot"].requests
+        out.setdefault("crash_tick", pre["crash"]["step"])
+        out.setdefault("mid_prefill", [r["rid"] for r in mid if r["state"] == "PREFILLING"])
+        if uk:
+            out["launches"] = chunked["launches"]
+    return out
+
+
+def kv_recompute_probe(torch, srv, prompt, n_steps: int = 16) -> dict:
+    """Where a recomputed bf16 context leaves the KV that decode wrote: one
+    request of ``len(prompt)`` tokens prefilled into slot 0 of a batch of 8
+    and decoded ``n_steps`` steps (8 rows a step, the other 7 inert), then
+    the prompt plus the emitted tokens recomputed by a batch-1 prefill into
+    slot 1 (unpadded: M = P + n rows). Per layer, the max |diff| of the K
+    and V rows of positions P..P+n-1 (decode-written against
+    recompute-written) and of positions 0..P-1 (both prefill-written, at M =
+    P and M = P + n rows); and layer 0's K projection of those n tokens at M
+    = 8 rows (each decode step's batch) against M = P + n rows (the
+    recompute), before RoPE."""
+    import numpy as np
+
+    from repro_torch.models import layers as Ly
+
+    cache = srv.empty_cache()
+    logits, cache = srv.prefill_into_slot(0, prompt, cache)
+    p = len(prompt)
+    emitted, batches = [], []
+    tok = np.zeros((srv.scfg.batch, 1), np.int64)
+    tok[0, 0] = int(logits[0, -1].float().argmax())
+    for _ in range(n_steps):
+        emitted.append(int(tok[0, 0]))
+        batches.append(tok.copy())
+        logits, cache = srv.decode(tok, cache)
+        tok[0, 0] = int(logits[0, -1].float().argmax())
+    context = np.concatenate([prompt, np.asarray(emitted)])
+    _, cache = srv.prefill_into_slot(1, context, cache)
+    torch.cuda.synchronize()
+
+    def rows(slot, lo, hi):
+        pages = srv._pages[slot]
+        pos = np.arange(lo, hi)
+        idx = torch.as_tensor([pages[q // srv.page_size] for q in pos], device="cuda")
+        r = torch.as_tensor(pos % srv.page_size, device="cuda")
+        lay = cache["layers"]
+        return {n: lay[n][:, idx, r].float() for n in ("pool_k", "pool_v")}
+
+    dec, rec = rows(0, p, p + n_steps), rows(1, p, p + n_steps)
+    pre0, pre1 = rows(0, 0, p), rows(1, 0, p)
+    per_layer = {n: (dec[n] - rec[n]).abs().flatten(1).amax(1).tolist() for n in dec}
+    prefill_layer = {n: (pre0[n] - pre1[n]).abs().flatten(1).amax(1).tolist() for n in pre0}
+    first = next((l for l in range(srv.cfg.n_layers)
+                  if per_layer["pool_k"][l] or per_layer["pool_v"][l]), None)
+    # layer 0's K projection: its input is the normed embedding, the same
+    # for a token whichever pass computes it
+    lp = srv.params["layers"]
+    ln1, wk = lp["ln1"][0], lp["attn"]["wk"][0]
+
+    def z_of(tokens):
+        return Ly.rms_norm(srv.params["embed"][torch.as_tensor(tokens, device="cuda")], ln1,
+                           srv.cfg.norm_eps)
+
+    big = z_of(context) @ wk                                        # M = P + n
+    small = torch.stack([(z_of(b[:, 0]) @ wk)[0] for b in batches])  # M = 8 each
+    proj = (small.float() - big[p:].float()).abs()
+    srv.release(0, cache)
+    srv.release(1, cache)
+    return {"first_layer": first, "kv_max_abs_diff": per_layer,
+            "prefill_rows_max_abs_diff": prefill_layer,
+            "k_proj_max_abs_diff": float(proj.max()),
+            "k_proj_rows_differing": int((proj.amax(1) > 0).sum()), "n_rows": n_steps}
+
+
+def chunk_path(torch, card: str, splice: dict, setup_peak_gb: float) -> dict:
+    """Phase 3e at dbrx-132b width: 3d's model, slots, capacity factor,
+    batch and 12 requests with ``prefill_chunk=128``. First the KV
+    recompute probe (finding of ROADMAP Queue 3 item 1). (i) Chunked,
+    fault-free, 64 pages, held beside 3d's fault-free splice run (``splice``:
+    its streams and requests): no live request stalls, each first token
+    within ceil(len/128) + 1 ticks of admission, launches as predicted (no
+    ``flash_attention``), every chunk-lane copy kept; each stream's prefix
+    shared with the splice run logged (bf16). (ii) Chunked under seed 5's
+    chaos plan on 24 pages plus a crash at the first tick from the death on
+    that starts with a request mid-prefill: the snapshot goes to a
+    temporary directory, the crashed server is freed, ``restore_scheduler``
+    rebuilds it from the file and serves on; every request finishes; the
+    streams neither preempted nor live at the crash equal run (i)'s bit for
+    bit, the others log their shared prefix; every fault kind fired; the
+    restore's peak memory stays within the setup peak plus the restored
+    cache."""
+    import math
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import collectives as Co
+    from repro_torch.parallel.ctx import ParallelCtx
+    from repro_torch.runtime.serve import ServeConfig, Server
+
+    n_layers, n_new = 4, 32
+    cfg = dataclasses.replace(get_config("dbrx-132b"), n_layers=n_layers)
+    prompts = scheduled_prompts(cfg.vocab_size, 12, 64, 256)
+    warm = [np.resize(prompts[0], n) for n in (64, 200)]
+    kernels = ep_kernels()
+    ctx = ParallelCtx(capacity_factor=5.0)
+
+    def params():
+        return T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+
+    def server(pool_pages):
+        return Server(cfg, ctx, params(),
+                      ServeConfig(max_seq=1024, batch=8, slots_per_device=8, virtual_ep=4,
+                                  alpha=0.1, paged=True, page_size=128, pool_pages=pool_pages,
+                                  prefill_chunk=CHUNK), device="cuda")
+
+    srv = server(None)
+    probe = kv_recompute_probe(torch, srv, np.resize(prompts[0], 256))
+    log(f"phase 3e KV recompute probe (bf16, P 256, 16 decode steps): first layer whose "
+        f"decode-written K/V rows differ from the recompute's: {probe['first_layer']}; max "
+        "|diff| per layer K " + ", ".join(f"{x:.3g}" for x in probe["kv_max_abs_diff"]["pool_k"])
+        + ", V " + ", ".join(f"{x:.3g}" for x in probe["kv_max_abs_diff"]["pool_v"])
+        + "; prompt rows (prefill at M 256 vs M 272) K "
+        + ", ".join(f"{x:.3g}" for x in probe["prefill_rows_max_abs_diff"]["pool_k"])
+        + f"; layer 0 K projection at M 8 vs M 272: {probe['k_proj_rows_differing']} of "
+        f"{probe['n_rows']} rows differ, max |diff| {probe['k_proj_max_abs_diff']:.3g} [{card}]")
+
+    # (i) chunked, fault-free, every chunk-lane copy kept
+    dispatch, chunk_copies = Co.bucket_dispatch, []
+
+    def spy_dispatch(x, bucket_ids, n_buckets, capacity):
+        out = dispatch(x, bucket_ids, n_buckets, capacity)
+        if x.shape[0] == CHUNK:
+            chunk_copies.append(torch.stack([(bucket_ids < n_buckets).sum(), out[2].sum()]))
+        return out
+
+    Co.bucket_dispatch = spy_dispatch
+    try:
+        run = run_scheduler(torch, srv, prompts, n_new, kernels=kernels, warm=warm)
+    finally:
+        Co.bucket_dispatch = dispatch
+    sched = run.pop("sched")
+    routed = torch.stack(chunk_copies).sum(0).tolist() if chunk_copies else [0, 0]
+    if routed[0] != routed[1] or not chunk_copies:
+        raise AssertionError(f"phase 3e (i): the chunk lane kept {routed[1]} of {routed[0]} "
+                             f"routed copies over {len(chunk_copies)} calls")
+    if run["launches"] != path_launches(n_layers, run):
+        raise AssertionError(f"phase 3e (i) launches {run['launches']} != "
+                             f"{path_launches(n_layers, run)}")
+    stats = sched.stats()
+    if stats["max_stall_ticks"]:
+        raise AssertionError(f"phase 3e (i): a live request stalled {stats['max_stall_ticks']}")
+    for r in sched.requests:
+        if r.state != "FINISHED":
+            raise AssertionError(f"phase 3e (i): request {r.rid} {r.state} ({r.error})")
+        bound = math.ceil(len(r.prompt) / CHUNK) + 1
+        if r.first_token_step - r.admitted_step + 1 > bound:
+            raise AssertionError(f"phase 3e (i): request {r.rid}'s first token "
+                                 f"{r.first_token_step - r.admitted_step + 1} ticks after its "
+                                 f"admission > {bound}")
+    shared = held_streams(run["results"], splice["results"], skip=set(run["results"]))
+    free = run["results"]
+    admit_to_first = {r.rid: r.first_token_step - r.admitted_step + 1 for r in sched.requests}
+    out = {"probe": probe, "fault-free": tick_summary(run), "chunk_copies": routed,
+           "prefix_shared_with_splice": shared, "admit_to_first_token_ticks": admit_to_first}
+    log(f"phase 3e (i) chunked fault-free: {tick_line(run, out['fault-free'])}; max stall "
+        f"{stats['max_stall_ticks']} ticks; admission to first token {admit_to_first} ticks; "
+        f"chunk lane kept {routed[1]} of {routed[0]} copies; launches {run['launches']} as "
+        f"predicted; prefix shared with the splice run {shared} [{card}]")
+    del sched, srv, run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (ii) chunked, seed 5's chaos plan on 24 pages, plus a crash mid-prefill
+    eos = int(free[0][2])
+    cut = {rid: np.asarray(v) for rid, v in free.items()}
+    cut[0] = cut[0][: int(np.argmax(cut[0] == eos)) + 1]
+    plan = chaos_plan()
+    death = next(f.step for f in plan if f.kind == "device_death")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "snap.npz")
+        pre = run_scheduler(torch, server(24), prompts, n_new, plan, eos, kernels, warm,
+                            crash_after=death, crash_path=path)
+        gc.collect()
+        torch.cuda.empty_cache()
+        freed_gb = torch.cuda.memory_allocated() / 1e9
+        if freed_gb > 1.0:
+            raise AssertionError(f"phase 3e (ii): {freed_gb:.2f} GB still allocated after the "
+                                 "crash: the crashed server was not freed")
+        snap_bytes = os.path.getsize(path) + os.path.getsize(path + ".meta")
+        torch.cuda.reset_peak_memory_stats()
+        restored, restore_ms = restore_run(torch, path, cfg, ctx, params, plan, kernels)
+    restore_peak = torch.cuda.max_memory_allocated() / 1e9
+    lay = restored.cache["layers"]
+    cache_gb = sum(t.numel() * t.element_size() for t in lay.values()) / 1e9
+    if restore_peak > setup_peak_gb + cache_gb:
+        raise AssertionError(f"phase 3e (ii): restore peak {restore_peak:.2f} GB > setup peak "
+                             f"{setup_peak_gb:.2f} GB + the cache {cache_gb:.3f} GB")
+    crash_state = {r["rid"]: (r["state"], r["prefill_pos"]) for r in pre["crash"]["snapshot"].requests}
+    live_at_crash = {rid for rid in pre["crash"]["snapshot"].live_rids if rid is not None}
+    post = drive(torch, restored, kernels)
+    sched = post.pop("sched")
+    # the crash itself fires before the tick's faults are logged; run (ii)'s
+    # "crash" record is its proof
+    fired = {d[0] for run in (pre, post) for _, k, d in run["events"] if k == "fault"}
+    if not FAULT_KINDS <= fired:
+        raise AssertionError(f"phase 3e (ii): fault kinds {sorted(FAULT_KINDS - fired)} never fired")
+    for r in sched.requests:
+        if r.state != "FINISHED":
+            raise AssertionError(f"phase 3e (ii): request {r.rid} {r.state} ({r.error})")
+    recomputed = live_at_crash | {r.rid for r in sched.requests if r.preemptions}
+    shared = held_streams(post["results"], cut, skip=recomputed)
+    sched.server.table.check()
+    want = combined_launches(n_layers, pre, post)
+    if post["launches"] != want:
+        raise AssertionError(f"phase 3e (ii) launches {post['launches']} != {want}")
+    both = {**pre, "ticks": pre["ticks"] + post["ticks"], "tick_ms": pre["tick_ms"] + post["tick_ms"],
+            "tick_kind": pre["tick_kind"] + post["tick_kind"],
+            "wall_s": pre["wall_s"] + post["wall_s"],
+            **{k: pre[k] + post[k] for k in ("decode_ticks", "chunk_ticks", "admits",
+                                             "migrations")},
+            "tokens": post["tokens"], "launches": post["launches"],
+            "tick_kinds": {k: pre["tick_kinds"].get(k, 0) + post["tick_kinds"].get(k, 0)
+                           for k in {**pre["tick_kinds"], **post["tick_kinds"]}}}
+    out["chaos+crash"] = tick_summary(both)
+    out["crash"] = {"tick": pre["crash"]["step"], "requests_at_crash": crash_state,
+                    "snapshot_write_ms": pre["fault_ms"]["snapshot"],
+                    "snapshot_bytes": snap_bytes, "restore_ms": restore_ms,
+                    "restore_peak_gb": restore_peak, "restored_cache_gb": cache_gb,
+                    "setup_peak_gb": setup_peak_gb, "held_bit_for_bit":
+                        sorted(set(post["results"]) - recomputed),
+                    "recomputed_shared_prefix": shared,
+                    "preempted": {r.rid: r.preemptions for r in sched.requests if r.preemptions}}
+    c = out["crash"]
+    log(f"phase 3e (ii) chunked, chaos (seed {CHAOS_SEED}) + crash at tick {c['tick']} "
+        f"(requests mid-prefill: "
+        f"{[rid for rid, (st, _) in crash_state.items() if st == 'PREFILLING']}): "
+        f"{tick_line(both, out['chaos+crash'])}; faults fired {sorted(fired)}; snapshot "
+        f"{c['snapshot_write_ms']:.2f} ms, {snap_bytes} bytes; restore {restore_ms:.1f} ms "
+        f"(server rebuild and slot expansion), peak {restore_peak:.2f} GB through it (setup "
+        f"peak {setup_peak_gb:.2f} GB + cache {cache_gb:.3f} GB); streams held bit for bit "
+        f"{c['held_bit_for_bit']}, recomputed streams' prefix shared with run (i) {shared} "
+        f"(preempted {c['preempted']}, live at the crash {sorted(live_at_crash)}); launches "
+        f"{post['launches']} as predicted [{card}]")
     return out
 
 
@@ -2204,7 +2673,17 @@ def main(argv=None) -> int:
         f"plan {small_chaos['evacuation_plan']}, revival plan {small_chaos['revival_plan']}, "
         f"first re-commit {small_chaos['revival_to_first_commit_ticks']} ticks after the "
         f"revival; kernel run launches {small_chaos['launches']} as predicted)")
-    sched_run = scheduler_path(torch, card)
+    sched_run, splice = scheduler_path(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    small_chunk = small_chunk_parity(torch)
+    log(f"small fp32 model, chunked admission: with the kernels and on the plain path every "
+        f"stream equals splice admission's; a crash at tick {small_chunk['crash_tick']} with "
+        f"request {small_chunk['mid_prefill']} mid-prefill, restored from the file, serves "
+        f"every stream of the uninterrupted run; kernel run launches "
+        f"{small_chunk['launches']} as predicted (flash_attention 0)")
+    chunk_run = chunk_path(torch, card, splice, sched_run["peak_gb"]["setup"])
+    del splice
     gc.collect()
     torch.cuda.empty_cache()
     op_launches, op_excess = op_layer_path(torch, groups, mesh_rows, card)
@@ -2525,6 +3004,7 @@ def main(argv=None) -> int:
         })
     print(json.dumps({"kernels": entries, "run": run, "run_esp": esp_run,
                       "run_mesh": mesh_run, "run_scheduler": sched_run,
+                      "run_chunked": chunk_run,
                       "op_layer_excess": op_excess}), flush=True)
     import torch.distributed as dist
 

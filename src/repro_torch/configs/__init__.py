@@ -9,6 +9,7 @@ from repro_torch.configs.base import ModelConfig, smoke
 
 _MODULES = {
     "dbrx-132b": "dbrx_132b",
+    "llama3.2-1b": "llama3_2_1b",
     "mixtral-8x22b": "mixtral_8x22b",
 }
 

@@ -1,0 +1,21 @@
+"""llama3.2-1b — small llama3 [hf:meta-llama/Llama-3.2-1B].
+
+A dense decoder (the MLP path, no experts): the model the reference's
+chunked-admission tests serve at ``smoke()`` size.
+"""
+
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="llama3.2-1b",
+    family="dense",
+    n_layers=16,
+    d_model=2048,
+    n_heads=32,
+    n_kv_heads=8,
+    head_dim=64,
+    d_ff=8192,
+    vocab_size=128256,
+    rope_theta=500000.0,
+    tie_embeddings=True,
+)

@@ -12,8 +12,13 @@ Under a mesh (``ctx.mesh``) the dense cache's slots are split over the
 model axis: a rank holds slots ``[r*L/M, (r+1)*L/M)``
 of its requests, the prefill fills that range, a decode write lands only
 on the rank that owns the slot, and decode attends through
-``collectives.seq_parallel_decode_attend``. The chunked-prefill lane and
-the paged cache under a mesh come with later slices.
+``collectives.seq_parallel_decode_attend``. The paged cache under a mesh
+comes with a later slice.
+
+``chunk_prefill_attention`` is the prefill lane of the decode step: one
+fixed-size chunk of an admitting request's context, written into the
+shared pool through its own block table and attended as plain math (the
+reference computes it outside any kernel too).
 """
 
 from __future__ import annotations
@@ -376,3 +381,42 @@ def _paged_decode_attention(p: dict, x: torch.Tensor, cache: dict,
     new_cache = {"pool_k": pool_k, "pool_v": pool_v, "tables": tables,
                  "lengths": written}
     return out, new_cache
+
+
+def chunk_prefill_attention(p: dict, x: torch.Tensor, cache: dict,
+                            table: torch.Tensor, start: int, length: int,
+                            cfg: ModelConfig, ctx: ParallelCtx):
+    """Prefill-lane attention for one chunk ``x`` (1, C, d) of one admitting
+    request, inside the decode step and against the pool the decode lane
+    just wrote (in place). Token ``i`` sits at absolute position ``start +
+    i``; its K/V land at logical slot ``start + i`` through ``table`` (NB,)
+    (full attention only: slot j holds position j), and rows ``i >=
+    length`` land on the write-off page (the pool's last). Then every
+    written row of the table is attended under the single mask ``kpos <=
+    start + i``: the previous chunks' pages and this chunk, causally.
+    Returns ``(out (1, C, d), cache)``."""
+    if cfg.sliding_window:
+        raise ValueError(
+            f"chunk_prefill_attention needs full attention: sliding_window="
+            f"{cfg.sliding_window} remaps logical slots as the ring wraps"
+        )
+    pool_k, pool_v = cache["pool_k"], cache["pool_v"]
+    bs = pool_k.shape[1]
+    cap = table.shape[0] * bs
+    c = x.shape[1]
+    q, k, v = qkv_proj(p, x, cfg)
+    pos = start + torch.arange(c, device=x.device)                 # (C,)
+    if cfg.rope_theta > 0:
+        q = apply_rope(q, pos[None, :], cfg.rope_theta)
+        k = apply_rope(k, pos[None, :], cfg.rope_theta)
+    slot = pos.clamp(max=cap - 1)
+    valid = torch.arange(c, device=x.device) < length
+    page = torch.where(valid, table.long()[slot // bs], pool_k.shape[0] - 1)
+    row = slot % bs
+    pool_k[page, row] = k[0].to(pool_k.dtype)
+    pool_v[page, row] = v[0].to(pool_v.dtype)
+    k_all = gather_pages(pool_k, table[None, :])                   # (1, cap, K, hd)
+    v_all = gather_pages(pool_v, table[None, :])
+    mask = torch.arange(cap, device=x.device)[None, :] <= pos[:, None]   # (C, cap)
+    o = gqa_attend(q, k_all, v_all, mask)
+    return out_proj(p, o), cache

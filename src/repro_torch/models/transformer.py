@@ -7,8 +7,8 @@ driven by a Python loop where the reference scans. Under a mesh every rank
 runs these on its own requests (the batch split over the data axis), with
 its slice of the dense cache; the EP prefill splits the sequence over the
 model axis inside ``ep_moe_shardmap`` and gathers it back there. The other block
-patterns (zamba, xlstm, encdec), the training forward and the chunked
-prefill lane come with later slices.
+patterns (zamba, xlstm, encdec) and the training forward come with later
+slices.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from repro_torch.models.attention import (
     attn_init,
     cache_init,
     cache_len,
+    chunk_prefill_attention,
     decode_attention,
     dense_prefill_fill,
     is_paged,
@@ -151,22 +152,37 @@ def decode_step(
     ctx: ParallelCtx = NO_MESH,
     placement=None,             # (slot_of, n_replicas) from the NI-Balancer
     slot_mask=None,             # (B,) bool — False = empty/released batch row
-    chunk=None,
+    chunk=None,                 # the prefill lane's operand; None = off
 ):
     """One serve step: consume one token per request, update the cache in
     place, emit logits ``(B, 1, V)`` and the step's per-expert counts.
     ``slot_mask`` rows still flow through the step but are masked out of
-    MoE routing (their logits mean nothing)."""
+    MoE routing (their logits mean nothing).
+
+    ``chunk`` adds the prefill lane (paged cache only): ``{"tokens": (1, C)
+    int, "table": (NB,) int, "start": int, "length": int}``, one fixed-size
+    chunk of an admitting request's context. In each layer the decode lane
+    runs first; the chunk then flows through the same layer against the
+    pool the decode lane just wrote (``chunk_prefill_attention``), and only
+    its ``length`` valid rows route through the MoE, by the same
+    ``placement``. Both lanes' counts add into ``expert_counts``, and
+    ``stats["chunk_logits"]`` holds the logits ``(1, 1, V)`` of the last
+    valid chunk position. A chunk of ``length`` 0 (the reference's no-op
+    chunk, which writes only the write-off page and routes nowhere) is
+    skipped: this step is eager, so no shared program needs it."""
     _check_pattern(cfg)
-    if chunk is not None:
-        raise NotImplementedError(
-            "the chunked-prefill lane is not ported yet (ROADMAP: chunk lane, "
-            "chunk_prefill_attention)"
-        )
+    if chunk is not None and not chunk["length"]:
+        chunk = None
     x = _embed(params, token)
     pos = cache["pos"]
     aux = zero_aux(cfg, x.device)
     token_mask = None if slot_mask is None else slot_mask[:, None]
+    if chunk is not None:
+        if not is_paged(cache["layers"]):
+            raise ValueError("the prefill lane (chunk=...) needs a paged cache")
+        xc = _embed(params, chunk["tokens"])                         # (1, C, d)
+        n_chunk = xc.shape[1]
+        cvalid = (torch.arange(n_chunk, device=x.device) < chunk["length"])[None, :]
     for l in range(cfg.n_layers):
         p_l = layer_view(params["layers"], l)
         c_l = _layer_cache(cache["layers"], l)
@@ -178,9 +194,22 @@ def decode_step(
         z2 = rms_norm(x, p_l["ln2"], cfg.norm_eps)
         y, a = _block_ffn(p_l, z2, cfg, ctx, placement, token_mask)
         x = x + y
+        if chunk is not None:
+            zc = rms_norm(xc, p_l["ln1"], cfg.norm_eps)
+            oc, _ = chunk_prefill_attention(p_l["attn"], zc, c_l, chunk["table"],
+                                            chunk["start"], chunk["length"], cfg, ctx)
+            xc = xc + oc
+            z2c = rms_norm(xc, p_l["ln2"], cfg.norm_eps)
+            yc, ac = _block_ffn(p_l, z2c, cfg, ctx, placement, cvalid)
+            xc = xc + yc
+            a = {k: a[k] + ac[k] for k in a}
         aux = {k: aux[k] + a[k] for k in aux}
     cache["pos"] = pos + 1
-    return _logits(params, x, cfg), cache, {"expert_counts": aux["counts"]}
+    stats = {"expert_counts": aux["counts"]}
+    if chunk is not None:
+        last = min(max(int(chunk["length"]) - 1, 0), n_chunk - 1)
+        stats["chunk_logits"] = _logits(params, xc[:, last : last + 1], cfg)
+    return _logits(params, x, cfg), cache, stats
 
 
 def prefill(

@@ -26,10 +26,11 @@ Fault kinds
 * ``device_revival`` — ``Server.revive(device)``: re-admits a repaired
   device with blank HBM; replica copies stream back through the stepped
   migration driver.
-* ``crash_restart`` — a simulated host crash with snapshot and restore.
-  The port's scheduler does not take snapshots yet and raises
-  ``NotImplementedError`` when one fires (the reference's
-  ``SimulatedCrash`` comes with snapshots).
+* ``crash_restart`` — a simulated host crash: the scheduler snapshots its
+  state (the end of the previous tick) and raises :class:`SimulatedCrash`
+  before doing any work this tick; the harness rebuilds a fresh server and
+  scheduler from the snapshot (``snapshot.restore_scheduler``) and serves
+  on.
 
 ``FaultPlan.chaos`` builds a seeded random plan: one device death, a
 straggler report, a pool-pressure window, and a NaN step, plus, with
@@ -165,3 +166,16 @@ class FaultPlan:
                 )
             )
         return cls(faults)
+
+
+class SimulatedCrash(Exception):
+    """Raised by the scheduler when a ``crash_restart`` fault fires. Carries
+    the snapshot of the end of the previous tick (also written to ``path``
+    when one was given), from which a fresh process rebuilds the server and
+    the scheduler and resumes."""
+
+    def __init__(self, step: int, snapshot, path: str = ""):
+        super().__init__(f"simulated crash at scheduler step {step}")
+        self.step = step
+        self.snapshot = snapshot
+        self.path = path

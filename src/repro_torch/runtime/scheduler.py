@@ -1,5 +1,5 @@
 """Continuous-batching request scheduler over the paged ``Server`` (PyTorch
-port of ``repro.runtime.scheduler``, on splice admission).
+port of ``repro.runtime.scheduler``).
 
 The ``RequestScheduler`` owns the request lifecycle
 
@@ -19,26 +19,47 @@ Per tick (``step()``):
    for this step (device death and revival, stragglers, pool pressure, NaN
    logits);
 2. **admission** — strict FIFO over arrived requests, watermark-gated
-   against ``PagePool`` occupancy; each admission is a batch-1 prefill of
-   the prompt right-padded to a power-of-two bucket, spliced into one empty
-   slot (``Server.prefill_into_slot``);
+   against ``PagePool`` occupancy. With ``ServeConfig(prefill_chunk=C)``
+   admission stakes out a slot and its pages; the request then rides the
+   decode step's prefill lane, one C-token chunk a tick (one request in
+   flight at a time), until the last chunk's logits emit its first token
+   and the slot flips to DECODING, so live slots never stall. Without it,
+   each admission is a batch-1 prefill of the prompt right-padded to a
+   power-of-two bucket, spliced into one empty slot
+   (``Server.prefill_into_slot``);
 3. **headroom** — if the live requests' next writes need more fresh pages
    than the pool holds, preempt (victim: fewest decoded tokens, youngest
    first) until the step cannot exhaust the pool;
 4. **decode** — one step over the whole batch; per-slot argmax on the
    host, EOS / max-token retirement recycling pages and slots mid-flight.
 
+Crash safety: ``snapshot_every`` ticks, and when a ``crash_restart`` fault
+fires, the scheduler snapshots the end of the previous tick
+(:mod:`repro_torch.runtime.snapshot`); a crash then raises
+:class:`~repro_torch.runtime.faults.SimulatedCrash`, and
+``snapshot.restore_scheduler`` rebuilds a scheduler that serves on.
+
 Determinism contract: per-request outputs are a pure function of (params,
 prompt, max_new_tokens, eos), independent of batch composition, arrival
-order, placement changes and preemptions, because every per-token
-computation is row-independent, expert replicas are exact weight copies,
-and preempted work is recomputed from the prompt plus the emitted tokens.
-The caveat is capacity drops: keep ``ParallelCtx.capacity_factor`` high
-enough that no routed copy is dropped.
+order, placement changes, preemptions, the admission mode and crashes,
+because every per-token computation is row-independent, expert replicas
+are exact weight copies, chunked admission computes the same prefill a
+chunk at a time, and preempted or crashed work is recomputed from the
+prompt plus the emitted tokens. The caveat is capacity
+drops: keep ``ParallelCtx.capacity_factor`` high enough that no routed copy
+is dropped.
 
-Not ported yet: snapshots and the ``crash_restart`` fault (ROADMAP Queue 1
-item 3) and chunked admission through the decode step's prefill lane (item
-4); each raises ``NotImplementedError``.
+Its scope: bit-identical streams hold in fp32, on the plain path and with
+the kernels alike. In bf16 they hold for a stream that is never recomputed
+from its context, and only for it: a context's K/V written one token a
+step by decode differ in low bits from the K/V a prefill writes for the
+same context. On the card the first difference is layer 0's K/V
+projection, a plain cuBLAS product run at M = 8 batch rows in decode and
+at M = context rows in a prefill (one bf16 ulp; ``chip_smoke.py`` phase
+3e's probe). So a stream recomputed from its context (after a preemption
+or a crash) and a chunk-admitted stream held against a splice-admitted
+one may leave the stream they are compared with; they are logged with the
+prefix they share, not held.
 """
 
 from __future__ import annotations
@@ -57,8 +78,6 @@ FINISHED = "FINISHED"
 PREEMPTED = "PREEMPTED"
 FAILED = "FAILED"
 
-SNAPSHOTS = "snapshots are not ported yet (ROADMAP Queue 1 item 3)"
-
 
 @dataclasses.dataclass
 class Request:
@@ -74,6 +93,10 @@ class Request:
     tokens_out: list = dataclasses.field(default_factory=list)
     preemptions: int = 0             # pool evictions + fault requeues
     error: str | None = None
+    # Chunked admission: context tokens the prefill lane has written. Only
+    # meaningful while PREFILLING; back to 0 on preemption or crash (the KV
+    # dies with the slot or the process and re-admission starts over).
+    prefill_pos: int = 0
     # Serving stats (ticks are scheduler steps, not wall time).
     admitted_step: int | None = None     # first PREFILLING/DECODING tick
     first_token_step: int | None = None  # tick the first token was emitted
@@ -114,8 +137,12 @@ class SchedulerConfig:
     prompt_bucket_floor: int = 8
     # run() safety valve.
     max_steps: int = 10_000
-    # The reference's crash-safety cadence; any nonzero value raises here.
+    # Crash safety: every `snapshot_every` ticks, snapshot the end of the
+    # previous tick (kept on `last_snapshot`, also written atomically to
+    # `snapshot_path` when set). 0 disables the cadence; a crash_restart
+    # fault snapshots at its tick regardless.
     snapshot_every: int = 0
+    snapshot_path: str = ""
 
 
 class RequestScheduler:
@@ -127,17 +154,8 @@ class RequestScheduler:
                 "RequestScheduler needs ServeConfig(paged=True): slot-level "
                 "admission and retirement are page-table operations"
             )
-        if server.scfg.prefill_chunk:
-            raise NotImplementedError(
-                "chunked admission (ServeConfig(prefill_chunk=...)) is not "
-                "ported yet (ROADMAP Queue 1 item 4, the chunk lane)"
-            )
         self.cfg = cfg or SchedulerConfig()
         self.faults = faults or F.FaultPlan()
-        if self.cfg.snapshot_every:
-            raise NotImplementedError(f"SchedulerConfig(snapshot_every=...): {SNAPSHOTS}")
-        if any(f.kind == F.CRASH_RESTART for f in self.faults):
-            raise NotImplementedError(f"the crash_restart fault: {SNAPSHOTS}")
         self.server = server
         self.batch = server.scfg.batch
         self.cap_tokens = server.n_blocks * server.page_size
@@ -152,6 +170,11 @@ class RequestScheduler:
         self._rid = 0
         self._hostage: list[int] = []        # pages stolen by pool_pressure
         self._poison: set[int] | None = None  # nan_logits slots this tick
+        self.last_snapshot = None            # most recent ServerSnapshot
+        # Chunked admission: at most one request mid-prefill, the head of
+        # admission, one chunk a tick through the decode step's prefill lane.
+        self.chunk: int | None = server.scfg.prefill_chunk
+        self._prefilling: Request | None = None
 
     # -- submission ----------------------------------------------------------
 
@@ -222,6 +245,16 @@ class RequestScheduler:
     def _admit(self, req: Request, slot: int) -> None:
         req.state = PREFILLING
         req.admitted_step = self.step_no
+        if self.chunk:
+            # Chunked admission: no device work here, only the slot and the
+            # pages; step() feeds the prefill lane one chunk a tick.
+            req.slot = slot
+            req.prefill_pos = 0
+            self.slots[slot] = req
+            self._prefilling = req
+            self.server.begin_chunk_prefill(slot, req.context_len)
+            self.events.append((self.step_no, "admit", req.rid))
+            return
         ctx_tokens = np.concatenate(
             [req.prompt, np.asarray(req.tokens_out, np.int32)]
         )
@@ -272,8 +305,16 @@ class RequestScheduler:
 
     def _preempt(self, req: Request, reason: str) -> None:
         """Evict a running request; requeue it at the front for recompute,
-        or FAIL it past the retry budget. Only this request is affected."""
-        self.cache = self.server.release(req.slot, self.cache)
+        or FAIL it past the retry budget. Only this request is affected. A
+        request preempted mid-prefill emitted no token: its side pages go
+        back to the pool and re-admission starts from position 0."""
+        if req.state == PREFILLING and self.chunk:
+            self.server.abort_chunk_prefill(req.slot)
+            if self._prefilling is req:
+                self._prefilling = None
+            req.prefill_pos = 0
+        else:
+            self.cache = self.server.release(req.slot, self.cache)
         self.slots[req.slot] = None
         req.slot = None
         req.preemptions += 1
@@ -292,6 +333,8 @@ class RequestScheduler:
         pool = self.server.page_pool
         for f in self.faults.at(self.step_no):
             self.events.append((self.step_no, "fault", (f.kind, f)))
+            if f.kind == F.CRASH_RESTART:
+                continue   # handled at the top of step(), before the snapshot
             if f.kind == F.DEVICE_DEATH:
                 plan = self.server.mark_dead(f.device)
                 self.events.append(
@@ -318,6 +361,10 @@ class RequestScheduler:
 
     def _admit_ready(self) -> None:
         while self.queue:
+            if self.chunk and self._prefilling is not None:
+                # one admission in flight: the lane takes one chunk a tick,
+                # and strict FIFO lets nobody overtake the head anyway
+                return
             free = self._free_slots()
             if not free:
                 return
@@ -338,11 +385,14 @@ class RequestScheduler:
         while True:
             live = self._live()
             deficit = (
-                sum(srv.next_write_unbacked(r.slot) for r in live)
+                sum(srv.next_write_unbacked(r.slot) for r in live if r.state == DECODING)
                 - srv.page_pool.n_free
             )
             if deficit <= 0 or not live:
                 return
+            # A request mid-prefill holds every page it will need, so it adds
+            # nothing to the deficit, but it is the cheapest victim (no
+            # decoded token) and frees the most pages at once.
             victim = min(live, key=lambda r: (r.n_decoded, -r.rid))
             self._preempt(victim, "pool-exhausted")
 
@@ -356,26 +406,61 @@ class RequestScheduler:
     # -- the tick ------------------------------------------------------------
 
     def save_snapshot(self, path: str | None = None):
-        raise NotImplementedError(f"RequestScheduler.save_snapshot: {SNAPSHOTS}")
+        """Capture the end of the previous tick as a ``ServerSnapshot``
+        (kept on ``last_snapshot``); with ``path``, also write it through the
+        atomic checkpoint writer."""
+        from repro_torch.runtime import snapshot as S
+
+        snap = S.snapshot_scheduler(self)
+        if path:
+            S.save_snapshot(path, snap)
+        self.last_snapshot = snap
+        return snap
+
+    def _chunk_operand(self):
+        """This tick's prefill-lane operand for the request mid-prefill
+        (right-padded to the chunk size) and its valid token count."""
+        pf = self._prefilling
+        ctx_tokens = np.concatenate([pf.prompt, np.asarray(pf.tokens_out, np.int32)])
+        n = min(self.chunk, len(ctx_tokens) - pf.prefill_pos)
+        buf = np.zeros(self.chunk, np.int32)
+        buf[:n] = ctx_tokens[pf.prefill_pos : pf.prefill_pos + n]
+        return self.server.chunk_operand(pf.slot, buf, pf.prefill_pos, n), n
 
     def step(self) -> list[Request]:
-        """One scheduler tick. Returns the requests that finished."""
+        """One scheduler tick. Returns the requests that finished.
+
+        Snapshots and crashes come first, before faults, admission or
+        decode, so a snapshot always captures a tick boundary (the end of
+        the previous tick) and the crash tick's faults fire once after a
+        restore."""
+        if (self.cfg.snapshot_every and self.step_no
+                and self.step_no % self.cfg.snapshot_every == 0):
+            self.save_snapshot(self.cfg.snapshot_path or None)
+        crash = next((f for f in self.faults.at(self.step_no)
+                      if f.kind == F.CRASH_RESTART), None)
+        if crash is not None:
+            snap = self.save_snapshot(crash.path or None)
+            raise F.SimulatedCrash(self.step_no, snap, crash.path)
         self._apply_faults()
         self._admit_ready()
         self._ensure_headroom()
         self._drain_migrations()
         finished: list[Request] = []
         if self._live():
-            logits, self.cache = self.server.decode(self.next_tok, self.cache)
+            pf = self._prefilling
+            chunk, chunk_n = self._chunk_operand() if pf is not None else (None, 0)
+            logits, self.cache = self.server.decode(self.next_tok, self.cache, chunk=chunk)
             # (B, V) on the host in fp32 (numpy has no bf16; exact for the
             # argmax), poisoned there as the reference does.
             rows = logits[:, -1].float().cpu().numpy()
-            if self._poison:
+            poison = self._poison or set()
+            if poison:
                 rows = rows.copy()   # on the CPU, .numpy() shares the logits
-                rows[sorted(self._poison)] = np.nan
+                rows[sorted(poison)] = np.nan
             for slot, req in enumerate(self.slots):
                 if req is None or req.state != DECODING:
-                    continue
+                    continue    # a PREFILLING row is masked garbage
                 row = rows[slot]
                 if not np.isfinite(row).all():
                     # Numerics blew up for this row only: requeue it for a
@@ -384,6 +469,21 @@ class RequestScheduler:
                     continue
                 if self._push_token(req, int(np.argmax(row))):
                     finished.append(req)
+            if pf is not None:
+                pf.prefill_pos += chunk_n
+                if pf.prefill_pos >= pf.context_len:
+                    # The last chunk: its last valid position's logits emit
+                    # the first token, and the slot flips live.
+                    crow = self.server.last_chunk_logits[0, -1].float().cpu().numpy()
+                    if pf.slot in poison or not np.isfinite(crow).all():
+                        self._preempt(pf, "non-finite-logits")
+                    else:
+                        self.cache = self.server.finish_chunk_prefill(
+                            pf.slot, self.cache, pf.context_len)
+                        pf.state = DECODING
+                        self._prefilling = None
+                        if self._push_token(pf, int(np.argmax(crow))):
+                            finished.append(pf)
         self._poison = None
         self.step_no += 1
         return finished
@@ -431,16 +531,20 @@ class RequestScheduler:
 
     def stats(self) -> dict:
         """Serving statistics in scheduler ticks (not wall time).
-        ``prefill_backlog`` counts the context tokens of every queued
-        request; ``max_stall_ticks`` is the widest gap between a request's
+        ``prefill_backlog`` counts the context tokens still to prefill (the
+        rest of the request mid-prefill and every queued request's
+        context); ``max_stall_ticks`` is the widest gap between a request's
         consecutive tokens minus one."""
+        backlog = sum(r.context_len for r in self.queue)
+        if self._prefilling is not None:
+            backlog += self._prefilling.context_len - self._prefilling.prefill_pos
         ttfts = [
             r.ttft_ticks for r in self.requests if r.ttft_ticks is not None
         ]
         return {
             "step": self.step_no,
             "queue_depth": len(self.queue),
-            "prefill_backlog": sum(r.context_len for r in self.queue),
+            "prefill_backlog": backlog,
             "n_preempted": self.n_preempted,
             "ep_chunks": self.server.scfg.ep_chunks,
             "max_ttft_ticks": max(ttfts, default=None),

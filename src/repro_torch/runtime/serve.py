@@ -38,8 +38,15 @@ migration driver. Stragglers: per-device step-time EMAs scale heats,
 draining load away. Both run without a mesh; under one they raise (the dead
 device's rows sit on another rank). Request-level serving (admission,
 preemption, faults) lives one layer up in :mod:`repro_torch.runtime.
-scheduler`. Snapshot restore and the chunked-prefill lane come with later
-slices.
+scheduler`.
+
+Chunked admission (``ServeConfig(prefill_chunk=C)``, paged, no mesh): a
+request's context is prefilled C tokens a tick by the decode step's prefill
+lane, through a side block table (``begin_chunk_prefill`` ..
+``finish_chunk_prefill``), so a long prompt never stalls the live batch.
+``restore_snapshot`` rebuilds a server on a fresh process from a
+:class:`~repro_torch.runtime.snapshot.ServerSnapshot` and the logical
+params.
 """
 
 from __future__ import annotations
@@ -91,7 +98,9 @@ class ServeConfig:
     # Virtual EP: spread the expert slots over this many logical devices so
     # replica routing and migration run for real on one process.
     virtual_ep: int | None = None
-    # Chunked prefill lane (validated here; not ported yet).
+    # Chunked prefill: admission prefills run as a lane inside the decode
+    # step, this many context tokens a tick (paged, full attention, a
+    # positive multiple of page_size up to max_seq). None = splice admission.
     prefill_chunk: int | None = None
     # Split the expert groups into this many chunks for the grouped FFN.
     ep_chunks: int = 1
@@ -189,17 +198,13 @@ class Server:
         serve_cfg: ServeConfig = ServeConfig(),
         distance=None,
         device="cuda",
+        table: PlacementTable | None = None,
     ):
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(
                 f"params lie on {params['embed'].device}, server device is "
                 f"{self.device}"
-            )
-        if serve_cfg.prefill_chunk:
-            raise NotImplementedError(
-                "ServeConfig(prefill_chunk=...) is not ported yet (ROADMAP "
-                "Queue 1 item 4, the chunk lane)"
             )
         self.mesh = ctx.mesh
         if self.mesh is not None:
@@ -233,13 +238,28 @@ class Server:
             n_slots = self.ep * spd
             if n_slots < cfg.n_experts:
                 raise ValueError("not enough slots for native experts")
-            # Expand expert rows to physical slots (slot s holds expert
-            # s % E), one weight tensor at a time: each source tensor is
-            # dropped as soon as its slot copy exists, so at most one
-            # expanded tensor coexists with the unexpanded ones. A rank
-            # keeps only its own slot rows.
+            # Expand expert rows to physical slots, one weight tensor at a
+            # time: each source tensor is dropped as soon as its slot copy
+            # exists, so at most one expanded tensor coexists with the
+            # unexpanded ones. A rank keeps only its own slot rows. Fresh
+            # start: slot s holds expert s % E. Snapshot restore: the saved
+            # table names the owner of every committed slot (free slots
+            # fall back to s % E and are never routed to).
+            if table is not None:
+                if (table.n_experts, table.n_slots, table.slots_per_device) != (
+                        cfg.n_experts, n_slots, spd):
+                    raise ValueError(
+                        f"restored table shape ({table.n_experts} experts, "
+                        f"{table.n_slots} slots, {table.slots_per_device} per "
+                        f"device) does not match serve config "
+                        f"({cfg.n_experts}, {n_slots}, {spd})"
+                    )
+                owner = table.owner_of_slots()
+                rows = np.where(owner >= 0, owner, np.arange(n_slots) % cfg.n_experts)
+            else:
+                rows = np.arange(n_slots) % cfg.n_experts
             mine = sharding.slot_rows(n_slots, ctx.n_model, ctx.model_rank)
-            rows = (np.arange(n_slots) % cfg.n_experts)[mine]
+            rows = rows[mine]
             moe = self.params["layers"]["moe"]
             for w in MOE_WEIGHTS:
                 src = moe.pop(w)
@@ -249,7 +269,7 @@ class Server:
                         dst[layer, s].copy_(src[layer, int(e)])
                 moe[w] = dst
                 del src
-            self.table = PlacementTable.uniform(cfg.n_experts, n_slots, spd)
+            self.table = table or PlacementTable.uniform(cfg.n_experts, n_slots, spd)
             self.state = BalancerState(
                 n_experts=cfg.n_experts,
                 n_devices=self.ep,
@@ -283,6 +303,28 @@ class Server:
             self._pages: dict[int, list[int]] = {}
             self._released: set[int] = set()
             self._tables_dirty = False
+            # Chunked-prefill ledger: the pages and table row of the (at
+            # most one) request mid-prefill, kept out of _pages/_tables
+            # until its last chunk lands, so the decode lane treats the
+            # slot as empty (trash row, length 0) while the chunk lane
+            # writes its KV through the side row.
+            self._prefill_pages: dict[int, list[int]] = {}
+            self._prefill_row: dict[int, np.ndarray] = {}
+            self.last_chunk_logits: torch.Tensor | None = None
+            if serve_cfg.prefill_chunk:
+                if cfg.sliding_window:
+                    raise ValueError(
+                        f"prefill_chunk requires full attention: sliding_window="
+                        f"{cfg.sliding_window} breaks the chunk lane's "
+                        f"slot-j-holds-position-j invariant (the ring remaps "
+                        f"logical slots as context wraps)"
+                    )
+                if serve_cfg.prefill_chunk % self.page_size:
+                    raise ValueError(
+                        f"prefill_chunk={serve_cfg.prefill_chunk} is not a "
+                        f"multiple of the effective page size {self.page_size} "
+                        f"(paged_layout shrank it from {serve_cfg.page_size})"
+                    )
         # host mirror of per-request written counts (paged): the
         # block-boundary check must not force a device sync per token.
         self._written: np.ndarray | None = None
@@ -301,6 +343,12 @@ class Server:
                 "Server under a mesh needs an initialised torch.distributed "
                 "process group (parallel.mesh.init_distributed); it does not "
                 "serve single-process instead"
+            )
+        if scfg.prefill_chunk:
+            raise NotImplementedError(
+                "ServeConfig(prefill_chunk=...) under a mesh: the chunk lane "
+                "writes through the paged cache, and the paged cache under a "
+                "mesh is not ported yet (ROADMAP Queue 1 item 5)"
             )
         if scfg.paged:
             raise NotImplementedError(
@@ -324,8 +372,16 @@ class Server:
             raise ValueError(f"{what} requires ServeConfig(paged=True)")
 
     def _prefill(self, tokens, tables=None, lengths=None):
-        # Prefill routes by the committed table, as decode does: a native
-        # slot may hold another expert (or BLANK_WEIGHT) after a revival.
+        # Every prefill routes by the committed table, as decode and the
+        # reference's chunk lane do (JAX decode_step passes placement to the
+        # chunk's moe_apply). The reference's splice prefill routes each copy
+        # to its expert's native slot instead, so the port's outputs leave
+        # the reference's in two places: after a revival, by design (a
+        # native slot may then hold another expert or BLANK_WEIGHT), and
+        # wherever a native bucket overflows once a hot expert has committed
+        # replicas: the reference drops the copies its native bucket cannot
+        # take, the port spreads them over the replicas and keeps more. There
+        # the port agrees with the reference's own chunked admission.
         placement = self.table.device_view(self.device) if self.use_balancer else None
         if not self.scfg.paged:
             return T.prefill(self.params, tokens, self.cfg, self.ctx,
@@ -365,6 +421,8 @@ class Server:
         )
         for slot in list(self._pages):
             self.release(slot)
+        for slot in list(self._prefill_pages):
+            self.abort_chunk_prefill(slot)
         self._released = set()
         self._tables = np.full((b, self.n_blocks), self.trash_page, np.int32)
         self._tables_dirty = False
@@ -415,6 +473,8 @@ class Server:
         b = self.scfg.batch
         for slot in list(self._pages):
             self.release(slot)
+        for slot in list(self._prefill_pages):
+            self.abort_chunk_prefill(slot)
         self._released = set(range(b))
         self._tables = np.full((b, self.n_blocks), self.trash_page, np.int32)
         self._tables_dirty = False
@@ -458,6 +518,97 @@ class Server:
         layers["lengths"][:, slot] = true_len
         return logits, cache
 
+    # -- chunked prefill (the admission lane inside the decode step) ---------
+
+    def begin_chunk_prefill(self, slot: int, length: int) -> None:
+        """Start a chunked admission into batch row ``slot``: allocate every
+        page ``length`` context rows need, into the side ledger. The live
+        cache is untouched: the slot's device table row stays at the
+        write-off page and its length at 0 for the whole prefill, so the
+        decode lane's masked write for the row keeps landing on the trash
+        page."""
+        if not self.scfg.prefill_chunk:
+            raise ValueError("begin_chunk_prefill requires ServeConfig(prefill_chunk=N)")
+        if slot in self._pages or slot in self._prefill_pages:
+            raise RuntimeError(
+                f"slot {slot} is still admitted or mid-prefill; release or "
+                f"abort it before reuse"
+            )
+        cap = self.n_blocks * self.page_size
+        need = min(-(-min(int(length), cap) // self.page_size), self.n_blocks)
+        pages = self.page_pool.alloc(need)
+        row = np.full(self.n_blocks, self.trash_page, np.int32)
+        row[:need] = pages
+        self._prefill_pages[slot] = pages
+        self._prefill_row[slot] = row
+
+    def chunk_operand(self, slot: int, tokens, start: int, length: int) -> dict:
+        """The decode step's prefill-lane operand for one chunk of the
+        request mid-prefill in ``slot``: ``tokens`` is the ``(prefill_chunk,)``
+        buffer right-padded past ``length``, ``start`` the absolute position
+        of ``tokens[0]``."""
+        if slot not in self._prefill_row:
+            raise RuntimeError(
+                f"slot {slot} has no chunked prefill in flight "
+                f"(begin_chunk_prefill first)"
+            )
+        tokens = np.asarray(tokens, np.int64).reshape(1, -1)
+        if tokens.shape[1] != self.scfg.prefill_chunk:
+            raise ValueError(
+                f"chunk_operand: got {tokens.shape[1]} tokens, want exactly "
+                f"prefill_chunk={self.scfg.prefill_chunk} (right-pad past "
+                f"`length`)"
+            )
+        return {
+            "tokens": torch.as_tensor(tokens, device=self.device),
+            "table": torch.as_tensor(self._prefill_row[slot], device=self.device),
+            "start": int(start),
+            "length": int(length),
+        }
+
+    def noop_chunk(self) -> dict:
+        """The idle prefill-lane operand (length 0, all-trash table), as the
+        reference builds it; ``decode_step`` skips such a chunk."""
+        return {
+            "tokens": torch.zeros((1, self.scfg.prefill_chunk), dtype=torch.long,
+                                  device=self.device),
+            "table": torch.full((self.n_blocks,), self.trash_page, dtype=torch.int32,
+                                device=self.device),
+            "start": 0,
+            "length": 0,
+        }
+
+    def finish_chunk_prefill(self, slot: int, cache: dict, length: int) -> dict:
+        """The last chunk landed: flip ``slot`` live. The chunk lane already
+        wrote every KV row into the pool through the side row, so this moves
+        the pages into the live ledger and splices the table row and the
+        true length into the device cache (in place)."""
+        if slot not in self._prefill_pages:
+            raise RuntimeError(f"slot {slot} has no chunked prefill in flight")
+        if self._written is None:
+            self._written = np.zeros(self.scfg.batch, np.int32)
+        self._pages[slot] = self._prefill_pages.pop(slot)
+        self._tables[slot] = self._prefill_row.pop(slot)
+        self._released.discard(slot)
+        self._written[slot] = int(length)
+        self._tables_dirty = False
+        layers = cache["layers"]
+        layers["tables"].copy_(self._stacked_tables(layers["tables"].shape[0]))
+        layers["lengths"][:, slot] = int(length)
+        return cache
+
+    def abort_chunk_prefill(self, slot: int) -> None:
+        """Tear down a mid-prefill admission (preemption, crash recovery):
+        the side pages go back to the pool. Nothing was spliced into the
+        live cache, so no device state is undone."""
+        if slot not in self._prefill_pages:
+            raise SlotReleaseError(
+                f"abort_chunk_prefill of slot {slot}, which has no chunked "
+                f"prefill in flight"
+            )
+        self.page_pool.free(self._prefill_pages.pop(slot))
+        del self._prefill_row[slot]
+
     def next_write_unbacked(self, slot: int) -> bool:
         """Would this request's next decode write need a fresh pool page?"""
         cap = self.n_blocks * self.page_size
@@ -499,9 +650,12 @@ class Server:
         return self._mask
 
     def decode(self, token, cache: dict, chunk: dict | None = None):
-        """One step: every live request consumes one token. ``cache`` is
-        updated in place and returned."""
-        if chunk is not None:
+        """One step: every live request consumes one token, and with
+        ``ServeConfig(prefill_chunk=N)`` the chunk operand ``chunk`` (see
+        ``chunk_operand``; None = no admission in flight) rides the same
+        step. ``cache`` is updated in place and returned; the chunk's logits
+        land on ``last_chunk_logits``."""
+        if chunk is not None and not self.scfg.prefill_chunk:
             raise ValueError("decode(chunk=...) requires ServeConfig(prefill_chunk=N)")
         if self._pos is None:
             self._pos = int(cache["pos"])
@@ -534,8 +688,9 @@ class Server:
         slot_mask = self._slot_mask(token.shape[0]) if self.scfg.paged else None
         logits, cache, stats = T.decode_step(
             self.params, self._tokens(token), cache, self.cfg, self.ctx,
-            placement=placement, slot_mask=slot_mask,
+            placement=placement, slot_mask=slot_mask, chunk=chunk,
         )
+        self.last_chunk_logits = stats.get("chunk_logits")
         if self.scfg.paged and self._written is not None:
             for slot in range(len(self._written)):
                 if slot not in self._released:
@@ -739,6 +894,44 @@ class Server:
         plan = revival_plan(self.state, device, self.distance)
         self.apply_plan(plan)
         return plan
+
+    # -- crash-safe snapshot/restore ------------------------------------------
+
+    @classmethod
+    def restore_snapshot(cls, snap, cfg: ModelConfig, ctx: ParallelCtx, params,
+                         distance=None, device="cuda"):
+        """Rebuild a live ``Server`` on a fresh process from a
+        :class:`~repro_torch.runtime.snapshot.ServerSnapshot` and the
+        logical params (un-expanded expert rows, as ``__init__`` takes them;
+        the snapshot holds no weights). Expert rows are placed by the saved
+        committed table; the balancer's load EMA, dead set and slowdowns and
+        the counters are restored; pending migrations are re-submitted from
+        slice zero (their partial slices died with the crashed process, and
+        nothing routes to a reservation before it commits)."""
+        scfg = ServeConfig(**snap.serve_cfg)
+        table = None
+        if snap.table is not None:
+            table = PlacementTable(
+                n_experts=cfg.n_experts,
+                n_slots=int(snap.table["n_slots"]),
+                slots_per_device=int(snap.table["slots_per_device"]),
+                slot_of=snap.table["slot_of"],
+                n_replicas=snap.table["n_replicas"],
+            )
+        srv = cls(cfg, ctx, params, scfg, distance=distance, device=device, table=table)
+        srv.t = int(snap.t)
+        srv.last_mig = int(snap.last_mig)
+        srv.migrations = int(snap.migrations)
+        if srv.state is not None:
+            srv.state.load_ema = np.asarray(snap.load_ema, float).copy()
+            srv.state.dead = {int(d) for d in snap.dead}
+            srv.state.slowdown = (
+                None if snap.slowdown is None else np.asarray(snap.slowdown, float).copy()
+            )
+            if srv.driver is not None and snap.pending_migrations:
+                srv.driver.submit([tuple(m["mig"]) for m in snap.pending_migrations],
+                                  srv._moe(), srv.t)
+        return srv
 
     def report_step_time(self, device: int, ratio: float) -> None:
         """Straggler mitigation: fold a measured step-time ratio (measured /

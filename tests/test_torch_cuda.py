@@ -813,3 +813,21 @@ def test_cuda_scheduler_chaos_small_model(cuda_device, seed):
 
     held = chip_smoke.small_chaos_parity(torch, seed)
     assert held["n_preempted"] > 0 and held["launches"]["flash_attention"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_chunked_admission_and_restore_small_model(cuda_device):
+    """``chip_smoke.small_chunk_parity`` on the card: a small fp32 MoE
+    served with chunked admission, with the kernels and on the plain path,
+    gives every stream of splice admission with launches as predicted (no
+    ``flash_attention``); a crash with a request mid-prefill, restored from
+    the snapshot file on a fresh server, serves every stream of the
+    uninterrupted run."""
+    import sys
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    held = chip_smoke.small_chunk_parity(torch)
+    assert held["mid_prefill"] and held["launches"]["flash_attention"] == 0
+    assert held["launches"]["gmm_ragged"] > 0

@@ -53,7 +53,8 @@ def test_port_imports_neither_jax_nor_repro():
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     for mod in ("parallel/mesh.py", "parallel/sharding.py", "parallel/collectives.py",
                 "kernels/gmm/ops.py", "kernels/gmm/gmm.py", "runtime/faults.py",
-                "runtime/scheduler.py"):
+                "runtime/scheduler.py", "runtime/checkpoint.py", "runtime/snapshot.py",
+                "runtime/elastic.py", "configs/llama3_2_1b.py"):
         assert f"src/repro_torch/{mod}" in names
 
 

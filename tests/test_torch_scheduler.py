@@ -349,23 +349,33 @@ def test_starved_pool_and_oversized_requests_fail(np_params):
     assert sched.submit(np.arange(3), max_new_tokens=0).state == FAILED
 
 
-def test_unported_paths_raise(np_params):
-    """Snapshots and crash_restart (ROADMAP Queue 1 item 3) and the chunk
-    lane (item 4) raise; a dense-cache server is refused."""
+def test_unported_paths_raise(np_params, tmp_path):
+    """What ROADMAP Queue 1 items 3 and 4 ported now serves: a
+    ``crash_restart`` fault raises ``SimulatedCrash`` with a snapshot,
+    ``snapshot_every`` keeps ``last_snapshot``, ``save_snapshot`` writes
+    the file, and a chunked server admits through the prefill lane. What
+    stays refused: a dense-cache server, and ``prefill_chunk`` under a mesh
+    (item 5, in ``tests/test_torch_serve.py``)."""
+    from repro_torch.runtime import snapshot as S
+
     crash = F.FaultPlan([F.Fault(step=1, kind=F.CRASH_RESTART)])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        _port(np_params, crash, batch=2, pool_pages=8)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        _port(np_params, None, SchedulerConfig(snapshot_every=2), batch=2, pool_pages=8)
-    sched = _port(np_params, batch=2, pool_pages=8)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        sched.save_snapshot()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        _port(np_params, batch=2, pool_pages=8, prefill_chunk=8)
-    srv = sched.server
-    srv.scfg = dataclasses.replace(srv.scfg, prefill_chunk=8)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        RequestScheduler(srv)
+    sched = _port(np_params, crash, batch=2, pool_pages=8)
+    sched.submit(_prompts([5])[0], max_new_tokens=4)
+    with pytest.raises(F.SimulatedCrash) as ei:
+        sched.run()
+    assert ei.value.step == 1 and ei.value.snapshot.step_no == 1 and not ei.value.path
+    sched = _port(np_params, None, SchedulerConfig(snapshot_every=2), batch=2, pool_pages=8)
+    sched.submit(_prompts([5])[0], max_new_tokens=4)
+    sched.run()
+    assert sched.last_snapshot is not None and sched.last_snapshot.step_no % 2 == 0
+    path = str(tmp_path / "snap.npz")
+    snap = sched.save_snapshot(path)
+    assert S.load_snapshot(path).step_no == snap.step_no == sched.step_no
+    chunked = _port(np_params, batch=2, pool_pages=8, prefill_chunk=8)
+    (req,), res = _serve(chunked, _prompts([11]), 3)
+    assert req.state == FINISHED and chunked.chunk == 8
+    np.testing.assert_array_equal(res[0], _serve(_port(np_params, batch=2, pool_pages=8),
+                                                 _prompts([11]), 3)[1][0])
     dense = Server(CFG, ParallelCtx(capacity_factor=8.0), params_from_numpy(np_params),
                    ServeConfig(**_scfg(batch=2, paged=False)), device="cpu")
     with pytest.raises(ValueError, match="paged=True"):

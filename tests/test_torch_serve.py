@@ -169,7 +169,7 @@ def test_slot_admission_release_and_pool(jparams):
         pool.free(pages[:1])
 
 
-def test_serve_config_validation_and_unported_paths(jparams):
+def test_serve_config_validation_and_unported_paths(jparams, tmp_path):
     with pytest.raises(ValueError, match="page-size-aligned"):
         ServeConfig(paged=True, page_size=8, prefill_chunk=12)
     with pytest.raises(ValueError, match="requires paged"):
@@ -181,9 +181,24 @@ def test_serve_config_validation_and_unported_paths(jparams):
     srv = Server(CFG, ParallelCtx(), _bridge(jparams), ServeConfig(**base), device="cpu")
     out = srv.generate(np.ones((2, 3), np.int32), 2)
     assert out.shape == (2, 2) and srv.ctx.moe_impl == "ep"
-    with pytest.raises(NotImplementedError, match="chunk lane"):
-        Server(CFG, ParallelCtx(), _bridge(jparams),
-               ServeConfig(paged=True, prefill_chunk=8, **base), device="cpu")
+    # the chunk lane serves (paged, no mesh) and generate takes splice
+    # prefills as before; under a mesh prefill_chunk stays refused, naming
+    # the paged cache under a mesh (ROADMAP Queue 1 item 5)
+    chunked = Server(CFG, ParallelCtx(), _bridge(jparams),
+                     ServeConfig(paged=True, prefill_chunk=8, **base), device="cpu")
+    assert chunked.scfg.prefill_chunk == 8 and chunked.noop_chunk()["length"] == 0
+    assert chunked.generate(np.ones((2, 3), np.int32), 2).shape == (2, 2)
+    import torch.distributed as dist
+
+    from repro_torch.parallel.mesh import make_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg", world_size=1, rank=0)
+    try:
+        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+            Server(CFG, ParallelCtx(mesh=make_mesh(1, 1)), _bridge(jparams),
+                   ServeConfig(paged=True, prefill_chunk=8, **base), device="cpu")
+    finally:
+        dist.destroy_process_group()
     # ESP serves the experts' own weights, on either cache
     for paged in (False, True):
         srv = Server(CFG, ParallelCtx(moe_impl="esp"), _bridge(jparams),
