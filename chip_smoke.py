@@ -74,9 +74,24 @@ Phases (one line each; any failure raises and the exit code is non-zero):
       finishes, streams neither preempted nor live at the crash equal run
       (i)'s, the restore's peak memory stays within the setup peak plus the
       restored cache; snapshot ms and bytes, restore ms;
+   f. serving under the 1 x 1 NCCL mesh: small fp32 models first (3d's
+      small model with chunked admission under the chaos plan through the
+      scheduler, and 2b's small ESP model), each with the kernels and on
+      the plain path equal to its no-mesh run (streams and events, greedy
+      tokens), launches as predicted; then 3e (ii)'s chunked run under 3d's
+      chaos plan on 24 pages without the crash, with no mesh and on the
+      mesh (each server freed before the next): every request finishes,
+      every fault kind fires, no tick routes to the dead device before its
+      first re-commit, a migration commits, each tick's launches as its
+      kind predicts (on the mesh the gather/scatter pair of
+      ``ep_moe_shardmap``), ticks 16-31 under the profiler for the busy
+      share, the mesh streams' bf16 prefix shared with the no-mesh run
+      logged; then mixtral-8x22b width with 3b's traffic, ESP on the mesh
+      (``esp_expert_ffn``: the ragged pair, the reduce-scatter), timed
+      beside 3b, launches as predicted;
    The expert groups' row counts (and offsets) of layer 0 in one prefill
-   and one decode tick of 3a-3c are kept for phases 4-5 (the EP path's
-   dispatched buckets too);
+   and one decode tick of 3a-3c and of 3f's ESP run are kept for phases
+   4-5 (the EP path's dispatched buckets too);
 4. the kernel op layer (``kernels/*/ops.py``), driven after the servers are
    freed, in bf16, with its launch counts set to 0 before and read after:
    the padded ``ops.expert_ffn`` (``gmm_dual_act`` + ``gmm``) on the EP
@@ -91,6 +106,7 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    copies, dead pages and invalid keys poisoned with NaN, and flat outputs
    filled with NaN first (rows outside the live segments must stay NaN);
    the bf16 GMMs also against the fp32 product of the same bf16 inputs;
+   the ragged pair also at 3f's ESP buckets (mixtral's 8 experts, F 16384);
    the gather/scatter pair at both paths that run it (mixtral's 8 experts
    under ESP; dbrx's 20 slots with the mesh path's rank-compacted rows);
    ``gmm_fused_ffn`` at the widest shape its gate admits (D = D_out =
@@ -330,9 +346,11 @@ def _weights(torch, gen, G, D, F, dt):
 # phase 5: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def gmm_cells(torch, groups, dtype, timer, time_it: bool):
-    """gmm_dual_act_ragged and gmm_ragged at the main path's bucket shapes
-    (20 slots, D=6144, F=10752) and row counts (``groups``: phase ->
+def gmm_cells(torch, groups, dtype, timer, time_it: bool, G: int = 20, D: int = 6144,
+              F: int = 10752):
+    """gmm_dual_act_ragged and gmm_ragged at a path's bucket shapes (the
+    main path's 20 slots, D=6144, F=10752 by default; ESP under the mesh:
+    mixtral's 8 experts, F=16384) and row counts (``groups``: phase ->
     (capacity C, counts))."""
     from repro_torch.kernels.gmm import ragged as K
     from repro_torch.kernels.gmm import ref as R
@@ -340,7 +358,6 @@ def gmm_cells(torch, groups, dtype, timer, time_it: bool):
 
     dt = getattr(torch, dtype)
     tol = PLAIN[dt]
-    G, D, F = 20, 6144, 10752
     gen = torch.Generator(device="cuda").manual_seed(1)
     wg, wu, wd = _weights(torch, gen, G, D, F, dt)
     results = {}
@@ -1763,6 +1780,20 @@ def op_layer_path(torch, groups, rows, card: str):
     return launches, excess
 
 
+def profiled_ms(torch, prof) -> tuple[dict, dict]:
+    """Device ms by kernel and host self ms by op of a finished profile."""
+    by_name, host = {}, {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            host[e.key] = host.get(e.key, 0.0) + e.self_cpu_time_total / 1e3
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
+    return by_name, host
+
+
 def profile_decode(torch, srv, prompt, card: str, steps: int = 8) -> dict:
     """Device busy share and time by kernel over ``steps`` decode steps of
     the main-path server (a separate window from the timed run)."""
@@ -1781,15 +1812,7 @@ def profile_decode(torch, srv, prompt, card: str, steps: int = 8) -> dict:
             tok = torch.argmax(logits[:, -1:], dim=-1)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name, host = {}, {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            host[e.key] = host.get(e.key, 0.0) + e.self_cpu_time_total / 1e3
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
+    by_name, host = profiled_ms(torch, prof)
     busy_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     # host side: the ops with the most self CPU time, and the collectives'
@@ -1837,7 +1860,8 @@ def scheduled_prompts(vocab: int, n: int, lo: int, hi: int, seed: int = 0) -> li
 
 
 def run_scheduler(torch, srv, prompts, n_new: int, plan=None, eos=None, kernels=(),
-                  warm=(), crash_after=None, crash_path="") -> dict:
+                  warm=(), crash_after=None, crash_path="", predict=None,
+                  profile_ticks=None) -> dict:
     """Serve ``prompts`` through a ``RequestScheduler`` over ``srv`` under
     ``plan``: request i arrives at tick i // 2, request 0 stops at ``eos``.
     ``warm`` prompts are served first (2 tokens each, no plan) so first-call
@@ -1845,7 +1869,8 @@ def run_scheduler(torch, srv, prompts, n_new: int, plan=None, eos=None, kernels=
     before the timed run. With ``crash_after``, a ``crash_restart`` fault
     (snapshot to ``crash_path``) joins the plan at the first tick from
     ``crash_after`` on that starts with a request mid-prefill, and the run
-    ends there (see ``drive``)."""
+    ends there (see ``drive``). ``predict`` and ``profile_ticks``: see
+    ``drive``."""
     from repro_torch.runtime.scheduler import RequestScheduler
 
     if warm:
@@ -1858,10 +1883,11 @@ def run_scheduler(torch, srv, prompts, n_new: int, plan=None, eos=None, kernels=
         sched.submit(p, n_new, eos_id=eos if i == 0 else None, arrival=i // 2)
     for k in kernels:
         k.launches = 0
-    return drive(torch, sched, kernels, crash_after, crash_path)
+    return drive(torch, sched, kernels, crash_after, crash_path, predict, profile_ticks)
 
 
-def drive(torch, sched, kernels=(), crash_after=None, crash_path="") -> dict:
+def drive(torch, sched, kernels=(), crash_after=None, crash_path="", predict=None,
+          profile_ticks=None) -> dict:
     """Run ``sched`` to its end, or to a crash. Records each tick's wall
     time (each tick ends in a host read of the logits; a synchronise closes
     it), the decode ticks, the ticks that carried a chunk, whether the
@@ -1872,7 +1898,12 @@ def drive(torch, sched, kernels=(), crash_after=None, crash_path="") -> dict:
     With ``crash_after`` (see ``run_scheduler``) the crash raises
     ``SimulatedCrash``; the returned run then holds the crash's tick and
     snapshot and the host time of the snapshot write, and no reference to
-    the scheduler or its server, so both can be freed."""
+    the scheduler or its server, so both can be freed. ``predict(n_layers,
+    tick)`` gives a tick's launches (default ``path_launches``, the no-mesh
+    EP path). With ``profile_ticks = (lo, hi)`` the ticks lo .. hi - 1 run
+    under ``torch.profiler``, and the run holds their device busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
     from repro_torch.models import transformer as T
     from repro_torch.runtime import faults as F
     from repro_torch.runtime import snapshot as S
@@ -1882,6 +1913,8 @@ def drive(torch, sched, kernels=(), crash_after=None, crash_path="") -> dict:
     dev = next((f.device for f in sched.faults if f.kind == F.DEVICE_REVIVAL), None)
     routed, marks, fault_ms, tick_ms, chunk_ticks = [], {}, {}, [], [0]
     chunked, kinds, wrong, tick_kind = bool(srv.scfg.prefill_chunk), {}, [], []
+    predict = predict or path_launches
+    prof, busy, prof_s = None, {}, [0.0]
 
     def launches():
         return {k.__name__: k.launches for k in kernels}
@@ -1910,11 +1943,30 @@ def drive(torch, sched, kernels=(), crash_after=None, crash_path="") -> dict:
             marks["crash"] = sched.step_no
             sched.faults = F.FaultPlan([*sched.faults, F.Fault(
                 step=sched.step_no, kind=F.CRASH_RESTART, path=crash_path)])
+        nonlocal prof
+        n_tick = len(tick_ms)
+        if profile_ticks and n_tick == profile_ticks[0]:
+            tp = time.perf_counter()
+            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            prof.start()
+            prof_s[0] += time.perf_counter() - tp
         before, t_b, c_b, e_b = launches(), srv.t, chunk_ticks[0], len(sched.events)
         t0 = time.perf_counter()
         out = step()
         sync()
         tick_ms.append((time.perf_counter() - t0) * 1e3)
+        if prof is not None and n_tick + 1 == profile_ticks[1]:
+            # the profiler's start, stop and reading stay out of the run's
+            # wall time (its ticks keep its cost while it traces)
+            tp = time.perf_counter()
+            prof.stop()
+            by_name, _ = profiled_ms(torch, prof)
+            wall = sum(tick_ms[profile_ticks[0]:])
+            busy.update(ticks=list(profile_ticks), wall_ms=wall,
+                        busy_ms=sum(by_name.values()),
+                        share=sum(by_name.values()) / wall)
+            prof = None
+            prof_s[0] += time.perf_counter() - tp
         tick = {"chunked": chunked, "decode_ticks": srv.t - t_b, "chunk_ticks": chunk_ticks[0] - c_b,
                 "admits": sum(k == "admit" for _, k, _ in sched.events[e_b:])}
         kind = (tick["decode_ticks"], tick["chunk_ticks"], 0 if chunked else tick["admits"])
@@ -1922,7 +1974,7 @@ def drive(torch, sched, kernels=(), crash_after=None, crash_path="") -> dict:
         tick_kind.append(kind)
         if kernels:
             got = {k: v - before[k] for k, v in launches().items()}
-            want = path_launches(srv.cfg.n_layers, tick)
+            want = predict(srv.cfg.n_layers, tick)
             if srv.ctx.use_kernels is False:
                 want = dict.fromkeys(want, 0)
             if got != want:
@@ -1945,7 +1997,7 @@ def drive(torch, sched, kernels=(), crash_after=None, crash_path="") -> dict:
             crash = {"step": exc.step, "snapshot": exc.snapshot, "path": exc.path}
             results = sched.results()
         sync()
-        wall_s = time.perf_counter() - t0
+        wall_s = time.perf_counter() - t0 - prof_s[0]
     finally:
         T.decode_step, S.save_snapshot = decode_step, save_snapshot
         del srv.mark_dead, srv.revive, sched.step
@@ -1963,7 +2015,9 @@ def drive(torch, sched, kernels=(), crash_after=None, crash_path="") -> dict:
            "launches": launches(), "tick_kinds": {
                f"decode {d}, chunk {c}, splice admissions {a}": n for (d, c, a), n in kinds.items()},
            "revived_device": dev, "routed": routed, "marks": marks, "fault_ms": fault_ms,
-           "events": list(sched.events), "stats": sched.stats()}
+           "events": list(sched.events), "stats": sched.stats(), "busy": busy}
+    if profile_ticks and not busy:
+        raise AssertionError(f"the run ended before its profiled ticks {profile_ticks}")
     if crash is None:
         run["sched"] = sched
     else:
@@ -1985,11 +2039,14 @@ def path_launches(n_layers: int, run: dict) -> dict:
             "flash_attention": n_layers * splice}
 
 
-def check_chaos(run: dict, free: dict, what: str, recomputed_equal: bool) -> dict:
+def check_chaos(run: dict, free: dict | None, what: str, recomputed_equal: bool,
+                need_preemption: bool = True) -> dict:
     """Hold a chaos run to its fault-free oracle (``free``: rid -> stream,
-    request 0 cut at its eos): every fault kind fired, a request was
-    preempted, every request finished, every never-preempted stream (with
-    ``recomputed_equal`` every stream) equals the oracle's; no decode tick
+    request 0 cut at its eos; None holds no stream): every fault kind
+    fired, a request was preempted (unless not ``need_preemption``), every
+    request finished, every
+    never-preempted stream (with ``recomputed_equal`` every stream) equals
+    the oracle's; no decode tick
     between the death and the revived device's first re-committed replica
     routed to the device; the table is consistent; a migration committed.
     Returns what the run logs."""
@@ -2000,12 +2057,14 @@ def check_chaos(run: dict, free: dict, what: str, recomputed_equal: bool) -> dic
     fired = {d[0] for _, k, d in sched.events if k == "fault"}
     if not FAULT_KINDS <= fired:
         raise AssertionError(f"{what}: fault kinds {sorted(FAULT_KINDS - fired)} never fired")
-    if sched.n_preempted < 1:
+    if need_preemption and sched.n_preempted < 1:
         raise AssertionError(f"{what}: the chaos preempted no request")
     prefix = {}
     for r in sched.requests:
         if r.state != "FINISHED":
             raise AssertionError(f"{what}: request {r.rid} {r.state} ({r.error})")
+        if free is None:
+            continue
         got, want = np.asarray(r.tokens_out), free[r.rid]
         if r.preemptions and not recomputed_equal:
             n = min(len(got), len(want))
@@ -2526,6 +2585,7 @@ def chunk_path(torch, card: str, splice: dict, setup_peak_gb: float) -> dict:
             "tick_kinds": {k: pre["tick_kinds"].get(k, 0) + post["tick_kinds"].get(k, 0)
                            for k in {**pre["tick_kinds"], **post["tick_kinds"]}}}
     out["chaos+crash"] = tick_summary(both)
+    out["eos"] = eos
     out["crash"] = {"tick": pre["crash"]["step"], "requests_at_crash": crash_state,
                     "snapshot_write_ms": pre["fault_ms"]["snapshot"],
                     "snapshot_bytes": snap_bytes, "restore_ms": restore_ms,
@@ -2546,6 +2606,280 @@ def chunk_path(torch, card: str, splice: dict, setup_peak_gb: float) -> dict:
         f"(preempted {c['preempted']}, live at the crash {sorted(live_at_crash)}); launches "
         f"{post['launches']} as predicted [{card}]")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3f: the paged, chunked, fault-tolerant EP path and ESP under the mesh
+# ---------------------------------------------------------------------------
+
+def mesh_ep_kernels():
+    """The paged EP path's kernels and the flat-row FFN kernels that
+    ``ep_moe_shardmap`` runs instead of the ragged pair."""
+    from repro_torch.kernels.gmm import ragged as K
+
+    return (*ep_kernels(), K.gmm_dual_act_gather, K.gmm_scatter, K.gmm_fused_ffn)
+
+
+def mesh_ep_launches(n_layers: int, run: dict, fused: bool = False) -> dict:
+    """The launches a scheduler run over the meshed EP Server must make:
+    ``ep_moe_shardmap``'s flat-row FFN (the gather/scatter pair at d_model
+    6144, ``gmm_fused_ffn`` with ``fused`` on a small model) once a layer
+    for each splice prefill, decode step and chunk-lane pass;
+    ``flash_decode_paged`` once a layer a decode tick; ``flash_attention``
+    once a layer a splice prefill; the ragged pair never."""
+    splice = 0 if run["chunked"] else run["admits"]
+    steps = n_layers * (splice + run["decode_ticks"] + run["chunk_ticks"])
+    return {"gmm_dual_act_ragged": 0, "gmm_ragged": 0,
+            "flash_decode_paged": n_layers * run["decode_ticks"],
+            "flash_attention": n_layers * splice,
+            "gmm_dual_act_gather": 0 if fused else steps, "gmm_scatter": 0 if fused else steps,
+            "gmm_fused_ffn": steps if fused else 0}
+
+
+def small_mesh_serving_parity(torch, mesh) -> dict:
+    """Small fp32 models (TF32 off) on the 1 x 1 NCCL mesh against the same
+    models with no mesh. (i) 3d's small MoE (4 experts top-2, virtual EP 4
+    x 3 slots, page 8, 24 pages) with chunked admission (chunks of 8)
+    through the scheduler under the chaos plan: with the kernels and on the
+    plain path every stream and every event equals the no-mesh run's, and
+    every stream the no-mesh fault-free run's; the mesh kernel run's
+    launches as predicted (``gmm_fused_ffn`` inside ``ep_moe_shardmap``).
+    (ii) 2b's small ESP model (window 32 wrapped, dense cache): greedy
+    tokens with the kernels and on the plain path equal the no-mesh ESP
+    Server's; the mesh kernel run launches the ragged pair (through
+    ``esp_expert_ffn``) and the partials kernel, and no ``gmm_fused_ffn``."""
+    import functools
+
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.kernels.flash_decode.flash_decode import flash_decode, flash_decode_partials
+    from repro_torch.kernels.gmm import ragged as K
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.ctx import ParallelCtx
+    from repro_torch.runtime.serve import ServeConfig, Server
+
+    cfg = dataclasses.replace(smoke(get_config("dbrx-132b")), head_dim=32)
+    prompts = scheduled_prompts(cfg.vocab_size, 12, 8, 32)
+
+    def server(ctx, pool_pages):
+        params = T.init_params(cfg, seed=5, device="cuda")
+        return Server(cfg, ctx, params,
+                      ServeConfig(max_seq=64, batch=8, slots_per_device=3, virtual_ep=4,
+                                  alpha=0.1, paged=True, page_size=8, pool_pages=pool_pages,
+                                  prefill_chunk=8), device="cuda")
+
+    eos, free = eos_cut(run_scheduler(torch, server(ParallelCtx(capacity_factor=8.0), None),
+                                      prompts, 16)["results"])
+    fused = functools.partial(mesh_ep_launches, fused=True)
+    runs = {}
+    for name, ctx, kernels, predict in (
+        ("no-mesh", ParallelCtx(capacity_factor=8.0), ep_kernels(), path_launches),
+        ("mesh kernels", ParallelCtx(mesh=mesh, capacity_factor=8.0), mesh_ep_kernels(), fused),
+        ("mesh plain", ParallelCtx(mesh=mesh, capacity_factor=8.0, use_kernels=False),
+         mesh_ep_kernels(), fused),
+    ):
+        runs[name] = run_scheduler(torch, server(ctx, 24), prompts, 16, chaos_plan(), eos,
+                                   kernels, predict=predict)
+        check_chaos(runs[name], free, f"phase 3f small chunked chaos ({name})", True,
+                    need_preemption=False)
+    ev = {name: [(st, k) for st, k, _ in run["sched"].events] for name, run in runs.items()}
+    for name, run in runs.items():
+        if ev[name] != ev["no-mesh"] or run["results"].keys() != free.keys():
+            raise AssertionError(f"phase 3f small chunked chaos: {name}'s events differ from "
+                                 "the no-mesh run's")
+    want = fused(cfg.n_layers, runs["mesh kernels"])
+    if runs["mesh kernels"]["launches"] != want or any(runs["mesh plain"]["launches"].values()):
+        raise AssertionError(f"phase 3f small chunked chaos launches "
+                             f"{runs['mesh kernels']['launches']} != {want} (plain run "
+                             f"{runs['mesh plain']['launches']})")
+    out = {"chunk_chaos": {"launches": runs["mesh kernels"]["launches"],
+                           "ticks": runs["mesh kernels"]["ticks"],
+                           "n_preempted": runs["mesh kernels"]["sched"].n_preempted,
+                           "chunk_ticks": runs["mesh kernels"]["chunk_ticks"]}}
+    del runs
+
+    ecfg = dataclasses.replace(smoke(get_config("mixtral-8x22b")), head_dim=32)
+    n_new = 24
+    prompt = torch.randint(0, ecfg.vocab_size, (4, 12),
+                           generator=torch.Generator().manual_seed(9))
+    kernels = (K.gmm_dual_act_ragged, K.gmm_ragged, K.gmm_fused_ffn, K.gmm_dual_act_gather,
+               K.gmm_scatter, flash_decode, flash_decode_partials)
+    toks, launched = {}, {}
+    for name, ctx in (
+        ("no-mesh", ParallelCtx(moe_impl="esp", capacity_factor=2.0)),
+        ("mesh kernels", ParallelCtx(mesh=mesh, moe_impl="esp", capacity_factor=2.0)),
+        ("mesh plain", ParallelCtx(mesh=mesh, moe_impl="esp", capacity_factor=2.0,
+                                   use_kernels=False)),
+    ):
+        for k in kernels:
+            k.launches = 0
+        srv = Server(ecfg, ctx, T.init_params(ecfg, seed=10, device="cuda"),
+                     ServeConfig(max_seq=64, batch=4, paged=False), device="cuda")
+        toks[name] = srv.generate(prompt, n_new).cpu()
+        launched[name] = {k.__name__: k.launches for k in kernels}
+    for name, t in toks.items():
+        if not torch.equal(t, toks["no-mesh"]):
+            raise AssertionError(f"phase 3f small ESP: {name} tokens differ from the no-mesh "
+                                 f"Server's:\n{t}\n{toks['no-mesh']}")
+    steps = ecfg.n_layers * (1 + n_new)
+    want = {"gmm_dual_act_ragged": steps, "gmm_ragged": steps, "gmm_fused_ffn": 0,
+            "gmm_dual_act_gather": 0, "gmm_scatter": 0, "flash_decode": 0,
+            "flash_decode_partials": ecfg.n_layers * n_new}
+    if launched["mesh kernels"] != want or any(launched["mesh plain"].values()):
+        raise AssertionError(f"phase 3f small ESP launches {launched['mesh kernels']} != {want} "
+                             f"(plain run {launched['mesh plain']})")
+    out["esp"] = {"launches": launched["mesh kernels"]}
+    return out
+
+
+def mesh_chunk_path(torch, mesh, card: str, eos: int) -> dict:
+    """Phase 3f at dbrx-132b width: 3e (ii)'s chunked run under 3d's chaos
+    plan on 24 pages, without the crash (virtual EP 4 x 8 slots, capacity
+    factor 5.0, alpha 0.1, page 128, batch 8, the same 12 requests and
+    ``eos``, ``prefill_chunk=128``), with no mesh and then over the 1 x 1
+    NCCL mesh, each server freed before the next is built. Each run: every
+    request finishes, every fault kind fires, a request is preempted, no
+    decode tick routes to the dead device before its first re-committed
+    replica, the table is consistent, a migration commits, and every tick's
+    launches are as its kind predicts (under the mesh: the gather/scatter
+    pair 4 x (decode + chunk ticks), ``flash_decode_paged`` 4 x decode
+    ticks, no ``flash_attention``, no ragged pair). Ticks 16-31 run under
+    the profiler for the device busy share. The mesh run's streams log the
+    prefix they share with the no-mesh run (bf16 is held bit for bit only
+    in fp32)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.ctx import ParallelCtx
+    from repro_torch.runtime.serve import ServeConfig, Server
+
+    n_layers, n_new = 4, 32
+    cfg = dataclasses.replace(get_config("dbrx-132b"), n_layers=n_layers)
+    prompts = scheduled_prompts(cfg.vocab_size, 12, 64, 256)
+    warm = [np.resize(prompts[0], n) for n in (64, 200)]
+    runs, out = {}, {}
+    for name, ctx, kernels, predict in (
+        ("no-mesh", ParallelCtx(capacity_factor=5.0), ep_kernels(), path_launches),
+        ("mesh", ParallelCtx(mesh=mesh, capacity_factor=5.0), mesh_ep_kernels(),
+         mesh_ep_launches),
+    ):
+        torch.cuda.reset_peak_memory_stats()
+        params = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+        srv = Server(cfg, ctx, params,
+                     ServeConfig(max_seq=1024, batch=8, slots_per_device=8, virtual_ep=4,
+                                 alpha=0.1, paged=True, page_size=128, pool_pages=24,
+                                 prefill_chunk=CHUNK), device="cuda")
+        del params
+        run = run_scheduler(torch, srv, prompts, n_new, chaos_plan(), eos, kernels, warm,
+                            predict=predict, profile_ticks=(16, 32))
+        held = check_chaos(run, None, f"phase 3f {name}", recomputed_equal=False,
+                           need_preemption=False)
+        if run["launches"] != predict(n_layers, run):
+            raise AssertionError(f"phase 3f {name}: launches {run['launches']} != "
+                                 f"{predict(n_layers, run)}")
+        run.pop("sched")
+        runs[name] = run
+        out[name] = {**tick_summary(run), "busy": run["busy"],
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "preempted": held["preempted"], "evacuation_plan": held["evacuation_plan"],
+                     "revival_plan": held["revival_plan"],
+                     "revival_to_first_commit_ticks": held["revival_to_first_commit_ticks"],
+                     "fault_ms": held["fault_ms"]}
+        del srv
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["mesh_prefix_shared_with_no_mesh"] = held_streams(
+        runs["mesh"]["results"], runs["no-mesh"]["results"], skip=set(runs["mesh"]["results"]))
+    for name in runs:
+        o = out[name]
+        log(f"phase 3f chunked chaos (seed {CHAOS_SEED}), {name}: {tick_line(runs[name], o)}; "
+            f"device busy {o['busy']['share']:.1%} over ticks {o['busy']['ticks'][0]}-"
+            f"{o['busy']['ticks'][1] - 1} ({o['busy']['busy_ms']:.1f} of "
+            f"{o['busy']['wall_ms']:.1f} ms, under the profiler); preempted {o['preempted']}, "
+            f"evacuation plan {o['evacuation_plan']}, revival plan {o['revival_plan']}, "
+            f"{o['revival_to_first_commit_ticks']} ticks from revival to the first re-commit; "
+            f"mark_dead {o['fault_ms'].get('death', 0):.2f} ms, revive "
+            f"{o['fault_ms'].get('revival', 0):.2f} ms; peak {o['peak_gb']:.2f} GB; launches "
+            f"{runs[name]['launches']} as predicted [{card}]")
+    log(f"phase 3f: each mesh stream's bf16 prefix shared with the no-mesh run "
+        f"{out['mesh_prefix_shared_with_no_mesh']} (of "
+        f"{ {rid: len(v) for rid, v in runs['no-mesh']['results'].items()} } tokens) [{card}]")
+    return out
+
+
+def mesh_esp_path(torch, mesh, card: str, esp_run: dict):
+    """Phase 3f at mixtral-8x22b width: 3b's traffic (8 x 256-token prompts,
+    32 new tokens, capacity factor 2.0, dense cache of max_seq 1024) with
+    ESP on the 1 x 1 NCCL mesh: the experts' buckets through
+    ``esp_expert_ffn`` (the ragged pair on the rank's hidden shard, the
+    reduce-scatter onto d), decode through the partials kernel and the LSE
+    merge. Launches as predicted (the ragged pair 4 x 33, no gather/scatter
+    pair, no ``gmm_fused_ffn``); TTFT, tok/s, busy share and peak memory
+    logged beside 3b's no-mesh ESP run (``esp_run``). Returns the
+    launches, layer 0's buckets (phase 5) and the run's numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode as FD
+    from repro_torch.kernels.flash_decode.paged import flash_decode_paged
+    from repro_torch.kernels.gmm import ragged as K
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.ctx import ParallelCtx
+    from repro_torch.runtime.data import request_stream
+    from repro_torch.runtime.serve import ServeConfig, Server
+
+    n_layers, batch, prompt_len, n_new = 4, 8, 256, 32
+    cfg = dataclasses.replace(get_config("mixtral-8x22b"), n_layers=n_layers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    srv = Server(cfg, ParallelCtx(mesh=mesh, moe_impl="esp"), params,
+                 ServeConfig(max_seq=1024, batch=batch, paged=False), device="cuda")
+    del params
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    prompt = next(request_stream(cfg.vocab_size, batch, prompt_len, seed=0))
+    srv.generate(prompt, 2)     # warm-up: first-call costs stay out of the timed run
+    kernels = (K.gmm_dual_act_ragged, K.gmm_ragged, K.gmm_dual_act_gather, K.gmm_scatter,
+               K.gmm_fused_ffn, FD.flash_decode_partials, FD.flash_decode, flash_attention,
+               flash_decode_paged, *op_layer_kernels())
+    for k in kernels:
+        k.launches = 0
+    out, logits, ttft_s, decode_s = timed_generate(torch, srv, prompt, n_new)
+    launches = {k.__name__: k.launches for k in kernels}
+    predicted = {
+        "gmm_dual_act_ragged": n_layers * (1 + n_new), "gmm_ragged": n_layers * (1 + n_new),
+        "gmm_dual_act_gather": 0, "gmm_scatter": 0, "gmm_fused_ffn": 0,
+        "flash_decode_partials": n_layers * n_new, "flash_decode": 0,
+        "flash_attention": n_layers, "flash_decode_paged": 0,
+        **{k.__name__: 0 for k in op_layer_kernels()},
+    }
+    if launches != predicted:
+        raise AssertionError(f"phase 3f ESP launch counts {launches} != predicted {predicted}")
+    out_cpu = out.cpu()
+    if out_cpu.shape != (batch, n_new) or int(out_cpu.min()) < 0 or \
+            int(out_cpu.max()) >= cfg.vocab_size:
+        raise AssertionError(f"phase 3f ESP tokens out of range: shape {tuple(out_cpu.shape)}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("phase 3f: non-finite ESP prefill logits")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    groups = expert_groups(torch, srv, prompt)
+    profile = profile_decode(torch, srv, prompt, card)
+    tok_s = batch * n_new / decode_s
+    log(
+        f"phase 3f ESP under the 1 x 1 NCCL mesh: mixtral-8x22b width, {n_layers} layers, bf16, "
+        f"dense cache, {batch} x {prompt_len}-token prompts -> {n_new} decode steps (after a "
+        f"warm-up run): setup {setup_s:.2f}s, TTFT (prefill) {ttft_s * 1e3:.1f} ms (3b with no "
+        f"mesh: {esp_run['ttft_ms']:.1f}), decode {decode_s * 1e3:.1f} ms = {tok_s:.1f} tok/s "
+        f"(3b: {esp_run['decode_tok_s']:.1f}), device busy "
+        f"{100 * profile['device_busy_share']:.1f}% (3b: "
+        f"{100 * esp_run['device_busy_share']:.1f}%), peak memory {peak_gb:.2f} GB (3b: "
+        f"{esp_run['peak_gb']:.2f}), launches {launches}, layer-0 expert rows prefill "
+        f"{groups['prefill'][1].tolist()} (cap={groups['prefill'][0]}) decode "
+        f"{groups['decode'][1].tolist()} (cap={groups['decode'][0]}) [{card}]"
+    )
+    return launches, groups, {
+        "ttft_ms": ttft_s * 1e3, "decode_ms": decode_s * 1e3, "decode_tok_s": tok_s,
+        "peak_gb": peak_gb, **profile}
 
 
 # ---------------------------------------------------------------------------
@@ -2686,6 +3020,21 @@ def main(argv=None) -> int:
     del splice
     gc.collect()
     torch.cuda.empty_cache()
+    small_served = small_mesh_serving_parity(torch, mesh)
+    log(f"phase 3f small fp32 models on the 1 x 1 NCCL mesh: the paged EP Server with chunked "
+        f"admission under the chaos plan (seed {CHAOS_SEED}) gives every stream and event of "
+        f"the no-mesh run with the kernels and on the plain path ("
+        f"{small_served['chunk_chaos']['ticks']} ticks, "
+        f"{small_served['chunk_chaos']['chunk_ticks']} with a chunk, preempted "
+        f"{small_served['chunk_chaos']['n_preempted']}; kernel run launches "
+        f"{small_served['chunk_chaos']['launches']} as predicted); ESP greedy tokens equal the "
+        f"no-mesh ESP Server's (kernel run launches {small_served['esp']['launches']})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_chunk_run = mesh_chunk_path(torch, mesh, card, chunk_run["eos"])
+    esp_mesh_launches, esp_mesh_groups, esp_mesh_run = mesh_esp_path(torch, mesh, card, esp_run)
+    gc.collect()
+    torch.cuda.empty_cache()
     op_launches, op_excess = op_layer_path(torch, groups, mesh_rows, card)
 
     timer = Timer(torch)
@@ -2693,6 +3042,7 @@ def main(argv=None) -> int:
     for dtype in ("bfloat16", "float32"):
         time_it = dtype == "bfloat16"
         g = gmm_cells(torch, groups, dtype, timer, time_it)
+        ge = gmm_cells(torch, esp_mesh_groups, dtype, timer, time_it, G=8, D=6144, F=16384)
         d = decode_cell(torch, dtype, timer, time_it)
         a = attention_cell(torch, dtype, timer, time_it)
         eg = pair_cells(torch, rows, 6144, 16384, dtype, timer, time_it)
@@ -2702,7 +3052,8 @@ def main(argv=None) -> int:
         pa = partials_cell(torch, dtype, timer, time_it)
         pg = padded_cells(torch, groups, dtype, timer, time_it)
         pp = paged_partials_cell(torch, dtype, timer, time_it)
-        cells[dtype] = {"gmm": g, "decode": d, "attn": a, "esp_gmm": eg, "mesh_gmm": mg,
+        cells[dtype] = {"gmm": g, "esp_mesh_gmm": ge, "decode": d, "attn": a, "esp_gmm": eg,
+                        "mesh_gmm": mg,
                         "fused": fu, "dense_decode": dd, "partials": pa, "padded": pg,
                         "paged_partials": pp}
         log(f"kernels {dtype}, error over its limit (rtol, atol) = "
@@ -2710,7 +3061,12 @@ def main(argv=None) -> int:
             f"{g['decode']['gmm_dual_act_ragged']['excess']:.3g} prefill "
             f"{g['prefill']['gmm_dual_act_ragged']['excess']:.3g}; gmm_ragged decode "
             f"{g['decode']['gmm_ragged']['excess']:.3g} prefill "
-            f"{g['prefill']['gmm_ragged']['excess']:.3g}; flash_decode_paged "
+            f"{g['prefill']['gmm_ragged']['excess']:.3g}; the ragged pair at ESP under the "
+            f"mesh (8 experts, F 16384) decode "
+            f"{ge['decode']['gmm_dual_act_ragged']['excess']:.3g} / "
+            f"{ge['decode']['gmm_ragged']['excess']:.3g} prefill "
+            f"{ge['prefill']['gmm_dual_act_ragged']['excess']:.3g} / "
+            f"{ge['prefill']['gmm_ragged']['excess']:.3g}; flash_decode_paged "
             f"{d['excess']:.3g}; flash_attention {a['excess']:.3g}; "
             + "; ".join(f"{n} {path} decode {c['decode'][n]['excess']:.3g} prefill "
                         f"{c['prefill'][n]['excess']:.3g}"
@@ -2744,10 +3100,17 @@ def main(argv=None) -> int:
             + ", ".join(f"{k} {v:.2f}" for k, v in c["faults"].items()))
     for name in ("gmm_dual_act_ragged", "gmm_ragged"):
         for phase in ("decode", "prefill"):
-            c = bf["gmm"][phase][name]
-            log(f"time {name} {phase} [{c['shape']}]: kernel {c['ms']:.3f} ms, plain "
-                f"{c['plain_ms']:.3f} ms, torch.bmm {c['library_ms']:.3f} ms, bound "
-                f"{c['bound_ms']:.3f} ms ({c['bound_by']}) [{card}]")
+            c = bf["esp_mesh_gmm"][phase][name]
+            log(f"{name} ESP under the mesh {phase} bf16 vs the fp32 product at {ROUNDING}: "
+                f"{c['excess_fp32_product']:.3f}; faults caught: "
+                + ", ".join(f"{k} {v:.2f}" for k, v in c["faults"].items()))
+    for key, path in (("gmm", ""), ("esp_mesh_gmm", " ESP under the mesh")):
+        for name in ("gmm_dual_act_ragged", "gmm_ragged"):
+            for phase in ("decode", "prefill"):
+                c = bf[key][phase][name]
+                log(f"time {name}{path} {phase} [{c['shape']}]: kernel {c['ms']:.3f} ms, plain "
+                    f"{c['plain_ms']:.3f} ms, torch.bmm {c['library_ms']:.3f} ms, bound "
+                    f"{c['bound_ms']:.3f} ms ({c['bound_by']}) [{card}]")
     for path, key in (("ESP", "esp_gmm"), ("mesh", "mesh_gmm")):
         for name in ("gmm_dual_act_gather", "gmm_scatter"):
             for phase in ("decode", "prefill"):
@@ -2973,8 +3336,22 @@ def main(argv=None) -> int:
                      "prefill_library_ms": pre["library_ms"],
                      "prefill_bound_ms": pre["bound_ms"],
                      "prefill_bound_by": pre["bound_by"], "prefill_shape": pre["shape"]}
+            timed = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "shape")
+            if name in ("gmm_dual_act_ragged", "gmm_ragged"):
+                # ESP under the mesh: the same kernels at mixtral's buckets
+                ed, ep_ = bf["esp_mesh_gmm"]["decode"][name], bf["esp_mesh_gmm"]["prefill"][name]
+                extra["esp_mesh_path"] = {
+                    "launches": esp_mesh_launches[name],
+                    **{k: ed[k] for k in timed}, **{f"prefill_{k}": ep_[k] for k in timed},
+                    "excess": max(ed["excess"], ep_["excess"]),
+                    "excess_fp32": max(fp["esp_mesh_gmm"][ph][name]["excess"]
+                                       for ph in ("decode", "prefill")),
+                    "max_abs_err": max(ed["max_abs_err"], ep_["max_abs_err"]),
+                    "excess_fp32_product": max(ed["excess_fp32_product"],
+                                               ep_["excess_fp32_product"]),
+                    "faults": {f"{ph} {f}": v for ph in ("decode", "prefill")
+                               for f, v in bf["esp_mesh_gmm"][ph][name]["faults"].items()}}
             if len(keys) > 1:
-                timed = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "shape")
                 md, mp = bf["mesh_gmm"]["decode"][name], bf["mesh_gmm"]["prefill"][name]
                 extra["mesh_path"] = {"launches": mesh_launches[name],
                                       **{k: md[k] for k in timed},
@@ -3005,6 +3382,8 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": entries, "run": run, "run_esp": esp_run,
                       "run_mesh": mesh_run, "run_scheduler": sched_run,
                       "run_chunked": chunk_run,
+                      "run_mesh_serving": {"small": small_served, "chunked_chaos": mesh_chunk_run,
+                                           "esp": esp_mesh_run},
                       "op_layer_excess": op_excess}), flush=True)
     import torch.distributed as dist
 

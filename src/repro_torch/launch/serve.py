@@ -4,12 +4,18 @@ Runs on the card by default; ``--device cpu`` takes the plain PyTorch path.
 The KV cache is dense unless ``--paged`` asks for the page pool, as in the
 reference's CLI.
 
+``--prefill-chunk N`` (with ``--paged``) serves each batch's requests
+through the ``RequestScheduler`` with chunked admission: N context tokens
+a tick ride the decode step's prefill lane.
+
 ``--mesh DxM`` serves under a ``("data", "model")`` mesh of
-``torch.distributed`` ranks: EP over the model axis, the dense cache's
-slots split over it, the batch over the data axis. Under ``torchrun`` the
-ranks come from ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK``; rank r uses
-``cuda:LOCAL_RANK`` with NCCL, or gloo with ``--device cpu``. A world of
-one (``--mesh 1x1``) needs no ``torchrun``. Rank 0 prints.
+``torch.distributed`` ranks: EP (or with ``--moe-impl esp`` ESP's
+hidden-dim shards) over the model axis, the dense cache's slots (or the
+paged pool's KV heads) split over it, the batch over the data axis; every
+option above serves under it. Under ``torchrun`` the ranks come from
+``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK``; rank r uses ``cuda:LOCAL_RANK``
+with NCCL, or gloo with ``--device cpu``. A world of one (``--mesh 1x1``)
+needs no ``torchrun``. Rank 0 prints.
 
 Examples (CPU, smoke size):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx-132b --smoke \
@@ -18,7 +24,8 @@ Examples (CPU, smoke size):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b --smoke \
       --device cpu --moe-impl esp
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
-      --arch dbrx-132b --smoke --device cpu --mesh 2x2 --slots 3 --alpha 0.1
+      --arch dbrx-132b --smoke --device cpu --mesh 2x2 --slots 3 --alpha 0.1 \
+      --paged --page-size 8 --prefill-chunk 8
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from repro_torch.models import transformer as T
 from repro_torch.parallel.ctx import ParallelCtx
 from repro_torch.parallel.mesh import init_distributed, make_mesh, parse_mesh
 from repro_torch.runtime.data import request_stream
+from repro_torch.runtime.scheduler import RequestScheduler
 from repro_torch.runtime.serve import ServeConfig, Server
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -87,13 +95,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                     "tables (default: one dense cache per layer)")
     ap.add_argument("--page-size", type=int, default=128)
     ap.add_argument("--pool-pages", type=int, default=None)
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="chunked admission through the RequestScheduler: this "
+                    "many context tokens a tick (needs --paged)")
     ap.add_argument("--ep-chunks", type=int, default=1)
     ap.add_argument("--use-kernels", default="auto", choices=("auto", "on", "off"),
                     help="CUDA kernels: auto = for CUDA tensors, on = always "
                     "(raises on the CPU), off = plain PyTorch paths")
     ap.add_argument("--mesh", default=None,
                     help="DxM: serve under a data x model mesh of ranks "
-                    "(torchrun for more than one; the dense cache only)")
+                    "(torchrun for more than one)")
     return ap.parse_args(argv)
 
 
@@ -102,8 +113,20 @@ def serve_config(args: argparse.Namespace) -> ServeConfig:
         max_seq=args.max_seq, batch=args.requests, slots_per_device=args.slots,
         alpha=args.alpha, paged=args.paged, page_size=args.page_size,
         pool_pages=args.pool_pages, virtual_ep=args.virtual_ep,
-        ep_chunks=args.ep_chunks,
+        prefill_chunk=args.prefill_chunk, ep_chunks=args.ep_chunks,
     )
+
+
+def serve_batch(server: Server, prompt, n_new: int) -> torch.Tensor:
+    """``(B, n_new)`` tokens of a batch of prompts: ``generate``, or with
+    ``prefill_chunk`` the requests through a ``RequestScheduler``."""
+    if not server.scfg.prefill_chunk:
+        return server.generate(prompt, n_new)
+    sched = RequestScheduler(server)
+    for p in prompt:
+        sched.submit(p, n_new)
+    res = sched.run()
+    return torch.stack([torch.as_tensor(res[r]) for r in sorted(res)])
 
 
 def main(argv=None):
@@ -137,7 +160,7 @@ def main(argv=None):
     stream = request_stream(cfg.vocab_size, args.requests, args.prompt_len, args.seed)
     for i, prompt in zip(range(args.batches), stream):
         t0 = time.perf_counter()
-        out = server.generate(prompt, args.gen)
+        out = serve_batch(server, prompt, args.gen)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         dt = time.perf_counter() - t0

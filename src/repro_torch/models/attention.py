@@ -8,12 +8,20 @@ fp32. The dense cache is ``(B, L, K, hd)`` per layer, a ring of
 page pool plus per-request block tables. The port writes K/V into either
 cache *in place* (JAX returns new arrays), which keeps one copy resident.
 
-Under a mesh (``ctx.mesh``) the dense cache's slots are split over the
-model axis: a rank holds slots ``[r*L/M, (r+1)*L/M)``
-of its requests, the prefill fills that range, a decode write lands only
-on the rank that owns the slot, and decode attends through
-``collectives.seq_parallel_decode_attend``. The paged cache under a mesh
-comes with a later slice.
+Under a mesh (``ctx.mesh``) every rank computes attention's projections
+for all heads of its requests (no tensor parallelism yet) and holds its
+shard of the cache (``parallel.sharding``). The dense cache is split by
+sequence when ``ctx.seq_parallel_kv`` and the slots divide the model axis
+(a rank holds slots ``[r*L/M, (r+1)*L/M)``, a decode write lands only on
+the rank that owns the slot, and decode attends through
+``collectives.seq_parallel_decode_attend``), else by KV heads when they
+divide, else replicated. The paged pool holds the rank's KV heads when
+they divide (every page, since pages are allocated by request), else all
+of them. Decode follows the reference's dispatch: ``flash_decode`` or
+``flash_decode_paged`` on the rank's ``H/M`` query heads against its KV
+heads where the reference's eligibility tests pass, the plain math
+otherwise; a rank that attended a head shard all-gathers the heads over
+the model group.
 
 ``chunk_prefill_attention`` is the prefill lane of the decode step: one
 fixed-size chunk of an admitting request's context, written into the
@@ -23,6 +31,7 @@ reference computes it outside any kernel too).
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -32,7 +41,7 @@ from repro_torch.kernels import registry
 from repro_torch.kernels.flash_decode.ref import gather_pages
 from repro_torch.models.layers import apply_rope, normal_init
 from repro_torch.parallel import sharding
-from repro_torch.parallel.collectives import seq_parallel_decode_attend
+from repro_torch.parallel.collectives import all_gather_dim, seq_parallel_decode_attend
 from repro_torch.parallel.ctx import ParallelCtx
 
 NEG_INF = -1e30
@@ -179,13 +188,28 @@ def cache_len(cfg: ModelConfig, max_seq: int) -> int:
     return min(max_seq, w) if w else max_seq
 
 
+def dense_shard(cfg: ModelConfig, length: int, ctx: ParallelCtx | None):
+    """``(slots, heads)`` of an ``length``-slot dense cache this rank holds
+    (all of both with no mesh)."""
+    if ctx is None or ctx.mesh is None:
+        return slice(0, length), slice(0, cfg.n_kv_heads)
+    return sharding.dense_cache_shard(length, cfg.n_kv_heads, ctx.n_model,
+                                      ctx.model_rank, ctx.seq_parallel_kv)
+
+
+def pool_heads(cfg: ModelConfig, ctx: ParallelCtx | None) -> slice:
+    """The paged pool's KV heads this rank holds."""
+    if ctx is None or ctx.mesh is None:
+        return slice(0, cfg.n_kv_heads)
+    return sharding.kv_heads(cfg.n_kv_heads, ctx.n_model, ctx.model_rank)
+
+
 def cache_init(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.float32,
-               device="cpu", n_model: int = 1) -> dict:
-    """Dense decode cache ``{"k", "v"}`` of ``(B, cache_len / n_model, K,
-    hd)``: one rank's slots when the cache is split over a model axis of
-    ``n_model`` ranks."""
-    slots = sharding.cache_slots(cache_len(cfg, max_seq), n_model, 0)
-    shape = (batch, slots.stop - slots.start, cfg.n_kv_heads, cfg.head_dim_)
+               device="cpu", ctx: ParallelCtx | None = None) -> dict:
+    """Dense decode cache ``{"k", "v"}`` of ``(B, slots, heads, hd)``: under
+    a mesh the rank's shard (:func:`dense_shard`), else all of it."""
+    slots, heads = dense_shard(cfg, cache_len(cfg, max_seq), ctx)
+    shape = (batch, slots.stop - slots.start, heads.stop - heads.start, cfg.head_dim_)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -225,11 +249,13 @@ def paged_layout(cfg: ModelConfig, max_seq: int, page_size: int = PAGE_SIZE):
 
 def paged_cache_init(cfg: ModelConfig, batch: int, max_seq: int,
                      dtype=torch.float32, page_size: int = PAGE_SIZE,
-                     n_pages: int | None = None, device="cpu") -> dict:
+                     n_pages: int | None = None, device="cpu",
+                     ctx: ParallelCtx | None = None) -> dict:
     """Shared page pool ``(P, bs, K, hd)`` + block tables ``(B, NB)`` +
     per-request written ``lengths``. With ``n_pages`` (allocator mode) the
     pool gets one extra write-off page at index ``n_pages`` and every table
-    entry starts there."""
+    entry starts there. Under a mesh the pool holds the rank's KV heads
+    (:func:`pool_heads`) and ``batch`` is the rank's requests."""
     bs, nb = paged_layout(cfg, max_seq, page_size)
     if n_pages is None:
         pool_pages = batch * nb
@@ -237,7 +263,8 @@ def paged_cache_init(cfg: ModelConfig, batch: int, max_seq: int,
     else:
         pool_pages = n_pages + 1
         tables = torch.full((batch, nb), n_pages, dtype=torch.int32, device=device)
-    shape = (pool_pages, bs, cfg.n_kv_heads, cfg.head_dim_)
+    heads = pool_heads(cfg, ctx)
+    shape = (pool_pages, bs, heads.stop - heads.start, cfg.head_dim_)
     return {
         "pool_k": torch.zeros(shape, dtype=dtype, device=device),
         "pool_v": torch.zeros(shape, dtype=dtype, device=device),
@@ -280,11 +307,13 @@ def paged_prefill_fill(cache: dict, k: torch.Tensor, v: torch.Tensor, s: int,
 
 
 def decode_attention(p: dict, x: torch.Tensor, cache: dict, pos: int,
-                     cfg: ModelConfig, ctx: ParallelCtx):
+                     cfg: ModelConfig, ctx: ParallelCtx, length: int | None = None):
     """One decode step: ``x`` (B, 1, d) against a dense ``{"k", "v"}`` cache
     at the shared absolute position ``pos`` (a host int), or a paged cache
     at each request's own length. Returns ``(out, cache)``; the cache is
-    updated in place."""
+    updated in place. ``length`` is the dense cache's whole slot count,
+    which a rank's shard alone does not tell under a mesh (default: the
+    shard's, as with no mesh)."""
     if is_paged(cache):
         return _paged_decode_attention(p, x, cache, cfg, ctx)
     b = x.shape[0]
@@ -296,18 +325,24 @@ def decode_attention(p: dict, x: torch.Tensor, cache: dict, pos: int,
 
     k_cache, v_cache = cache["k"], cache["v"]
     local = k_cache.shape[1]             # this rank's slots
-    length = local * ctx.n_model         # the whole cache's
-    lo = ctx.model_rank * local
+    length = length or local             # the whole cache's
+    slots, heads = dense_shard(cfg, length, ctx)
+    if slots.stop - slots.start != local or heads.stop - heads.start != k_cache.shape[2]:
+        raise ValueError(
+            f"dense cache shard {tuple(k_cache.shape[1:3])} is not this rank's "
+            f"(slots {slots}, heads {heads}) of a {length}-slot cache"
+        )
+    lo = slots.start
     w = cfg.sliding_window or 0
     # Full attention at pos >= length: the cache is full. Freeze it (skip
     # the write that would clobber the last slot) and clamp the mask, so
     # slot j always holds position j; serving refuses such steps anyway.
-    # Under a mesh only the rank that owns the slot writes it.
+    # Under a sequence split only the rank that owns the slot writes it.
     if w > 0 or pos < length:
         slot = pos % length if w > 0 else pos
         if lo <= slot < lo + local:
-            k_cache[:, slot - lo] = k_new[:, 0].to(k_cache.dtype)
-            v_cache[:, slot - lo] = v_new[:, 0].to(v_cache.dtype)
+            k_cache[:, slot - lo] = k_new[:, 0, heads].to(k_cache.dtype)
+            v_cache[:, slot - lo] = v_new[:, 0, heads].to(v_cache.dtype)
 
     j = lo + torch.arange(local, device=x.device)
     if w > 0:
@@ -316,12 +351,21 @@ def decode_attention(p: dict, x: torch.Tensor, cache: dict, pos: int,
         mask = pos - torch.remainder(pos - j, length) >= 0
     else:
         mask = j <= min(pos, length - 1)
-    if ctx.mesh is not None:
-        o = seq_parallel_decode_attend(q, k_cache, v_cache, mask, ctx)
-    elif ctx.kernels_on(q):
-        o = _flash_decode(q, k_cache, v_cache, mask)
+    if ctx.mesh is None:
+        if ctx.kernels_on(q):
+            o = _flash_decode(q, k_cache, v_cache, mask)
+        else:
+            o = gqa_attend(q, k_cache, v_cache, mask[None, None, None, None, :])
+    elif _flash_decode_eligible(q, cfg.n_kv_heads, ctx):
+        o = _flash_decode_heads(q, k_cache, v_cache, mask, cfg.n_kv_heads, ctx)
+    elif ctx.seq_parallel_kv and length % ctx.n_model == 0:
+        # the sequence split (the reference's _seq_parallel_decode_eligible;
+        # a replicated batch takes its einsum body, the plain math)
+        sp_ctx = ctx if ctx.batch_split else dataclasses.replace(ctx, use_kernels=False)
+        o = seq_parallel_decode_attend(q, k_cache, v_cache, mask, sp_ctx)
     else:
-        o = gqa_attend(q, k_cache, v_cache, mask[None, None, None, None, :])
+        o = _attend_heads(q, k_cache, v_cache, mask[None, None, None, None, :],
+                          cfg.n_kv_heads, ctx)
     return out_proj(p, o), cache
 
 
@@ -335,13 +379,65 @@ def _flash_decode(q, k_cache, v_cache, mask):
     return registry.decode_attend(q[:, 0].contiguous(), k_cache, v_cache, valid)[:, None]
 
 
+def _q_heads(nh: int, ctx: ParallelCtx) -> slice:
+    """The query heads a rank attends when the model group splits them."""
+    m, r = ctx.n_model, ctx.model_rank
+    return slice(r * nh // m, (r + 1) * nh // m)
+
+
+def _flash_decode_eligible(q, n_kv: int, ctx: ParallelCtx) -> bool:
+    """The reference's ``_flash_decode_eligible`` under a mesh: the kernel
+    on head shards, with the sequence split off, the query heads dividing
+    the model axis, the batch split, and the KV heads dividing the axis or
+    the axis dividing them (``tp % nkv == 0``: a replicated cache, of which
+    each rank reads its group's KV head)."""
+    tp = ctx.n_model
+    if not ctx.kernels_on(q) or ctx.seq_parallel_kv:
+        return False
+    if q.shape[2] % tp or not ctx.batch_split:
+        return False
+    return n_kv % tp == 0 or tp % n_kv == 0
+
+
+def _flash_decode_heads(q, k_cache, v_cache, mask, n_kv: int, ctx: ParallelCtx):
+    """``flash_decode`` on the rank's ``H/M`` query heads (the reference's
+    head-sharded ``_flash_decode``): against its KV heads when the cache
+    is head-split, or against the one KV head of its GQA group when the
+    cache is replicated (``tp % nkv == 0``, a copy of that head's slice);
+    the heads are then all-gathered over the model group."""
+    tp = ctx.n_model
+    if tp == 1:
+        return _flash_decode(q, k_cache, v_cache, mask)
+    if k_cache.shape[2] == n_kv:
+        i = ctx.model_rank // (tp // n_kv)
+        k_cache = k_cache[:, :, i : i + 1].contiguous()
+        v_cache = v_cache[:, :, i : i + 1].contiguous()
+    qh = q[:, :, _q_heads(q.shape[2], ctx)].contiguous()
+    o = _flash_decode(qh, k_cache, v_cache, mask)
+    return all_gather_dim(o, 2, ctx.mesh.model_group)
+
+
+def _attend_heads(q, k, v, mask, n_kv: int, ctx: ParallelCtx):
+    """Plain GQA attention of ``q`` (B, S, H, hd) over this rank's ``k``/``v``
+    (B, T, K_loc, hd): all heads when it holds every KV head, else its
+    ``H/M`` query heads against its KV heads, the heads then all-gathered
+    over the model group."""
+    if ctx.mesh is None or k.shape[2] == n_kv:
+        return gqa_attend(q, k, v, mask)
+    o = gqa_attend(q[:, :, _q_heads(q.shape[2], ctx)], k, v, mask)
+    return all_gather_dim(o, 2, ctx.mesh.model_group)
+
+
 def _paged_decode_attention(p: dict, x: torch.Tensor, cache: dict,
                             cfg: ModelConfig, ctx: ParallelCtx):
     """One decode step against a paged cache: each request RoPEs and writes
     at its own position ``lengths[b]`` (a pool write through its table, in
     place), then attends over its live prefix. A full-attention request at
     capacity stops writing (freeze-on-overflow); serving refuses the step
-    anyway."""
+    anyway. Under a mesh the rank writes its KV heads of the new rows, and
+    attends as the reference's ``_paged_decode_eligible`` decides: the
+    kernel on its head shard (the KV heads dividing the model axis, the
+    batch split), else the plain math (:func:`_attend_heads`)."""
     pool_k, pool_v = cache["pool_k"], cache["pool_v"]
     tables, written = cache["tables"], cache["lengths"]
     bs = pool_k.shape[1]
@@ -358,7 +454,9 @@ def _paged_decode_attention(p: dict, x: torch.Tensor, cache: dict,
     slot = torch.remainder(wl, cap) if w > 0 else wl.clamp(max=cap - 1)
     page = torch.gather(tables.long(), 1, (slot // bs)[:, None])[:, 0]
     row = slot % bs
-    k_new, v_new = k_new[:, 0].to(pool_k.dtype), v_new[:, 0].to(pool_v.dtype)
+    hs = pool_heads(cfg, ctx)
+    k_new = k_new[:, 0, hs].to(pool_k.dtype)
+    v_new = v_new[:, 0, hs].to(pool_v.dtype)
     if w == 0:
         overflow = (wl >= cap)[:, None, None]
         k_new = torch.where(overflow, pool_k[page, row], k_new)
@@ -368,15 +466,20 @@ def _paged_decode_attention(p: dict, x: torch.Tensor, cache: dict,
     written = written + 1
     live = written.clamp(max=cap)
 
-    if ctx.kernels_on(q):
-        o = registry.decode_attend_paged(
-            q[:, 0].contiguous(), pool_k, pool_v, tables, live
-        )[:, None]
+    tp, n_kv = ctx.n_model, cfg.n_kv_heads
+    eligible = ctx.kernels_on(q) and (ctx.mesh is None or (
+        q.shape[2] % tp == 0 and n_kv % tp == 0 and ctx.batch_split))
+    if eligible:
+        qh = q[:, 0] if tp == 1 else q[:, 0, _q_heads(q.shape[2], ctx)]
+        o = registry.decode_attend_paged(qh.contiguous(), pool_k, pool_v, tables,
+                                         live)[:, None]
+        if tp > 1:
+            o = all_gather_dim(o, 2, ctx.mesh.model_group)
     else:
         k_all = gather_pages(pool_k, tables)
         v_all = gather_pages(pool_v, tables)
         mask = torch.arange(cap, device=x.device)[None, :] < live[:, None]
-        o = gqa_attend(q, k_all, v_all, mask[:, None, None, None, :])
+        o = _attend_heads(q, k_all, v_all, mask[:, None, None, None, :], n_kv, ctx)
     out = out_proj(p, o)
     new_cache = {"pool_k": pool_k, "pool_v": pool_v, "tables": tables,
                  "lengths": written}
@@ -394,7 +497,9 @@ def chunk_prefill_attention(p: dict, x: torch.Tensor, cache: dict,
     length`` land on the write-off page (the pool's last). Then every
     written row of the table is attended under the single mask ``kpos <=
     start + i``: the previous chunks' pages and this chunk, causally.
-    Returns ``(out (1, C, d), cache)``."""
+    Under a mesh the chunk is the same on every rank; each writes and
+    reads its KV heads of the pool (:func:`_attend_heads`). Returns
+    ``(out (1, C, d), cache)``."""
     if cfg.sliding_window:
         raise ValueError(
             f"chunk_prefill_attention needs full attention: sliding_window="
@@ -413,10 +518,11 @@ def chunk_prefill_attention(p: dict, x: torch.Tensor, cache: dict,
     valid = torch.arange(c, device=x.device) < length
     page = torch.where(valid, table.long()[slot // bs], pool_k.shape[0] - 1)
     row = slot % bs
-    pool_k[page, row] = k[0].to(pool_k.dtype)
-    pool_v[page, row] = v[0].to(pool_v.dtype)
+    hs = pool_heads(cfg, ctx)
+    pool_k[page, row] = k[0, :, hs].to(pool_k.dtype)
+    pool_v[page, row] = v[0, :, hs].to(pool_v.dtype)
     k_all = gather_pages(pool_k, table[None, :])                   # (1, cap, K, hd)
     v_all = gather_pages(pool_v, table[None, :])
     mask = torch.arange(cap, device=x.device)[None, :] <= pos[:, None]   # (C, cap)
-    o = gqa_attend(q, k_all, v_all, mask)
+    o = _attend_heads(q, k_all, v_all, mask, cfg.n_kv_heads, ctx)
     return out_proj(p, o), cache

@@ -5,28 +5,33 @@
 * ``esp``   — expert-sharded FFN: tokens bucketed per expert locally (no
   all-to-all); on one device it serves the experts' own weights through
   the flat-row expert FFN (``registry.expert_ffn_from_rows``), the call
-  every rank of the multi-device EP path makes.
+  every rank of the multi-device EP path makes. Under a mesh each rank
+  holds every expert's hidden-dim shard (``sharding.expert_hidden``): its
+  bucket group runs the ragged pair on the shard and the partial down
+  products reduce-scatter onto d (``collectives.esp_expert_ffn``); the
+  combine runs on the d-shard and an all-gather restores d.
 * ``ep``    — fixed-capacity per-slot buckets over the placement table's
   routing view: the path the NI-Balancer serves on, with shadow replicas
   in extra slot rows. One process: ``collectives.ep_moe_local``; under a
   mesh: ``collectives.ep_moe_shardmap``, the all-to-all over the model
   group, each rank holding its own slot rows.
 
-Under a mesh ``"auto"`` picks EP when the experts divide the model axis,
-as the reference does; where it would pick ESP, and for ``moe_impl="esp"``,
-the port raises: ESP's reduce-scatter (``esp_expert_ffn``) under a mesh is
-not ported yet.
+Under a mesh ``"auto"`` picks EP when the experts divide the model axis
+and ESP otherwise, as the reference does.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import registry
 from repro_torch.models.layers import normal_init
+from repro_torch.parallel import sharding
 from repro_torch.parallel.collectives import (
+    all_gather_dim,
     bucket_capacity,
     bucket_combine,
     bucket_counts,
@@ -35,6 +40,8 @@ from repro_torch.parallel.collectives import (
     dispatch_metadata,
     ep_moe_local,
     ep_moe_shardmap,
+    esp_expert_ffn,
+    kept_counts,
     tiled_placement,
     uniform_placement,
     validate_ep_chunks,
@@ -126,9 +133,12 @@ def moe_esp(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: ParallelCtx,
     absolute offsets into the one flat array, merged per row by its owning
     chunk (a select, no arithmetic), so the output is bit-identical to one
     call. ``use_kernels=False`` takes the padded path: ``(E, cap, d)``
-    buckets, einsums, ``bucket_combine``."""
+    buckets, einsums, ``bucket_combine``. Under a mesh:
+    :func:`_moe_esp_mesh`."""
     ids, w, aux = route(p, x, cfg)
     ids = _mask_ids(ids, token_mask, cfg)
+    if ctx.mesh is not None:
+        return _moe_esp_mesh(p, x, ids, w, cfg, ctx), _aux(aux, ids, cfg)
     b, s, d = x.shape
     k = cfg.experts_per_token
     e = cfg.n_experts
@@ -174,6 +184,57 @@ def moe_esp(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: ParallelCtx,
     y = torch.einsum("ecf,efd->ecd", F.silu(h) * u, p["w_down"])
     out = bucket_combine(y, ids2, slots, keep, w2)
     return out.reshape(b, s, d), _aux(aux, ids, cfg)
+
+
+def _moe_esp_mesh(p: dict, x: torch.Tensor, ids, w, cfg: ModelConfig,
+                  ctx: ParallelCtx) -> torch.Tensor:
+    """ESP under a mesh (the reference's group path of ``moe_esp``). The
+    rank's tokens are one bucket group (the reference's ``groups =
+    n_batch`` groups, one a data rank, when the batch divides; one
+    replicated group otherwise), bucketed per expert at ``bucket_capacity``
+    of the group's tokens. ``p``'s expert weights are the rank's
+    hidden-dim shard of every expert (``sharding.expert_hidden``: the whole
+    hidden dim when it does not divide the model axis).
+
+    Unless the plain math is asked for, and when d and the hidden dim
+    divide the model axis and the groups the data axis (the reference's
+    ``kernel_ok``), the buckets go through :func:`esp_expert_ffn` (the
+    ragged pair on the shard, reduce-scattered onto d), are combined on the
+    rank's d-shard, and the d-shards are all-gathered over the model group.
+    Otherwise the reference's einsum branch: the shard's products, their
+    partial down products all-reduced over the model group when the hidden
+    dim is split, then the combine."""
+    b, s, d = x.shape
+    k = cfg.experts_per_token
+    e = cfg.n_experts
+    f = cfg.moe_d_ff_
+    m = ctx.n_model
+    fs = sharding.expert_hidden(f, m, ctx.model_rank)
+    if p["w_gate"].shape[-1] != fs.stop - fs.start:
+        raise ValueError(
+            f"moe_esp under a mesh takes the rank's hidden-dim shard of the "
+            f"expert weights ({fs.stop - fs.start} of {f} columns), got "
+            f"{p['w_gate'].shape[-1]} (the Server slices them)"
+        )
+    n = b * s
+    cap = bucket_capacity(n, k, ctx.capacity_factor, e)
+    ids2, w2 = ids.reshape(n, k), w.reshape(n, k)
+    bufs, slots, keep = bucket_dispatch(x.reshape(n, d), ids2, e, cap)   # (E, cap, d)
+    group = ctx.mesh.model_group
+    kernel_ok = (ctx.use_kernels is not False and d % m == 0 and f % m == 0
+                 and ctx.batch_split)
+    if kernel_ok:
+        counts = kept_counts(ids2, keep, e)
+        y = esp_expert_ffn(bufs[None], counts[None], p["w_gate"], p["w_up"],
+                           p["w_down"], ctx)[0]                        # (E, cap, d/M)
+        out = bucket_combine(y, ids2, slots, keep, w2)
+        return all_gather_dim(out, 1, group).reshape(b, s, d)
+    h = torch.einsum("ecd,edf->ecf", bufs, p["w_gate"])
+    u = torch.einsum("ecd,edf->ecf", bufs, p["w_up"])
+    y = torch.einsum("ecf,efd->ecd", F.silu(h) * u, p["w_down"])
+    if sharding.is_split(f, m):
+        dist.all_reduce(y, group=group)
+    return bucket_combine(y, ids2, slots, keep, w2).reshape(b, s, d)
 
 
 def moe_ep(
@@ -258,11 +319,6 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: ParallelCtx,
             impl = "ep"          # E/D >= 1: expert parallelism
         else:
             impl = "esp"         # E/D < 1: the reference's choice is ESP
-    if impl == "esp" and ctx.mesh is not None:
-        raise NotImplementedError(
-            "ESP under a mesh (esp_expert_ffn's psum_scatter over the model "
-            "axis) is not ported yet (ROADMAP Queue 1 item 5)"
-        )
     if impl == "dense":
         return moe_dense(p, x, cfg, ctx, token_mask=token_mask)
     if impl == "esp":

@@ -5,13 +5,17 @@ PyTorch port of ``repro.models.transformer`` for the serving slice. Layers
 are stacked as ``(L, ...)`` tensors (so ``w[l]`` is a contiguous view) and
 driven by a Python loop where the reference scans. Under a mesh every rank
 runs these on its own requests (the batch split over the data axis), with
-its slice of the dense cache; the EP prefill splits the sequence over the
-model axis inside ``ep_moe_shardmap`` and gathers it back there. The other block
-patterns (zamba, xlstm, encdec) and the training forward come with later
-slices.
+its shard of the dense cache or of the paged pool (``parallel.sharding``);
+the EP prefill splits the sequence over the model axis inside
+``ep_moe_shardmap`` and gathers it back there. The prefill lane's chunk is
+the same on every rank (the reference's ``chunk_specs`` replicate it). The
+other block patterns (zamba, xlstm, encdec) and the training forward come
+with later slices.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -26,9 +30,11 @@ from repro_torch.models.attention import (
     chunk_prefill_attention,
     decode_attention,
     dense_prefill_fill,
+    dense_shard,
     is_paged,
     paged_cache_init,
     paged_prefill_fill,
+    pool_heads,
 )
 from repro_torch.models.layers import mlp_apply, mlp_init, normal_init, rms_norm
 from repro_torch.models.moe import moe_apply, moe_init, zero_aux
@@ -116,21 +122,24 @@ def _logits(params, x, cfg: ModelConfig):
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.float32,
                paged: bool = False, page_size: int = PAGE_SIZE,
-               n_pages: int | None = None, device="cpu", n_model: int = 1) -> dict:
+               n_pages: int | None = None, device="cpu",
+               ctx: ParallelCtx = NO_MESH) -> dict:
     """Decode cache sized for ``max_seq`` context, one stacked leaf per
-    layer: dense ``(L, B, cache_len / n_model, K, hd)`` k/v (a rank's slots
-    under a model axis of ``n_model`` ranks), or with ``paged`` a shared
-    page pool + block tables. ``pos`` is kept on the host (a Python
-    int)."""
+    layer: dense ``(L, B, slots, heads, hd)`` k/v, or with ``paged`` a
+    shared page pool + block tables; under a mesh ``batch`` is the rank's
+    requests and the cache its shard (``attention.dense_shard``,
+    ``attention.pool_heads``). ``pos`` is kept on the host (a Python int),
+    and so is ``len``, the dense cache's whole slot count."""
     _check_pattern(cfg)
     if paged:
-        one = paged_cache_init(cfg, batch, max_seq, dtype, page_size, n_pages, device)
+        one = paged_cache_init(cfg, batch, max_seq, dtype, page_size, n_pages, device,
+                               ctx)
     else:
-        one = cache_init(cfg, batch, max_seq, dtype, device, n_model)
+        one = cache_init(cfg, batch, max_seq, dtype, device, ctx)
     layers = {
         k: v[None].expand(cfg.n_layers, *v.shape).clone() for k, v in one.items()
     }
-    return {"pos": 0, "layers": layers}
+    return {"pos": 0, "len": cache_len(cfg, max_seq), "layers": layers}
 
 
 def _layer_cache(cache_layers: dict, l: int) -> dict:
@@ -169,7 +178,12 @@ def decode_step(
     ``stats["chunk_logits"]`` holds the logits ``(1, 1, V)`` of the last
     valid chunk position. A chunk of ``length`` 0 (the reference's no-op
     chunk, which writes only the write-off page and routes nowhere) is
-    skipped: this step is eager, so no shared program needs it."""
+    skipped: this step is eager, so no shared program needs it.
+
+    Under a mesh the chunk is the same on every rank (``batch_replicated``
+    for its MoE), and its expert counts enter ``expert_counts`` on data
+    rank 0 only, so that the Server's sum over the data group counts each
+    of its copies once, as the reference's global counts do."""
     _check_pattern(cfg)
     if chunk is not None and not chunk["length"]:
         chunk = None
@@ -183,11 +197,14 @@ def decode_step(
         xc = _embed(params, chunk["tokens"])                         # (1, C, d)
         n_chunk = xc.shape[1]
         cvalid = (torch.arange(n_chunk, device=x.device) < chunk["length"])[None, :]
+        cctx = ctx if ctx.mesh is None else dataclasses.replace(ctx, batch_replicated=True)
+        count_chunk = ctx.batch_rank == 0
     for l in range(cfg.n_layers):
         p_l = layer_view(params["layers"], l)
         c_l = _layer_cache(cache["layers"], l)
         z = rms_norm(x, p_l["ln1"], cfg.norm_eps)
-        o, c_new = decode_attention(p_l["attn"], z, c_l, pos, cfg, ctx)
+        o, c_new = decode_attention(p_l["attn"], z, c_l, pos, cfg, ctx,
+                                    cache.get("len"))
         if is_paged(c_new):
             cache["layers"]["lengths"][l].copy_(c_new["lengths"])
         x = x + o
@@ -197,12 +214,13 @@ def decode_step(
         if chunk is not None:
             zc = rms_norm(xc, p_l["ln1"], cfg.norm_eps)
             oc, _ = chunk_prefill_attention(p_l["attn"], zc, c_l, chunk["table"],
-                                            chunk["start"], chunk["length"], cfg, ctx)
+                                            chunk["start"], chunk["length"], cfg, cctx)
             xc = xc + oc
             z2c = rms_norm(xc, p_l["ln2"], cfg.norm_eps)
-            yc, ac = _block_ffn(p_l, z2c, cfg, ctx, placement, cvalid)
+            yc, ac = _block_ffn(p_l, z2c, cfg, cctx, placement, cvalid)
             xc = xc + yc
-            a = {k: a[k] + ac[k] for k in a}
+            if count_chunk:
+                a = {k: a[k] + ac[k] for k in a}
         aux = {k: aux[k] + a[k] for k in aux}
     cache["pos"] = pos + 1
     stats = {"expert_counts": aux["counts"]}
@@ -240,9 +258,11 @@ def prefill(
     x = _embed(params, tokens)
     max_seq = max(max_seq or s, s)
     cache = init_cache(cfg, b, max_seq, dtype or x.dtype, paged, page_size,
-                       n_pages, x.device, ctx.n_model)
+                       n_pages, x.device, ctx)
     length = cache_len(cfg, max_seq)
-    lo = ctx.model_rank * (length // ctx.n_model)
+    slots, heads = dense_shard(cfg, length, ctx)
+    if paged:
+        heads = pool_heads(cfg, ctx)
     if tables is not None:
         cache["layers"]["tables"].copy_(
             tables.to(torch.int32)[None].expand_as(cache["layers"]["tables"])
@@ -254,11 +274,12 @@ def prefill(
         z = rms_norm(x, p_l["ln1"], cfg.norm_eps)
         o, (k, v) = attention(p_l["attn"], z, cfg, ctx, positions, return_kv=True)
         x = x + o
+        k, v = k[:, :, heads], v[:, :, heads]
         if paged:
             c_new = paged_prefill_fill(c_l, k, v, s, lengths)
             cache["layers"]["lengths"][l].copy_(c_new["lengths"])
         else:
-            dense_prefill_fill(c_l, k, v, cfg, length, lo)
+            dense_prefill_fill(c_l, k, v, cfg, length, slots.start)
         z2 = rms_norm(x, p_l["ln2"], cfg.norm_eps)
         y, _ = _block_ffn(p_l, z2, cfg, ctx, placement, None)
         x = x + y

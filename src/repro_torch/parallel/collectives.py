@@ -1,16 +1,18 @@
-"""Expert-parallel bucket dispatch/combine and the sequence-parallel decode
-merge (port of ``repro.parallel.collectives``, ESP's ``esp_expert_ffn``
-under a mesh excepted).
+"""Expert-parallel bucket dispatch/combine, ESP's sharded expert FFN and
+the sequence-parallel decode merge (port of ``repro.parallel.collectives``).
 
 One process: ``ep_moe_local`` (every slot local, the all-to-all is the
 identity). Under a mesh of ``torch.distributed`` ranks:
 ``ep_moe_shardmap`` (dispatch -> ``all_to_all_single`` -> per-rank
-grouped FFN -> ``all_to_all_single`` -> combine, over the model group) and
-``seq_parallel_decode_attend`` (per-rank partials over the rank's slice of
-the dense cache, LSE-merged with all-reduces). Where the reference runs a
-``shard_map`` body, the port's functions take and return the rank's own
-block; collectives are blocking and issued in the same order on every
-rank.
+grouped FFN -> ``all_to_all_single`` -> combine, over the model group),
+``esp_expert_ffn`` (the grouped FFN on the rank's hidden-dim shard of
+every expert, the partial down products reduce-scattered onto d over the
+model group) and ``seq_parallel_decode_attend`` (per-rank partials over
+the rank's slice of the dense cache, LSE-merged with all-reduces). Where
+the reference runs a ``shard_map`` body, the port's functions take and
+return the rank's own block; collectives are blocking and issued in the
+same order on every rank, which enters each of them whether or not it has
+rows to send (a rank with no work enters with zero counts).
 
 JAX's out-of-range semantics have no torch default, so each is explicit
 here: ``jnp.bincount(length=n)`` drops ids ``>= n`` (``bucket_counts``
@@ -445,6 +447,61 @@ def ep_moe_shardmap(
     parts = [torch.empty_like(out) for _ in range(ep)]
     dist.all_gather(parts, out.contiguous(), group=group)
     return torch.cat(parts, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# gathers and ESP's reduce-scatter over the model group
+# ---------------------------------------------------------------------------
+
+def all_gather_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's block of ``group`` concatenated along ``dim`` in rank
+    order (a tiled ``all_gather``)."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return t
+    parts = [torch.empty_like(t) for _ in range(n)]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def reduce_scatter_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """``psum_scatter(t, scatter_dimension=dim, tiled=True)`` over
+    ``group``: the sum of every rank's ``t``, of which rank r keeps block r
+    of ``dim``. The reduced dim is moved first for the collective's flat
+    split and back after."""
+    n = dist.get_world_size(group)
+    size = t.shape[dim] // n
+    blocks = t.unflatten(dim, (n, size)).movedim(dim, 0).contiguous()
+    out = blocks.new_empty(blocks.shape[1:])
+    dist.reduce_scatter_tensor(out.view(-1), blocks.view(-1), group=group)
+    return out
+
+
+def esp_expert_ffn(
+    bufs: torch.Tensor,     # (G, E, cap, d) — this rank's bucket groups
+    counts: torch.Tensor,   # (G, E) kept-token count per bucket
+    wg: torch.Tensor,       # (E, d, f_loc) — the rank's hidden-dim shard
+    wu: torch.Tensor,       # (E, d, f_loc)
+    wd: torch.Tensor,       # (E, f_loc, d)
+    ctx: ParallelCtx,
+) -> torch.Tensor:
+    """Count-aware expert FFN of the ESP path (the reference's
+    ``esp_expert_ffn``): the rank's bucket groups flattened expert-major,
+    so that weight row = group // G, through ``registry.expert_ffn`` (the
+    ``gmm_dual_act_ragged`` + ``gmm_ragged`` pair; on CPU tensors their
+    plain versions) on the rank's shard of every expert's hidden dim. With
+    no mesh the shard is the whole hidden dim and the result ``(G, E, cap,
+    d)`` is final. Under a mesh each rank holds the partial down products
+    of its shard, and a reduce-scatter over the model group sums them onto
+    d: the result is ``(G, E, cap, d / n_model)``, d split over the model
+    group. The caller gates on the dims dividing (``moe.moe_esp``)."""
+    g, e, cap, d = bufs.shape
+    xg = bufs.transpose(0, 1).reshape(e * g, cap, d)
+    y = registry.expert_ffn(xg, wg, wu, wd, counts.transpose(0, 1).reshape(-1), g)
+    y = y.reshape(e, g, cap, -1).transpose(0, 1)
+    if ctx.mesh is None:
+        return y
+    return reduce_scatter_dim(y, 3, ctx.mesh.model_group)
 
 
 # ---------------------------------------------------------------------------

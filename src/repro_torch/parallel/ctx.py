@@ -4,11 +4,20 @@
 ``mesh`` is ``None`` for one process, or a :class:`~repro_torch.parallel.
 mesh.Mesh` of ``torch.distributed`` ranks. Under a mesh the batch is split
 over the data axis and every other computation is replicated on the ranks
-of a data index, except the three regions the reference writes by hand:
-the EP dispatch and combine (``collectives.ep_moe_shardmap``), the decode
-ownership sum, and the sequence-parallel decode, whose dense KV cache is
-split over the model axis (its partials LSE-merge across the model
-group).
+of a data index, except the regions the reference writes by hand: the EP
+dispatch and combine (``collectives.ep_moe_shardmap``) with its decode
+ownership sum; ESP's hidden-dim shards and their reduce-scatter
+(``collectives.esp_expert_ffn``); and decode attention over a KV cache
+split over the model axis, by sequence (partials LSE-merged across the
+model group) or by KV heads (each rank attends its heads, then the heads
+are gathered). The layouts are ``parallel.sharding``'s.
+
+``seq_parallel_kv`` is the reference's switch: the dense cache's sequence
+over the model axis when it divides (default), else its KV heads.
+``batch_replicated`` marks operands whose batch rows are the same on every
+data rank (the prefill lane's chunk, a batch-1 admission prefill, a batch
+that does not divide the data axis): the reference's eligibility tests see
+them as a batch that does not divide ``n_batch``.
 
 ``use_kernels`` decides, per tensor, whether a hot-path call launches its
 hand-written CUDA kernel or runs the plain PyTorch version:
@@ -38,6 +47,11 @@ class ParallelCtx:
     # Split the expert groups into this many chunks for the grouped FFN
     # (collectives.validate_ep_chunks); 1 = one call over every group.
     ep_chunks: int = 1
+    # decode: the dense KV cache's sequence over the model axis (flash
+    # decode partials, LSE merge) instead of its KV heads.
+    seq_parallel_kv: bool = True
+    # the operands' batch rows are the same on every data rank
+    batch_replicated: bool = False
 
     def __post_init__(self):
         if self.use_kernels not in ("auto", True, False):
@@ -74,6 +88,12 @@ class ParallelCtx:
     @property
     def batch_rank(self) -> int:
         return 0 if self.mesh is None else self.mesh.data_rank
+
+    @property
+    def batch_split(self) -> bool:
+        """Do the operands' batch rows differ between data ranks (the
+        reference's ``b % n_batch == 0`` under a mesh)?"""
+        return not self.batch_replicated or self.n_batch == 1
 
 
 NO_MESH = ParallelCtx()

@@ -16,6 +16,7 @@ fails.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 
 import torch
 import torch.distributed as dist
@@ -56,9 +57,12 @@ def init_distributed(device: torch.device, world_size: int, rank: int) -> None:
     dist.init_process_group(backend_for(device), world_size=world_size, rank=rank, **kwargs)
 
 
-def make_mesh(data: int, model: int) -> Mesh:
+def make_mesh(data: int, model: int, timeout: datetime.timedelta | None = None) -> Mesh:
     """The ``data x model`` mesh over the initialised world. Every rank
-    creates every group, in the same order (``new_group`` is collective)."""
+    creates every group, in the same order (``new_group`` is collective).
+    ``timeout`` bounds each collective of the groups (default: the
+    backend's), so a rank that skips one fails its peers instead of
+    hanging them."""
     if not dist.is_initialized():
         raise RuntimeError(
             "make_mesh: torch.distributed is not initialised (call "
@@ -70,11 +74,11 @@ def make_mesh(data: int, model: int) -> Mesh:
     rank = dist.get_rank()
     model_group = data_group = None
     for d in range(data):
-        g = dist.new_group([d * model + m for m in range(model)])
+        g = dist.new_group([d * model + m for m in range(model)], timeout=timeout)
         if rank // model == d:
             model_group = g
     for m in range(model):
-        g = dist.new_group([d * model + m for d in range(data)])
+        g = dist.new_group([d * model + m for d in range(data)], timeout=timeout)
         if rank % model == m:
             data_group = g
     return Mesh(data, model, rank, model_group, data_group)

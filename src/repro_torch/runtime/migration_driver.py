@@ -28,6 +28,8 @@ is released) and requeue toward a live destination from slice zero;
 migrations *from* it fast-forward (the remaining slices are issued at once
 and committed), which is safe under the logical death model (routing stops
 but the device's memory stays addressable; see ``Server.mark_dead``).
+Under a mesh both go through the same cross-rank ``copy_row_slice`` as a
+tick's slices, issued in the same order on every rank.
 """
 
 from __future__ import annotations

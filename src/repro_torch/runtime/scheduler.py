@@ -33,6 +33,12 @@ Per tick (``step()``):
 4. **decode** — one step over the whole batch; per-slot argmax on the
    host, EOS / max-token retirement recycling pages and slots mid-flight.
 
+Over a ``Server`` under a mesh every rank runs its own scheduler on the
+same requests and plan: the decisions are host-side and depend only on
+what every rank sees alike (the plan's draws, the pool, the global
+logits the Server gathers), so every rank admits, preempts and fires the
+same events, and its Server does its part of each step.
+
 Crash safety: ``snapshot_every`` ticks, and when a ``crash_restart`` fault
 fires, the scheduler snapshots the end of the previous tick
 (:mod:`repro_torch.runtime.snapshot`); a crash then raises

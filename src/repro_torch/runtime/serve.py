@@ -23,24 +23,33 @@ instantaneous whole-expert copy as the parity baseline.
 
 Under a mesh (``ParallelCtx(mesh=...)``, one ``Server`` per rank) the
 EP axis is the model axis: a rank keeps the slot rows
-``sharding.slot_rows`` of the expanded weights, serves its requests
-(``sharding.batch_rows`` of the prompt) on its slice of the dense cache,
-sums the step's expert counts over its data group so that every rank
-observes the global counts and plans the same migrations, and moves
-migration slices between ranks. ``generate`` gathers the tokens of every
-request. ESP and the paged cache under a mesh are not ported yet.
+``sharding.slot_rows`` of the expanded weights (under ESP, every expert's
+hidden-dim shard ``sharding.expert_hidden`` and no balancer), serves its
+requests (``sharding.batch_rows``) on its shard of the dense cache or of
+the paged pool (the pool's KV heads; every page), sums the step's expert
+counts over its data group so that every rank observes the global counts
+and plans the same migrations, and moves migration slices between ranks.
+The methods speak of the global batch on every rank: token operands and
+logits are ``(B, ...)``, a rank computes its rows and the logits are
+all-gathered over the data group; slot numbers are global, and the
+``PagePool`` allocator and the block tables are host state, the same on
+every rank (each rank's device tables hold its rows). A batch-1 admission
+prefill and the prefill lane's chunk run on every rank (replicated, as the
+reference's ``chunk_specs``), so every rank's pool holds the admitted
+request's pages for its KV heads. Snapshots under a mesh are not ported
+yet.
 
 Device failures: ``mark_dead`` aborts or fast-forwards in-flight migration
 slices, evacuates orphaned experts (placement table and weight rows) and
 drops the dead device's replicas from the routing table; ``revive``
 re-admits it with blank slot rows and seeds them through the stepped
-migration driver. Stragglers: per-device step-time EMAs scale heats,
-draining load away. Both run without a mesh; under one they raise (the dead
-device's rows sit on another rank). Request-level serving (admission,
-preemption, faults) lives one layer up in :mod:`repro_torch.runtime.
-scheduler`.
+migration driver. Under a mesh the rows move between ranks as migration
+slices do, and only the rank that holds a revived device's slot rows
+scrubs them. Stragglers: per-device step-time EMAs scale heats, draining
+load away. Request-level serving (admission, preemption, faults) lives one
+layer up in :mod:`repro_torch.runtime.scheduler`.
 
-Chunked admission (``ServeConfig(prefill_chunk=C)``, paged, no mesh): a
+Chunked admission (``ServeConfig(prefill_chunk=C)``, paged): a
 request's context is prefilled C tokens a tick by the decode step's prefill
 lane, through a side block table (``begin_chunk_prefill`` ..
 ``finish_chunk_prefill``), so a long prompt never stalls the live batch.
@@ -69,7 +78,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import transformer as T
 from repro_torch.parallel import sharding
-from repro_torch.parallel.collectives import validate_ep_chunks
+from repro_torch.parallel.collectives import all_gather_dim, validate_ep_chunks
 from repro_torch.parallel.ctx import ParallelCtx
 from repro_torch.parallel.placement import PlacementTable
 from repro_torch.runtime.migration_driver import (
@@ -219,7 +228,11 @@ class Server:
         self.ep = ctx.n_model
         if self.ep == 1 and serve_cfg.virtual_ep:
             self.ep = serve_cfg.virtual_ep
-        self.use_balancer = cfg.is_moe and self.ep > 1
+        # ESP under a mesh serves every expert's hidden-dim shard: no slot
+        # rows to balance (the reference expands slots beside it, which ESP
+        # never reads)
+        esp_mesh = self.mesh is not None and ctx.moe_impl == "esp"
+        self.use_balancer = cfg.is_moe and self.ep > 1 and not esp_mesh
         self.distance = distance or (lambda a, b: abs(a - b))
         self.t = 0
         self.last_mig = -(10**9)
@@ -288,7 +301,10 @@ class Server:
             self.table = None
             self.state = None
             self.driver = None
+            if esp_mesh and cfg.is_moe:
+                self._shard_expert_hidden()
 
+        self._set_batch(serve_cfg.batch)
         if serve_cfg.paged:
             self.page_size, self.n_blocks = A.paged_layout(
                 cfg, serve_cfg.max_seq, serve_cfg.page_size
@@ -337,32 +353,51 @@ class Server:
 
     @staticmethod
     def _check_mesh(cfg: ModelConfig, ctx: ParallelCtx, scfg: ServeConfig) -> None:
-        """What serving under a mesh needs, and what it does not serve yet."""
+        """What serving under a mesh needs."""
         if not dist.is_initialized():
             raise RuntimeError(
                 "Server under a mesh needs an initialised torch.distributed "
                 "process group (parallel.mesh.init_distributed); it does not "
                 "serve single-process instead"
             )
-        if scfg.prefill_chunk:
-            raise NotImplementedError(
-                "ServeConfig(prefill_chunk=...) under a mesh: the chunk lane "
-                "writes through the paged cache, and the paged cache under a "
-                "mesh is not ported yet (ROADMAP Queue 1 item 5)"
+
+    def _shard_expert_hidden(self) -> None:
+        """Keep the rank's hidden-dim shard of every expert weight (ESP
+        under a mesh), one weight at a time."""
+        fs = sharding.expert_hidden(self.cfg.moe_d_ff_, self.ctx.n_model,
+                                    self.ctx.model_rank)
+        moe = self._moe()
+        for w in MOE_WEIGHTS:
+            src = moe.pop(w)
+            moe[w] = (src[..., fs] if w != "w_down" else src[:, :, fs]).contiguous()
+            del src
+
+    def _set_batch(self, batch: int) -> None:
+        """This rank's requests of a ``batch``: every row with no mesh or a
+        batch that does not divide the data axis (replicated), which EP
+        refuses (the reference's ``validate_ep_token_split``)."""
+        ctx = self.ctx
+        self._rows = sharding.batch_rows(batch, ctx.n_batch, ctx.batch_rank)
+        self._split = self._rows.stop - self._rows.start < batch
+        if (self.mesh is not None and ctx.moe_impl == "ep" and self.cfg.is_moe
+                and batch % ctx.n_batch):
+            raise ValueError(
+                f"EP under a {ctx.n_batch}-way data axis splits the batch: "
+                f"batch={batch} does not divide it"
             )
-        if scfg.paged:
-            raise NotImplementedError(
-                "the paged KV cache under a mesh (KV heads over the model "
-                "axis) is not ported yet (ROADMAP Queue 1 item 5); use "
-                "ServeConfig(paged=False)"
-            )
-        if cfg.is_moe and (ctx.moe_impl == "esp" or (
-                ctx.moe_impl == "auto" and cfg.n_experts % ctx.n_model)):
-            raise NotImplementedError(
-                "ESP under a mesh (esp_expert_ffn's psum_scatter over the "
-                "model axis) is not ported yet (ROADMAP Queue 1 item 5)"
-            )
-        sharding.batch_rows(scfg.batch, ctx.n_batch, ctx.batch_rank)
+
+    def _local(self, slot: int) -> int | None:
+        """Row of global batch slot ``slot`` on this rank, None if another
+        data rank serves it."""
+        if not self._rows.start <= slot < self._rows.stop:
+            return None
+        return slot - self._rows.start
+
+    def _gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """The global batch from every data rank's rows (dim 0)."""
+        if not self._split:
+            return t
+        return all_gather_dim(t, 0, self.mesh.data_group)
 
     def _moe(self) -> dict:
         return self.params["layers"]["moe"]
@@ -371,7 +406,7 @@ class Server:
         if not self.scfg.paged:
             raise ValueError(f"{what} requires ServeConfig(paged=True)")
 
-    def _prefill(self, tokens, tables=None, lengths=None):
+    def _prefill(self, tokens, tables=None, lengths=None, replicated=False):
         # Every prefill routes by the committed table, as decode and the
         # reference's chunk lane do (JAX decode_step passes placement to the
         # chunk's moe_apply). The reference's splice prefill routes each copy
@@ -382,12 +417,16 @@ class Server:
         # replicas: the reference drops the copies its native bucket cannot
         # take, the port spreads them over the replicas and keeps more. There
         # the port agrees with the reference's own chunked admission.
+        # A batch-1 admission prefill runs on every rank (``replicated``).
         placement = self.table.device_view(self.device) if self.use_balancer else None
+        ctx = self.ctx
+        if replicated and self.mesh is not None:
+            ctx = dataclasses.replace(ctx, batch_replicated=True)
         if not self.scfg.paged:
-            return T.prefill(self.params, tokens, self.cfg, self.ctx,
+            return T.prefill(self.params, tokens, self.cfg, ctx,
                              max_seq=self.scfg.max_seq, placement=placement)
         return T.prefill(
-            self.params, tokens, self.cfg, self.ctx,
+            self.params, tokens, self.cfg, ctx,
             max_seq=self.scfg.max_seq, paged=True,
             page_size=self.scfg.page_size, n_pages=self.n_pool_pages,
             tables=torch.as_tensor(tables, device=self.device),
@@ -401,20 +440,19 @@ class Server:
     # -- request lifecycle ---------------------------------------------------
 
     def prefill(self, tokens, lengths=None):
-        """Prime a cache for a batch of prompts. Paged: allocate each
-        request's blocks from the shared pool (``lengths`` marks true prompt
-        lengths of right-padded ragged batches); pages of a previously
-        prefilled batch are released first."""
+        """Prime a cache for a batch of prompts; returns the logits of every
+        request (under a mesh too) and this rank's cache. Paged: allocate
+        each request's blocks from the shared pool (``lengths`` marks true
+        prompt lengths of right-padded ragged batches); pages of a
+        previously prefilled batch are released first."""
         tokens = self._tokens(tokens)
-        if self.mesh is not None:
-            # this rank's requests; decode then takes this rank's tokens
-            tokens = tokens[sharding.batch_rows(tokens.shape[0], self.ctx.n_batch,
-                                                self.ctx.batch_rank)]
         b, s = tokens.shape
+        self._set_batch(b)
+        rows = self._rows
         if not self.scfg.paged:
-            logits, cache = self._prefill(tokens)
+            logits, cache = self._prefill(tokens[rows])
             self._pos = s
-            return logits, cache
+            return self._gather_rows(logits), cache
         lens = (
             np.full(b, s, np.int32) if lengths is None
             else np.asarray(lengths, np.int32)
@@ -432,10 +470,10 @@ class Server:
             pages = self.page_pool.alloc(need)
             self._pages[slot] = pages
             self._tables[slot, :need] = pages
-        logits, cache = self._prefill(tokens, self._tables, lens)
+        logits, cache = self._prefill(tokens[rows], self._tables[rows], lens[rows])
         self._written = lens.copy()
         self._pos = s
-        return logits, cache
+        return self._gather_rows(logits), cache
 
     def release(self, slot: int, cache: dict | None = None):
         """Free request ``slot``'s pages back to the pool. With ``cache``,
@@ -456,14 +494,22 @@ class Server:
         if cache is None:
             self._tables_dirty = True
             return None
-        layers = cache["layers"]
-        layers["tables"].copy_(self._stacked_tables(layers["tables"].shape[0]))
-        layers["lengths"][:, slot] = 0
+        self._set_row(cache, slot, 0)
         return cache
 
     def _stacked_tables(self, n_layers: int) -> torch.Tensor:
-        t = torch.as_tensor(self._tables, device=self.device)
+        """This rank's rows of the block tables, one copy a layer."""
+        t = torch.as_tensor(self._tables[self._rows], device=self.device)
         return t[None].expand(n_layers, *t.shape)
+
+    def _set_row(self, cache: dict, slot: int, length: int) -> None:
+        """Refresh the device tables and set ``slot``'s length (on the rank
+        that serves it)."""
+        layers = cache["layers"]
+        layers["tables"].copy_(self._stacked_tables(layers["tables"].shape[0]))
+        row = self._local(slot)
+        if row is not None:
+            layers["lengths"][:, row] = length
 
     def empty_cache(self) -> dict:
         """A paged cache with every batch slot empty (the starting state for
@@ -475,22 +521,26 @@ class Server:
             self.release(slot)
         for slot in list(self._prefill_pages):
             self.abort_chunk_prefill(slot)
+        self._set_batch(b)
         self._released = set(range(b))
         self._tables = np.full((b, self.n_blocks), self.trash_page, np.int32)
         self._tables_dirty = False
         self._written = np.zeros(b, np.int32)
         self._pos = 0
         return T.init_cache(
-            self.cfg, b, self.scfg.max_seq, dtype=self.params["embed"].dtype,
-            paged=True, page_size=self.scfg.page_size,
-            n_pages=self.n_pool_pages, device=self.device,
+            self.cfg, self._rows.stop - self._rows.start, self.scfg.max_seq,
+            dtype=self.params["embed"].dtype, paged=True,
+            page_size=self.scfg.page_size, n_pages=self.n_pool_pages,
+            device=self.device, ctx=self.ctx,
         )
 
     def prefill_into_slot(self, slot: int, tokens, cache: dict, length=None):
         """Admit one request into batch row ``slot`` of a live cache: run a
         batch-1 prefill whose table indexes the same pool id space, then
         splice its pool pages, table row and length into ``cache`` (other
-        rows untouched). Returns ``(logits (1, 1, V), cache)``."""
+        rows untouched). Returns ``(logits (1, 1, V), cache)``. Under a
+        mesh every rank runs the prefill and splices the pages; the rank
+        that serves ``slot`` sets its length."""
         self._require_paged("prefill_into_slot")
         if slot in self._pages:
             raise RuntimeError(f"slot {slot} is still admitted; release it before reuse")
@@ -503,7 +553,8 @@ class Server:
         pages = self.page_pool.alloc(need)
         row = np.full((1, self.n_blocks), self.trash_page, np.int32)
         row[0, :need] = pages
-        logits, small = self._prefill(tokens, row, np.asarray([true_len], np.int32))
+        logits, small = self._prefill(tokens, row, np.asarray([true_len], np.int32),
+                                      replicated=True)
         self._pages[slot] = pages
         self._tables[slot] = row[0]
         self._released.discard(slot)
@@ -514,8 +565,7 @@ class Server:
             idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
             for name in ("pool_k", "pool_v"):
                 layers[name][:, idx] = small["layers"][name][:, idx]
-        layers["tables"].copy_(self._stacked_tables(layers["tables"].shape[0]))
-        layers["lengths"][:, slot] = true_len
+        self._set_row(cache, slot, true_len)
         return logits, cache
 
     # -- chunked prefill (the admission lane inside the decode step) ---------
@@ -592,9 +642,7 @@ class Server:
         self._released.discard(slot)
         self._written[slot] = int(length)
         self._tables_dirty = False
-        layers = cache["layers"]
-        layers["tables"].copy_(self._stacked_tables(layers["tables"].shape[0]))
-        layers["lengths"][:, slot] = int(length)
+        self._set_row(cache, slot, int(length))
         return cache
 
     def abort_chunk_prefill(self, slot: int) -> None:
@@ -639,22 +687,25 @@ class Server:
         return cache
 
     def _slot_mask(self, batch: int) -> torch.Tensor:
-        """Live batch rows as a bool tensor on the device, rebuilt (one
-        host-to-device copy) only when the released set changes."""
+        """This rank's live batch rows as a bool tensor on the device,
+        rebuilt (one host-to-device copy) only when the released set
+        changes."""
         key = (batch, frozenset(self._released))
         if self._mask_key != key:
             live = np.ones(batch, bool)
             live[sorted(self._released)] = False
-            self._mask = torch.as_tensor(live, device=self.device)
+            self._mask = torch.as_tensor(live[self._rows], device=self.device)
             self._mask_key = key
         return self._mask
 
     def decode(self, token, cache: dict, chunk: dict | None = None):
-        """One step: every live request consumes one token, and with
+        """One step: every live request consumes one token (``token`` is
+        ``(B, 1)``, every request's under a mesh too), and with
         ``ServeConfig(prefill_chunk=N)`` the chunk operand ``chunk`` (see
         ``chunk_operand``; None = no admission in flight) rides the same
-        step. ``cache`` is updated in place and returned; the chunk's logits
-        land on ``last_chunk_logits``."""
+        step. ``cache`` is updated in place and returned with every
+        request's logits; the chunk's logits land on
+        ``last_chunk_logits``."""
         if chunk is not None and not self.scfg.prefill_chunk:
             raise ValueError("decode(chunk=...) requires ServeConfig(prefill_chunk=N)")
         if self._pos is None:
@@ -687,17 +738,19 @@ class Server:
         # batch is all live
         slot_mask = self._slot_mask(token.shape[0]) if self.scfg.paged else None
         logits, cache, stats = T.decode_step(
-            self.params, self._tokens(token), cache, self.cfg, self.ctx,
+            self.params, self._tokens(token)[self._rows], cache, self.cfg, self.ctx,
             placement=placement, slot_mask=slot_mask, chunk=chunk,
         )
+        logits = self._gather_rows(logits)
         self.last_chunk_logits = stats.get("chunk_logits")
         if self.scfg.paged and self._written is not None:
             for slot in range(len(self._written)):
                 if slot not in self._released:
                     self._written[slot] += 1
-            if self._released:
+            rel = [r for r in map(self._local, sorted(self._released)) if r is not None]
+            if rel:
                 # keep released rows inert: pin their length back to 0.
-                idx = torch.as_tensor(sorted(self._released), device=self.device)
+                idx = torch.as_tensor(rel, device=self.device)
                 cache["layers"]["lengths"][:, idx] = 0
         self._pos = pos + 1
         self.t += 1
@@ -722,12 +775,7 @@ class Server:
             out.append(tok)
             logits, cache = self.decode(tok, cache)
             tok = torch.argmax(logits[:, -1:], dim=-1)
-        out = torch.cat(out, dim=1)
-        if self.mesh is None:
-            return out
-        parts = [torch.empty_like(out) for _ in range(self.mesh.data)]
-        dist.all_gather(parts, out, group=self.mesh.data_group)
-        return torch.cat(parts, dim=0)
+        return torch.cat(out, dim=1)
 
     # -- balancing -----------------------------------------------------------
 
@@ -783,14 +831,6 @@ class Server:
 
     # -- fault tolerance ------------------------------------------------------
 
-    def _no_mesh(self, what: str) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(
-                f"{what} under a mesh is not ported yet (ROADMAP Queue 1 item "
-                f"5): the dead device's slot rows sit on another rank, and a "
-                f"rank keeps only sharding.slot_rows"
-            )
-
     def _ep_device(self, what: str, device) -> int:
         device = int(device)
         if not 0 <= device < self.ep:
@@ -842,8 +882,9 @@ class Server:
            would restore the rows from checkpoint shards instead);
         4. the device's replicas drop out of the routing view.
 
+        Under a mesh the dead device's rank still runs, and its rows move
+        to their new ranks as migration slices do.
         Returns the evacuation plan ``[(expert, src, dst), ...]``."""
-        self._no_mesh("mark_dead")
         if self.state is None:
             return []
         if self.driver is not None:
@@ -875,8 +916,8 @@ class Server:
            ``apply_plan`` (the stepped driver when configured), so routing
            references the device only once each copy commits.
 
-        Returns the revival plan."""
-        self._no_mesh("revive")
+        Under a mesh only the rank that holds the device's slot rows
+        (``sharding.slot_rows``) scrubs them. Returns the revival plan."""
         if self.state is None:
             raise ValueError("revive requires the balancer serving path")
         device = self._ep_device("revive", device)
@@ -885,7 +926,10 @@ class Server:
         self.state.revive(device)
         spd = self.table.slots_per_device
         used = self.table.used_slots()
-        blank = [s for s in range(device * spd, (device + 1) * spd) if not used[s]]
+        mine = sharding.slot_rows(self.table.n_slots, self.ctx.n_model,
+                                  self.ctx.model_rank)
+        blank = [s - mine.start for s in range(device * spd, (device + 1) * spd)
+                 if not used[s] and mine.start <= s < mine.stop]
         if blank:
             idx = torch.as_tensor(blank, dtype=torch.long, device=self.device)
             moe = self._moe()
@@ -907,7 +951,13 @@ class Server:
         committed table; the balancer's load EMA, dead set and slowdowns and
         the counters are restored; pending migrations are re-submitted from
         slice zero (their partial slices died with the crashed process, and
-        nothing routes to a reservation before it commits)."""
+        nothing routes to a reservation before it commits). Not under a mesh
+        yet (ROADMAP Queue 1 item 5)."""
+        if ctx.mesh is not None:
+            raise NotImplementedError(
+                "restoring a snapshot under a mesh is not ported yet "
+                "(ROADMAP Queue 1 item 5)"
+            )
         scfg = ServeConfig(**snap.serve_cfg)
         table = None
         if snap.table is not None:

@@ -42,3 +42,30 @@ def test_default_parse_serves_without_virtual_ep():
     assert cli.serve_config(args).virtual_ep is None
     args = cli.parse_args(["--arch", "dbrx-132b", "--smoke", "--virtual-ep", "4"])
     assert cli.serve_config(args).virtual_ep == 4
+
+
+def test_prefill_chunk_serves_through_the_scheduler():
+    """``--prefill-chunk`` admits each batch's requests a chunk a tick
+    through the ``RequestScheduler``: the same greedy tokens as
+    ``generate``'s splice admission (fp32, the plain path)."""
+    import torch
+
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.ctx import ParallelCtx
+    from repro_torch.runtime.serve import Server
+
+    base = ["--arch", "dbrx-132b", "--smoke", "--device", "cpu", "--virtual-ep", "4",
+            "--slots", "3", "--paged", "--page-size", "8", "--max-seq", "32"]
+    args = cli.parse_args(base + ["--prefill-chunk", "8"])
+    assert cli.serve_config(args).prefill_chunk == 8
+    cfg = smoke(get_config("dbrx-132b"))
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 12)).astype(np.int32)
+    out = {}
+    for name, argv in (("splice", base), ("chunked", base + ["--prefill-chunk", "8"])):
+        srv = Server(cfg, ParallelCtx(capacity_factor=8.0),
+                     T.init_params(cfg, seed=0, device="cpu"),
+                     cli.serve_config(cli.parse_args(argv)), device="cpu")
+        out[name] = cli.serve_batch(srv, prompt, 6)
+    assert out["chunked"].shape == (4, 6)
+    assert torch.equal(out["chunked"], out["splice"].cpu())

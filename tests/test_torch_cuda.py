@@ -4,8 +4,8 @@ test is marked ``cuda`` and skips without a device. Run on the card with:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
-The mesh test at the end needs four cards (NCCL across them) and skips
-with fewer.
+The four-card mesh tests need four cards (NCCL across them) and skip
+with fewer; the one-card mesh test runs on a 1 x 1 NCCL mesh.
 
 Tolerances are elementwise, from :mod:`repro_torch.kernels.tolerance`:
 ``|kernel - plain| <= rtol |plain| + atol rms(row)``, with (1e-4, 1e-4) in
@@ -560,8 +560,60 @@ def _small_cfg():
     return dataclasses.replace(smoke(get_config("dbrx-132b")), head_dim=32)
 
 
+# the paged EP Server with chunked admission through the scheduler, under a
+# chaos plan with a death and a revival
+CHUNK_SERVE = dict(max_seq=64, batch=4, slots_per_device=3, alpha=0.1, paged=True,
+                   page_size=8, pool_pages=14, prefill_chunk=8)
+
+
+def _small_esp_cfg():
+    from repro_torch.configs import get_config, smoke
+
+    return dataclasses.replace(smoke(get_config("mixtral-8x22b")), head_dim=32)
+
+
+def _serve_cells(dev, n_devices: int, mesh=None) -> dict:
+    """The small fp32 models on ``dev``, under ``mesh`` or (None) on one
+    process with the slots on virtual EP over ``n_devices``: the chunked
+    paged EP Server through the ``RequestScheduler`` under seed 5's chaos
+    plan with a revival (streams, events, the placement table), and the
+    ESP Server's greedy tokens on the dense cache (its window wrapped)."""
+    import numpy as np
+
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.ctx import ParallelCtx
+    from repro_torch.runtime.faults import FaultPlan
+    from repro_torch.runtime.scheduler import RequestScheduler
+    from repro_torch.runtime.serve import ServeConfig, Server
+
+    cfg = _small_cfg()
+    extra = {"virtual_ep": n_devices} if mesh is None or mesh.model == 1 else {}
+    srv = Server(cfg, ParallelCtx(mesh=mesh, capacity_factor=8.0),
+                 T.init_params(cfg, seed=12, device=dev),
+                 ServeConfig(**CHUNK_SERVE, **extra), device=dev)
+    plan = FaultPlan.chaos(5, n_steps=12, n_devices=n_devices, pressure_pages=4,
+                           nan_slots=(0,), revive=True)
+    sched = RequestScheduler(srv, faults=plan)
+    rng = np.random.default_rng(3)
+    for i in range(6):
+        sched.submit(rng.integers(0, cfg.vocab_size, int(rng.integers(4, 20))), 8,
+                     arrival=i // 2)
+    streams = sched.run()
+    ecfg = _small_esp_cfg()
+    esp = Server(ecfg, ParallelCtx(mesh=mesh, moe_impl="esp", capacity_factor=2.0),
+                 T.init_params(ecfg, seed=10, device=dev),
+                 ServeConfig(max_seq=64, batch=4, paged=False), device=dev)
+    prompt = torch.randint(0, ecfg.vocab_size, (4, 12), generator=torch.Generator().manual_seed(9))
+    return {"streams": {rid: t.tolist() for rid, t in streams.items()},
+            "events": [(st, k) for st, k, _ in sched.events],
+            "fired": sorted({d[0] for _, k, d in sched.events if k == "fault"}),
+            "states": [r.state for r in sched.requests],
+            "slot_of": srv.table.slot_of.tolist(),
+            "esp": esp.generate(prompt.to(dev), 24).cpu()}
+
+
 def _mesh_rank(rank, shape, init_file, prompt, out_dir):
-    """One rank of a 4-card NCCL mesh serving the small fp32 model."""
+    """One rank of a 4-card NCCL mesh serving the small fp32 models."""
     import torch.distributed as dist
 
     from repro_torch.models import transformer as T
@@ -581,9 +633,10 @@ def _mesh_rank(rank, shape, init_file, prompt, out_dir):
                  device=dev)
     flash_decode_partials.launches = 0
     tokens = srv.generate(prompt.to(dev), 12).cpu()
-    torch.save({"tokens": tokens, "migrations": srv.migrations,
-                "partials": flash_decode_partials.launches},
-               Path(out_dir) / f"rank{rank}.pt")
+    partials = flash_decode_partials.launches
+    cells = _serve_cells(dev, shape[1], mesh)
+    torch.save({"tokens": tokens, "migrations": srv.migrations, "partials": partials,
+                "cells": cells}, Path(out_dir) / f"rank{rank}.pt")
     dist.destroy_process_group()
 
 
@@ -594,7 +647,13 @@ def test_cuda_mesh_of_four_cards_matches_one_process(cuda_device, tmp_path, shap
     kernel and the LSE merge, migration slices sent between cards): every
     rank's greedy tokens and migration count equal those of one process
     serving the same slots on virtual EP (capacity factor 8: no copy is
-    dropped on either side)."""
+    dropped on either side). Then the paged cache (KV heads over the cards
+    on 2 x 2; replicated on 1 x 4, where the 2 KV heads do not divide 4)
+    with chunked admission through the scheduler under a chaos plan with a
+    death and a revival (evacuation rows and the revival's slices sent
+    between cards, the scrub on the card that holds the rows): streams,
+    events and the placement table equal the one-process run's; and ESP
+    (hidden-dim shards, the reduce-scatter): greedy tokens equal."""
     from repro_torch.models import transformer as T
     from repro_torch.parallel.ctx import ParallelCtx
     from repro_torch.runtime.serve import ServeConfig, Server
@@ -611,11 +670,49 @@ def test_cuda_mesh_of_four_cards_matches_one_process(cuda_device, tmp_path, shap
     assert ref.migrations > 0
     tmp.spawn(_mesh_rank, args=(shape, str(tmp_path / "pg"), prompt, str(tmp_path)),
               nprocs=4, join=True)
+    cells = _serve_cells(cuda_device, shape[1])
+    assert {"device_death", "device_revival"} <= set(cells["fired"])
+    assert set(cells["states"]) == {"FINISHED"}
     for rank in range(4):
         got = torch.load(tmp_path / f"rank{rank}.pt")
         assert torch.equal(got["tokens"], want), rank
         assert got["migrations"] == ref.migrations
         assert got["partials"] == cfg.n_layers * 12
+        for key in ("streams", "events", "fired", "states", "slot_of"):
+            assert got["cells"][key] == cells[key], (rank, key)
+        assert torch.equal(got["cells"]["esp"], cells["esp"]), rank
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_of_one_card_serves_paged_chunked_faults_and_esp(cuda_device, tmp_path):
+    """The same cells on a 1 x 1 NCCL mesh of this card (the slots on
+    virtual EP over 4 devices, all on the one rank): the chunked paged EP
+    Server through the scheduler under the chaos plan with a death and a
+    revival, and the ESP Server, equal to the same models with no mesh;
+    the mesh runs take ``flash_decode_paged`` on all KV heads, the chunk
+    lane through ``ep_moe_shardmap``'s ``gmm_fused_ffn``, and ESP's ragged
+    pair through ``esp_expert_ffn``."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel.mesh import init_distributed, make_mesh
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already initialised in this process")
+    want = _serve_cells(cuda_device, 4)
+    init_distributed(torch.device("cuda", 0), world_size=1, rank=0)
+    try:
+        before = {k: k.launches for k in (flash_decode_paged, gmm_fused_ffn,
+                                           gmm_dual_act_ragged, gmm_ragged)}
+        got = _serve_cells(cuda_device, 4, make_mesh(1, 1, timeout=timedelta(seconds=180)))
+        torch.cuda.synchronize()
+        launched = {k.__name__: k.launches - b for k, b in before.items()}
+    finally:
+        dist.destroy_process_group()
+    assert {"device_death", "device_revival"} <= set(want["fired"])
+    for key in ("streams", "events", "fired", "states", "slot_of"):
+        assert got[key] == want[key], key
+    assert torch.equal(got["esp"], want["esp"])
+    assert all(launched.values()), launched
 
 
 @pytest.mark.cuda

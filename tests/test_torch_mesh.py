@@ -106,10 +106,42 @@ def test_server_generate_matches_reference(jparams, mesh, virtual_ep):
 
 
 def test_unported_mesh_layouts_raise(jparams, mesh):
-    """What the mesh path does not serve yet raises, naming the ROADMAP
-    item: ESP, in the model code (the Server's own refusals:
-    ``tests/test_torch_mesh_ranks.py``)."""
+    """ESP under the mesh, once refused here, now serves: ``T.prefill`` and
+    three decode steps through ``esp_expert_ffn`` (the ragged pair's plain
+    versions, the reduce-scatter over a group of one) give the reference's
+    logits on the same 1 x 1 mesh within 1e-5 (its einsum branch here, the
+    kernels being off on its CPU), and so does the plain path. Four ranks:
+    ``tests/test_torch_mesh_serve.py``."""
+    jmesh = make_mesh_compat((1, 1), ("data", "model"))
+    jctx = JCtx(mesh=jmesh, moe_impl="esp", capacity_factor=8.0)
+    tokens = _prompt(2)
+    with jmesh:
+        jlog0, jcache0 = JT.prefill(jparams, jnp.asarray(tokens), JCFG, jctx, max_seq=16)
     params = _bridge(jparams)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.prefill(params, torch.tensor(_prompt(2)), CFG,
-                  ParallelCtx(mesh=mesh, moe_impl="esp"), max_seq=16)
+    for uk in ("auto", False):
+        ctx = ParallelCtx(mesh=mesh, moe_impl="esp", capacity_factor=8.0, use_kernels=uk)
+        jlog, jcache = jlog0, jcache0
+        log, cache = T.prefill(params, torch.tensor(tokens), CFG, ctx, max_seq=16)
+        np.testing.assert_allclose(log.numpy(), np.asarray(jlog), **TOL)
+        for _ in range(3):
+            tok = np.asarray(jnp.argmax(jlog[:, -1:], -1)).astype(np.int32)
+            with jmesh:
+                jlog, jcache, _ = JT.decode_step(jparams, jnp.asarray(tok), jcache, JCFG, jctx)
+            log, cache, _ = T.decode_step(params, torch.tensor(tok), cache, CFG, ctx)
+            np.testing.assert_allclose(log.numpy(), np.asarray(jlog), **TOL)
+
+
+def test_snapshot_under_mesh_raises(jparams, mesh):
+    """What the mesh path still does not serve raises, naming the ROADMAP
+    item: a scheduler snapshot and a restore under a mesh."""
+    from repro_torch.runtime.scheduler import RequestScheduler
+    from repro_torch.runtime.snapshot import snapshot_scheduler
+
+    ctx = ParallelCtx(mesh=mesh, capacity_factor=8.0)
+    srv = Server(CFG, ctx, _bridge(jparams),
+                 ServeConfig(max_seq=32, batch=2, paged=True, page_size=8), device="cpu")
+    sched = RequestScheduler(srv)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        snapshot_scheduler(sched)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        Server.restore_snapshot(None, CFG, ctx, _bridge(jparams), device="cpu")

@@ -12,8 +12,8 @@ single device), on the same numpy inputs, fp32:
   slices that hold no valid key, within 2e-5 (the reference's own bound);
 * ``Server.generate`` with the NI-Balancer live: greedy tokens and the
   migration count equal to the reference's, migrations > 0, tokens equal
-  to a run with the balancer off; ESP and the paged cache under a mesh
-  raise ``NotImplementedError``;
+  to a run with the balancer off; the ESP and the paged Servers under the
+  mesh give the same tokens;
 * what each rank holds (``parallel.sharding``) against the reference's
   ``param_spec`` / ``cache_specs`` / ``batch_spec_for`` shards.
 
@@ -263,13 +263,14 @@ def _rank_main(rank, shape, init_file, inputs, jax_out, out_dir):
             out[f"server/{uk}/{alpha}/slices_sent"] = np.asarray(len(sent))
     dist.send = send
     for name, ctx, scfg in (
-        ("esp", ParallelCtx(mesh=mesh, moe_impl="esp"), ServeConfig(**SERVE)),
-        ("paged", ParallelCtx(mesh=mesh), ServeConfig(paged=True, page_size=8, **SERVE)),
+        ("esp", ParallelCtx(mesh=mesh, moe_impl="esp", capacity_factor=8.0),
+         ServeConfig(**SERVE)),
+        ("paged", ParallelCtx(mesh=mesh, capacity_factor=8.0),
+         ServeConfig(paged=True, page_size=8, alpha=0.1, **SERVE)),
     ):
-        try:
-            Server(cfg, ctx, params_from_numpy(jparams), scfg, device="cpu")
-        except NotImplementedError as exc:
-            out[f"raises/{name}"] = np.asarray("ROADMAP" in str(exc))
+        srv = Server(cfg, ctx, params_from_numpy(jparams), scfg, device="cpu")
+        out[f"served/{name}/tokens"] = srv.generate(prompt, N_NEW).numpy()
+        out[f"served/{name}/migrations"] = np.asarray(srv.migrations)
     np.savez(Path(out_dir) / f"rank{rank}.npz", **out)
     dist.destroy_process_group()
 
@@ -407,9 +408,21 @@ def test_server_generate_with_migrations_matches_reference(runs, shape):
 
 @pytest.mark.parametrize("shape", SHAPES, ids=_tag)
 def test_esp_and_paged_under_mesh_raise(runs, shape):
-    """Each rank's Server refuses both, naming the ROADMAP item."""
-    for r in runs[2][shape]:
-        assert bool(r["raises/esp"]) and bool(r["raises/paged"])
+    """Once refused under a mesh, both now serve: each rank's ESP Server
+    (every expert's hidden-dim shard, no balancer) and paged EP Server (the
+    pool's KV heads over the model axis, the balancer live) return the
+    reference Server's greedy tokens on the same mesh shape, the paged one
+    with the reference's migration count (no copy drops at capacity factor
+    8, so ESP and EP agree). ``tests/test_torch_mesh_serve.py`` holds the
+    paged Server against the reference's own paged run."""
+    _, ref, port = runs
+    tag = _tag(shape)
+    for r in port[shape]:
+        for name in ("esp", "paged"):
+            np.testing.assert_array_equal(r[f"served/{name}/tokens"],
+                                          ref[f"{tag}/server/0.1/tokens"])
+        assert int(r["served/esp/migrations"]) == 0
+        assert int(r["served/paged/migrations"]) == int(ref[f"{tag}/server/0.1/migrations"])
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=_tag)

@@ -386,14 +386,39 @@ def test_server_fault_guards(np_params):
 
 
 def test_death_and_revival_under_a_mesh_raise(np_params, tmp_path):
+    """Once refused under a mesh, death and revival now serve there: on a 1
+    x 1 gloo mesh with virtual EP over 4 devices (every slot row on the one
+    rank), the same death, straggler report and revival as the reference
+    Server's with no mesh give the same plans, tables, balancer state and
+    expert rows, blank rows at ``BLANK_WEIGHT`` included. Four ranks:
+    ``tests/test_torch_mesh_serve.py``."""
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
                             world_size=1, rank=0)
     try:
-        srv = Server(CFG, ParallelCtx(mesh=make_mesh(1, 1), capacity_factor=8.0),
-                     params_from_numpy(np_params),
-                     ServeConfig(max_seq=32, batch=2, slots_per_device=3), device="cpu")
-        for call in (lambda: srv.mark_dead(0), lambda: srv.revive(0)):
-            with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-                call()
+        _, js = _servers(np_params, slots_per_device=3, virtual_ep=4)
+        ps = Server(CFG, ParallelCtx(mesh=make_mesh(1, 1), capacity_factor=8.0),
+                    params_from_numpy(np_params),
+                    ServeConfig(max_seq=32, batch=2, paged=True, page_size=8, alpha=0.1,
+                                slots_per_device=3, virtual_ep=4), device="cpu")
+        assert ps.apply_plan([(0, 0, 2), (1, 0, 3)]) == js.apply_plan([(0, 0, 2), (1, 0, 3)])
+        ps.drain_migrations()
+        js.drain_migrations()
+        plan = ps.mark_dead(2)
+        assert plan == js.mark_dead(2)
+        ps.report_step_time(1, 2.0)
+        js.report_step_time(1, 2.0)
+        _same_server(ps, js)
+        seeded = ps.revive(2)
+        assert seeded == js.revive(2) and seeded
+        _same_server(ps, js)
+        blank = [s for s in range(6, 9) if ps.table.owner_of_slots()[s] < 0]
+        assert blank
+        for k in MOE:
+            assert (ps._moe()[k][:, blank] == BLANK_WEIGHT).all()
+        while ps.driver.pending:
+            ps.drain_migrations()
+            js.drain_migrations()
+        _same_server(ps, js)
+        ps.table.check()
     finally:
         dist.destroy_process_group()

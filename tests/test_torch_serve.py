@@ -181,22 +181,23 @@ def test_serve_config_validation_and_unported_paths(jparams, tmp_path):
     srv = Server(CFG, ParallelCtx(), _bridge(jparams), ServeConfig(**base), device="cpu")
     out = srv.generate(np.ones((2, 3), np.int32), 2)
     assert out.shape == (2, 2) and srv.ctx.moe_impl == "ep"
-    # the chunk lane serves (paged, no mesh) and generate takes splice
-    # prefills as before; under a mesh prefill_chunk stays refused, naming
-    # the paged cache under a mesh (ROADMAP Queue 1 item 5)
+    # the chunk lane serves (paged) and generate takes splice prefills as
+    # before; under a mesh (once refused) too, with the same tokens
     chunked = Server(CFG, ParallelCtx(), _bridge(jparams),
                      ServeConfig(paged=True, prefill_chunk=8, **base), device="cpu")
     assert chunked.scfg.prefill_chunk == 8 and chunked.noop_chunk()["length"] == 0
-    assert chunked.generate(np.ones((2, 3), np.int32), 2).shape == (2, 2)
+    want = chunked.generate(np.ones((2, 3), np.int32), 2)
+    assert want.shape == (2, 2)
     import torch.distributed as dist
 
     from repro_torch.parallel.mesh import make_mesh
 
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg", world_size=1, rank=0)
     try:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            Server(CFG, ParallelCtx(mesh=make_mesh(1, 1)), _bridge(jparams),
-                   ServeConfig(paged=True, prefill_chunk=8, **base), device="cpu")
+        meshed = Server(CFG, ParallelCtx(mesh=make_mesh(1, 1)), _bridge(jparams),
+                        ServeConfig(paged=True, prefill_chunk=8, **base), device="cpu")
+        assert meshed.noop_chunk()["length"] == 0
+        assert torch.equal(meshed.generate(np.ones((2, 3), np.int32), 2), want)
     finally:
         dist.destroy_process_group()
     # ESP serves the experts' own weights, on either cache
