@@ -23,6 +23,12 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    must equal those of the plain path and of the same model's no-mesh EP
    Server (it takes ``ep_moe_shardmap``'s all-to-all legs and the
    sequence-parallel decode on ``flash_decode``'s partials mode);
+   then the ``smoke()`` model of each of the seven other families
+   (qwen2-72b, tinyllama-1.1b, deepseek-7b, zamba2-1.2b, xlstm-350m,
+   seamless-m4t-medium, internvl2-76b) at head dim 32, fp32, with the
+   kernels and on the plain path: the greedy tokens must agree and the
+   kernel run's launches equal the layer count's prediction (internvl2
+   and seamless with the CLI's stub embeds, internvl2 paged);
 3. the main paths, each after a short warm-up run of its server, with
    prefill (TTFT) and the decode loop timed apart with CUDA events and 8
    more decode steps under ``torch.profiler`` for the device busy share.
@@ -89,6 +95,19 @@ Phases (one line each; any failure raises and the exit code is non-zero):
       logged; then mixtral-8x22b width with 3b's traffic, ESP on the mesh
       (``esp_expert_ffn``: the ragged pair, the reduce-scatter), timed
       beside 3b, launches as predicted;
+   g. the other families at full width, one server at a time: bf16, 8
+      requests x 256-token prompts, 32 new tokens, max_seq 1024, a warm-up
+      run first; qwen2-72b and internvl2-76b cut to 4 layers (internvl2
+      with 256 bf16 stub embeds prepended, on the paged cache of page
+      128), seamless-m4t-medium (12 + 12 layers, 1024 bf16 frame
+      embeds), zamba2-1.2b (38 layers: 6 units of 6 Mamba2 layers + 2
+      trailing) and xlstm-350m (24 blocks) at full depth on the dense
+      cache. Every kernel's launches equal the layer count's prediction
+      (``family_launches``: the MLPs, cross-attention and the recurrences
+      are plain, so xlstm launches none); TTFT, decode tok/s, the busy
+      share over 8 profiled decode steps, peak memory and the phase's wall
+      time; for zamba2 and xlstm the host and device time inside the plain
+      recurrences over 8 more decode steps.
    The expert groups' row counts (and offsets) of layer 0 in one prefill
    and one decode tick of 3a-3c and of 3f's ESP run are kept for phases
    4-5 (the EP path's dispatched buckets too);
@@ -126,7 +145,11 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    the mesh path's layouts (NaN gap rows; a dropped K tile, a dropped live
    row, offsets one row off), the paged partials at the EP path's decode
    shapes (a request of length 0, NaN dead pages, 4 slices merged; a
-   dropped key, a dead page read). Then each kernel is timed beside its
+   dropped key, a dead page read). Phase 3g's new attention shapes
+   likewise: ``flash_attention`` at seamless's encoder (B 8, S = T 1024,
+   16 heads of 64, K = H, non-causal; a dropped key tile of 64 must fail)
+   and at zamba2's shared block (B 8, S 256, 32 heads of 64, K = H,
+   causal), ``flash_decode`` at zamba2's decode (32 heads of 64, K = H). Then each kernel is timed beside its
    plain version and a PyTorch library call the port never makes, with its
    roofline bound; the four decode attention modes (split-KV bodies) also
    by their device time under ``torch.profiler`` beside SDPA's, with the
@@ -623,9 +646,13 @@ def decode_cell(torch, dtype, timer, time_it: bool):
     return cell
 
 
-def attention_cell(torch, dtype, timer, time_it: bool):
-    """flash_attention at the main path's prefill shapes: 8 x 256 tokens,
-    48 query heads over 8 KV heads of 128, causal."""
+def attention_cell(torch, dtype, timer, time_it: bool, B=8, S=256, H=48, KV=8, hd=128,
+                   causal=True, seed=3):
+    """flash_attention at a served prefill shape, by default the main
+    path's: 8 x 256 tokens, 48 query heads over 8 KV heads of 128, causal
+    (phase 3g adds seamless's non-causal encoder and zamba2's MHA block).
+    Also a shorter query block at the tail of the keys (causal: with a
+    window of 64)."""
     import torch.nn.functional as Fn
 
     from repro_torch.kernels.flash_attention import flash_attention as K
@@ -634,38 +661,42 @@ def attention_cell(torch, dtype, timer, time_it: bool):
 
     dt = getattr(torch, dtype)
     tol = PLAIN[dt]
-    B, S, H, KV, hd = 8, 256, 48, 8, 128
-    gen = torch.Generator(device="cuda").manual_seed(3)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dt)
     k = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(dt)
     v = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(dt)
-    want = R.mha(q, k, v)
-    cell = held(torch, K.flash_attention(q, k, v), want, tol, f"flash_attention {dtype}")
-    # a shorter query block at the tail of the keys, with a window
+    want = R.mha(q, k, v, causal=causal)
+    mode = "causal" if causal else "non-causal"
+    what = f"flash_attention {mode} H={H} K={KV} hd={hd} {dtype}"
+    cell = held(torch, K.flash_attention(q, k, v, causal=causal), want, tol, what)
     qt = q[:, -100:].contiguous()
-    tail = held(torch, K.flash_attention(qt, k, v, window=64), R.mha(qt, k, v, window=64),
-                tol, f"flash_attention tail+window {dtype}")
+    window = 64 if causal else 0
+    tail = held(torch, K.flash_attention(qt, k, v, causal=causal, window=window),
+                R.mha(qt, k, v, causal=causal, window=window), tol, f"{what} tail")
     cell = {key: max(cell[key], tail[key]) for key in cell}
     if dt == torch.bfloat16:
-        # queries 1.. without their own (diagonal) key
-        cell["faults"] = caught(tol, {
-            "diagonal key dropped":
-                (lambda: R.mha(q[:, 1:], k[:, :-1], v[:, :-1]), want[:, 1:]),
-        }, f"flash_attention {dtype}")
+        if causal:
+            # queries 1.. without their own (diagonal) key
+            faults = {"diagonal key dropped":
+                      (lambda: R.mha(q[:, 1:], k[:, :-1], v[:, :-1]), want[:, 1:])}
+        else:
+            faults = {"the last key tile of 64 dropped":
+                      (lambda: R.mha(q, k[:, :-64], v[:, :-64], causal=False), want)}
+        cell["faults"] = caught(tol, faults, what)
     if time_it:
         isz = q.element_size()
-        pairs = B * H * S * (S + 1) // 2
+        pairs = B * H * S * (S + 1) // 2 if causal else B * H * S * S
         nbytes = isz * (2 * B * S * H * hd + 2 * B * S * KV * hd)
         ops = 4 * hd * pairs
         b_ms, b_by = bound(nbytes, ops, dtype)
         qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         cell.update(
-            ms=timer(lambda: K.flash_attention(q, k, v), 20),
-            plain_ms=timer(lambda: R.mha(q, k, v), 20),
+            ms=timer(lambda: K.flash_attention(q, k, v, causal=causal), 20),
+            plain_ms=timer(lambda: R.mha(q, k, v, causal=causal), 20),
             library_ms=timer(lambda: Fn.scaled_dot_product_attention(
-                qs, ks, vs, is_causal=True, enable_gqa=True), 20),
+                qs, ks, vs, is_causal=causal, enable_gqa=True), 20),
             bound_ms=b_ms, bound_by=b_by,
-            shape=f"B={B} S=T={S} H={H} K={KV} hd={hd} causal",
+            shape=f"B={B} S=T={S} H={H} K={KV} hd={hd} {mode}",
         )
     return cell
 
@@ -1002,9 +1033,10 @@ def fused_cells(torch, rows, dtype, timer, time_it: bool):
     return results
 
 
-def dense_decode_cell(torch, dtype, timer, time_it: bool):
-    """flash_decode at the ESP main path's decode shapes: 8 requests, 48
-    query heads over 8 KV heads of 128, a dense cache of max_seq 1024
+def dense_decode_cell(torch, dtype, timer, time_it: bool, H=48, KV=8, hd=128):
+    """flash_decode at a served decode shape, by default the ESP main
+    path's: 8 requests, 48 query heads over 8 KV heads of 128 (phase 3g
+    adds zamba2's 32 heads of 64, K = H), a dense cache of max_seq 1024
     slots, valid prefixes of the served lengths (257-288 keys); every
     invalid K/V row holds NaN."""
     import torch.nn.functional as Fn
@@ -1016,7 +1048,7 @@ def dense_decode_cell(torch, dtype, timer, time_it: bool):
 
     dt = getattr(torch, dtype)
     tol = PLAIN[dt]
-    B, H, KV, hd, T = 8, 48, 8, 128, 1024
+    B, T = 8, 1024
     gen = torch.Generator(device="cuda").manual_seed(8)
     q = torch.randn((B, H, hd), generator=gen, device="cuda").to(dt)
     k0 = torch.randn((B, T, KV, hd), generator=gen, device="cuda").to(dt)
@@ -1027,7 +1059,8 @@ def dense_decode_cell(torch, dtype, timer, time_it: bool):
     k[valid == 0] = float("nan")
     v[valid == 0] = float("nan")
     want = R.decode(q, k, v, valid.bool())
-    cell = held(torch, K.flash_decode(q, k, v, valid), want, tol, f"flash_decode {dtype}")
+    what = f"flash_decode H={H} K={KV} hd={hd} {dtype}"
+    cell = held(torch, K.flash_decode(q, k, v, valid), want, tol, what)
     if dt == torch.bfloat16:
         dropped, extra = valid.clone(), valid.clone()
         dropped[0, 100] = 0
@@ -1040,7 +1073,7 @@ def dense_decode_cell(torch, dtype, timer, time_it: bool):
             "one invalid key read": (lambda: R.decode(q, k0, v0, extra.bool()), want),
             "first key of the second chunk dropped": (lambda: R.decode(q, k, v, one), want),
             "one whole chunk dropped": (lambda: R.decode(q, k, v, chunk), want),
-        }, f"flash_decode {dtype}")
+        }, what)
     if time_it:
         isz = q.element_size()
         live = int(lengths.sum())
@@ -1334,10 +1367,11 @@ def force_migration(srv) -> tuple[int, int, int]:
     raise AssertionError("no expert could be replicated: no free slot is left")
 
 
-def timed_generate(torch, srv, prompt, n_new: int):
-    """``srv.generate`` with CUDA events at its start, after its prefill and
-    at its end. Returns the tokens, the prefill's logits, the prefill time
-    (TTFT) and the decode loop's time, in seconds."""
+def timed_generate(torch, srv, prompt, n_new: int, embeds=None):
+    """``srv.generate`` (with the frontend stub's ``embeds``, if any) with
+    CUDA events at its start, after its prefill and at its end. Returns the
+    tokens, the prefill's logits, the prefill time (TTFT) and the decode
+    loop's time, in seconds."""
     events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     kept = {}
     prefill = srv.prefill
@@ -1352,7 +1386,7 @@ def timed_generate(torch, srv, prompt, n_new: int):
     try:
         torch.cuda.synchronize()
         events[0].record()
-        out = srv.generate(prompt, n_new)
+        out = srv.generate(prompt, n_new, embeds=embeds)
         events[2].record()
         torch.cuda.synchronize()
     finally:
@@ -1794,12 +1828,12 @@ def profiled_ms(torch, prof) -> tuple[dict, dict]:
     return by_name, host
 
 
-def profile_decode(torch, srv, prompt, card: str, steps: int = 8) -> dict:
+def profile_decode(torch, srv, prompt, card: str, steps: int = 8, embeds=None) -> dict:
     """Device busy share and time by kernel over ``steps`` decode steps of
     the main-path server (a separate window from the timed run)."""
     from torch.profiler import ProfilerActivity, profile
 
-    logits, cache = srv.prefill(prompt)
+    logits, cache = srv.prefill(prompt, embeds=embeds)
     tok = torch.argmax(logits[:, -1:], dim=-1)
     for _ in range(2):
         logits, cache = srv.decode(tok, cache)
@@ -2883,6 +2917,208 @@ def mesh_esp_path(torch, mesh, card: str, esp_run: dict):
 
 
 # ---------------------------------------------------------------------------
+# phases 2 and 3g: the other model families
+# ---------------------------------------------------------------------------
+
+FAMILIES = ("qwen2-72b", "tinyllama-1.1b", "deepseek-7b", "zamba2-1.2b", "xlstm-350m",
+            "seamless-m4t-medium", "internvl2-76b")
+# phase 3g: arch -> (layers the run keeps, None = the full depth; paged cache)
+FAMILY_RUNS = {"qwen2-72b": (4, False), "internvl2-76b": (4, True),
+               "seamless-m4t-medium": (None, False), "zamba2-1.2b": (None, False),
+               "xlstm-350m": (None, False)}
+
+
+def all_kernels():
+    """Every kernel wrapper of the port (thirteen, each partials mode apart)."""
+    from repro_torch.kernels.flash_decode.flash_decode import flash_decode, flash_decode_partials
+    from repro_torch.kernels.gmm import ragged as K
+
+    return (*ep_kernels(), K.gmm_dual_act_gather, K.gmm_scatter, K.gmm_fused_ffn,
+            flash_decode, flash_decode_partials, *op_layer_kernels())
+
+
+def family_launches(cfg, paged: bool, n_new: int) -> dict:
+    """The launches of one ``generate`` of ``n_new`` tokens (one prefill,
+    ``n_new`` decode steps) on a dense-FFN model: ``flash_attention`` once
+    a self-attention layer in the prefill (an encoder's layers too,
+    non-causal), the dense or the paged decode kernel once a
+    self-attention layer and step, and no other kernel (the MLPs,
+    cross-attention and the recurrences are plain, as in the reference)."""
+    from repro_torch.models.transformer import zamba_layout
+
+    pat = cfg.block_pattern
+    attn = (zamba_layout(cfg)[0] if pat == "zamba" else 0 if pat == "xlstm"
+            else cfg.n_layers)
+    want = {k.__name__: 0 for k in all_kernels()}
+    want["flash_attention"] = attn + (cfg.n_encoder_layers if pat == "encdec" else 0)
+    want["flash_decode_paged" if paged else "flash_decode"] = attn * n_new
+    return want
+
+
+def small_family_parity(torch, arch: str) -> dict:
+    """``arch``'s smoke() model at head dim 32 (the kernels' gate takes 32,
+    64 and 128), fp32, served on the card with the kernels and on the plain
+    path: the greedy tokens must agree, and the kernel run's launches equal
+    ``family_launches``. internvl2 and seamless get the CLI's stub embeds,
+    internvl2 on the paged cache. Returns the kernel run's launches."""
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.launch.serve import stub_embeds
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.ctx import ParallelCtx
+    from repro_torch.runtime.serve import ServeConfig, Server
+
+    cfg = dataclasses.replace(smoke(get_config(arch)), head_dim=32)
+    paged, n_new = arch == "internvl2-76b", 12
+    prompt = torch.randint(0, cfg.vocab_size, (4, 12),
+                           generator=torch.Generator().manual_seed(31))
+    embeds = stub_embeds(cfg, 4, 0, torch.float32, "cuda")
+    outs, launched = [], {}
+    for uk in ("auto", False):
+        for k in all_kernels():
+            k.launches = 0
+        params = T.init_params(cfg, seed=32, device="cuda")
+        srv = Server(cfg, ParallelCtx(use_kernels=uk), params,
+                     ServeConfig(max_seq=64, batch=4, paged=paged, page_size=16),
+                     device="cuda")
+        outs.append(srv.generate(prompt, n_new, embeds=embeds).cpu())
+        if uk == "auto":
+            launched = {k.__name__: k.launches for k in all_kernels()}
+    if not torch.equal(outs[0], outs[1]):
+        raise AssertionError(f"{arch} small model: kernel vs plain tokens differ:\n"
+                             f"{outs[0]}\n{outs[1]}")
+    want = family_launches(cfg, paged, n_new)
+    if launched != want:
+        raise AssertionError(f"{arch} small model launches {launched} != {want}")
+    return {k: v for k, v in launched.items() if v}
+
+
+def recurrence_profile(torch, srv, prompt, embeds, steps: int = 8) -> dict:
+    """Host and device time inside the plain recurrences over ``steps``
+    decode steps under ``torch.profiler``: each call of a Mamba2, mLSTM or
+    sLSTM block runs in a ``record_function`` range (a window apart from
+    the busy-share profile, so the ranges do not enter its sums)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import ssm
+
+    names = ("mamba_apply", "mlstm_apply", "slstm_apply")
+    orig = {n: getattr(ssm, n) for n in names}
+
+    def ranged(fn):
+        def call(*args, **kwargs):
+            with record_function("plain recurrence"):
+                return fn(*args, **kwargs)
+        return call
+
+    logits, cache = srv.prefill(prompt, embeds=embeds)
+    tok = torch.argmax(logits[:, -1:], dim=-1)
+    logits, cache = srv.decode(tok, cache)
+    tok = torch.argmax(logits[:, -1:], dim=-1)
+    torch.cuda.synchronize()
+    for n in names:
+        setattr(ssm, n, ranged(orig[n]))
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                logits, cache = srv.decode(tok, cache)
+                tok = torch.argmax(logits[:, -1:], dim=-1)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for n in names:
+            setattr(ssm, n, orig[n])
+    host_ms = dev_ms = kernels_ms = 0.0
+    for e in prof.key_averages():
+        if e.key == "plain recurrence":
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                host_ms += e.cpu_time_total / 1e3
+                dev_ms += (e.device_time_total if hasattr(e, "device_time_total")
+                           else e.cuda_time_total) / 1e3
+        elif e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels_ms += (e.self_device_time_total if hasattr(e, "self_device_time_total")
+                           else e.self_cuda_time_total) / 1e3
+    if dev_ms <= 0.0:
+        raise AssertionError("the profile gave the recurrence ranges no device time")
+    return {"steps": steps, "wall_ms": wall_ms, "host_ms": host_ms, "host_share": host_ms / wall_ms,
+            "device_ms": dev_ms, "device_kernels_ms": kernels_ms,
+            "device_share": dev_ms / kernels_ms}
+
+
+def family_path(torch, arch: str, card: str) -> dict:
+    """Phase 3g for one family at its full width: bf16, 8 x 256-token
+    prompts, 32 new tokens, max_seq 1024, after a warm-up run. Launches as
+    ``family_launches`` predicts (every other kernel 0); TTFT, decode tok/s,
+    the busy share over 8 profiled decode steps, peak memory and the
+    phase's wall time; for zamba2 and xlstm the recurrences' share of the
+    decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import stub_embeds
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.ctx import ParallelCtx
+    from repro_torch.runtime.data import request_stream
+    from repro_torch.runtime.serve import ServeConfig, Server
+
+    n_layers, paged = FAMILY_RUNS[arch]
+    batch, prompt_len, n_new = 8, 256, 32
+    cfg = get_config(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    params = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    srv = Server(cfg, ParallelCtx(), params,
+                 ServeConfig(max_seq=1024, batch=batch, paged=paged, page_size=128),
+                 device="cuda")
+    del params
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_phase
+    prompt = next(request_stream(cfg.vocab_size, batch, prompt_len, seed=0))
+    # the stub's embeds in the model's dtype on purpose: seamless's encoder
+    # and flash_attention then run in bf16 (fp32 embeds, as the reference's
+    # CLI draws them, would run the encoder in fp32)
+    embeds = stub_embeds(cfg, batch, 0, torch.bfloat16, "cuda")
+    srv.generate(prompt, 2, embeds=embeds)    # warm-up
+    for k in all_kernels():
+        k.launches = 0
+    out, logits, ttft_s, decode_s = timed_generate(torch, srv, prompt, n_new, embeds)
+    launches = {k.__name__: k.launches for k in all_kernels()}
+    predicted = family_launches(cfg, paged, n_new)
+    if launches != predicted:
+        raise AssertionError(f"phase 3g {arch}: launches {launches} != predicted {predicted}")
+    out_cpu = out.cpu()
+    if out_cpu.shape != (batch, n_new) or int(out_cpu.min()) < 0 or \
+            int(out_cpu.max()) >= cfg.vocab_size:
+        raise AssertionError(f"phase 3g {arch}: tokens out of range: {tuple(out_cpu.shape)}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"phase 3g {arch}: non-finite prefill logits")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    profile = profile_decode(torch, srv, prompt, card, embeds=embeds)
+    run = {"ttft_ms": ttft_s * 1e3, "decode_ms": decode_s * 1e3,
+           "decode_tok_s": batch * n_new / decode_s, "peak_gb": peak_gb,
+           "layers": cfg.n_layers, "paged": paged, **profile}
+    rec = ""
+    if cfg.block_pattern in ("zamba", "xlstm"):
+        run["recurrence"] = r = recurrence_profile(torch, srv, prompt, embeds)
+        rec = (f"; the plain recurrences over {r['steps']} profiled decode steps: host "
+               f"{r['host_ms']:.1f} of {r['wall_ms']:.1f} ms wall ({r['host_share']:.1%}), "
+               f"device {r['device_ms']:.2f} of {r['device_kernels_ms']:.2f} ms of kernels "
+               f"({r['device_share']:.1%})")
+    del srv
+    torch.cuda.synchronize()
+    run["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 3g {arch}: {cfg.n_layers} layers, bf16, {'paged' if paged else 'dense'} "
+        f"cache, {batch} x {prompt_len}-token prompts"
+        + (f" + {cfg.frontend_tokens} stub embeds (bf16)" if cfg.frontend_stub else "")
+        + f" -> {n_new} decode steps (after a warm-up run): setup {setup_s:.2f}s, TTFT "
+        f"(prefill) {run['ttft_ms']:.1f} ms, decode {run['decode_ms']:.1f} ms = "
+        f"{run['decode_tok_s']:.1f} tok/s, device busy {run['device_busy_share']:.1%}, peak "
+        f"memory {peak_gb:.2f} GB, phase {run['phase_s']:.1f}s, launches "
+        f"{ {k: v for k, v in launches.items() if v} } as predicted{rec} [{card}]")
+    return {"launches": {k: v for k, v in launches.items() if v}, **run}
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2989,6 +3225,11 @@ def main(argv=None) -> int:
     log(f"small fp32 model on the 1 x 1 NCCL mesh: greedy tokens with the kernels equal "
         f"the plain path's and the no-mesh EP Server's (partials launches "
         f"{small_mesh['flash_decode_partials']}, migrations {small_mesh['migrations']})")
+    small_families = {}
+    for arch in FAMILIES:
+        small_families[arch] = small_family_parity(torch, arch)
+        log(f"small fp32 {arch} model (smoke, head dim 32): kernel and plain greedy tokens "
+            f"agree, kernel run launches {small_families[arch]} as predicted")
     torch.cuda.empty_cache()
 
     launches, groups, run = main_path(torch, card)
@@ -3035,6 +3276,11 @@ def main(argv=None) -> int:
     esp_mesh_launches, esp_mesh_groups, esp_mesh_run = mesh_esp_path(torch, mesh, card, esp_run)
     gc.collect()
     torch.cuda.empty_cache()
+    family_runs = {}
+    for arch in FAMILY_RUNS:
+        family_runs[arch] = family_path(torch, arch, card)
+        gc.collect()
+        torch.cuda.empty_cache()
     op_launches, op_excess = op_layer_path(torch, groups, mesh_rows, card)
 
     timer = Timer(torch)
@@ -3052,10 +3298,24 @@ def main(argv=None) -> int:
         pa = partials_cell(torch, dtype, timer, time_it)
         pg = padded_cells(torch, groups, dtype, timer, time_it)
         pp = paged_partials_cell(torch, dtype, timer, time_it)
+        # phase 3g's new attention shapes: seamless's encoder (non-causal),
+        # zamba2's shared block (MHA at hd 64) at prefill and at decode
+        fam = {
+            "flash_attention seamless encoder": attention_cell(
+                torch, dtype, timer, time_it, B=8, S=1024, H=16, KV=16, hd=64,
+                causal=False, seed=21),
+            "flash_attention zamba2 shared block": attention_cell(
+                torch, dtype, timer, time_it, B=8, S=256, H=32, KV=32, hd=64, seed=22),
+            "flash_decode zamba2 shared block": dense_decode_cell(
+                torch, dtype, timer, time_it, H=32, KV=32, hd=64),
+        }
         cells[dtype] = {"gmm": g, "esp_mesh_gmm": ge, "decode": d, "attn": a, "esp_gmm": eg,
                         "mesh_gmm": mg,
                         "fused": fu, "dense_decode": dd, "partials": pa, "padded": pg,
-                        "paged_partials": pp}
+                        "paged_partials": pp, "family": fam}
+        log(f"kernels {dtype} at phase 3g's shapes, error over its limit: "
+            + "; ".join(f"{name} [{c.get('shape', '')}] {c['excess']:.3g}"
+                        for name, c in fam.items()))
         log(f"kernels {dtype}, error over its limit (rtol, atol) = "
             f"{PLAIN[getattr(torch, dtype)]}: gmm_dual_act_ragged decode "
             f"{g['decode']['gmm_dual_act_ragged']['excess']:.3g} prefill "
@@ -3152,9 +3412,13 @@ def main(argv=None) -> int:
         f"{c['plain_ms']:.4f} ms, normalised kernel {c['normalised_ms']:.4f} ms, sdpa "
         f"(normalised) {c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
         f"({c['bound_by']}) [{card}]")
+    for name, c in bf["family"].items():
+        log(f"{name} bf16 faults caught: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in c["faults"].items()))
     for name, c, lib in (("flash_decode_paged", bf["decode"], "sdpa"),
                          ("flash_attention", bf["attn"], "sdpa"),
-                         ("flash_decode", bf["dense_decode"], "sdpa")):
+                         ("flash_decode", bf["dense_decode"], "sdpa"),
+                         *((name, c, "sdpa") for name, c in bf["family"].items())):
         log(f"time {name} [{c['shape']}]: kernel {c['ms']:.4f} ms, plain "
             f"{c['plain_ms']:.4f} ms, {lib} {c['library_ms']:.4f} ms, bound "
             f"{c['bound_ms']:.4f} ms ({c['bound_by']}) [{card}]")
@@ -3364,6 +3628,17 @@ def main(argv=None) -> int:
             extra = {"faults": c["faults"]}
         if "device_ms" in c:
             extra.update({k: c[k] for k in ("device_ms", "library_device_ms", "live_bytes")})
+        if name in ("flash_attention", "flash_decode"):
+            # phase 3g's shapes of the kernel, and its launches there
+            extra["family_cells"] = {
+                what.split(" ", 1)[1]: {
+                    **{k: c[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                         "bound_by", "max_abs_err", "excess", "shape",
+                                         "device_ms", "library_device_ms") if k in c},
+                    "excess_fp32": fp["family"][what]["excess"], "faults": c["faults"]}
+                for what, c in bf["family"].items() if what.startswith(name + " ")}
+        extra["launches_family_paths"] = {
+            arch: r["launches"].get(name, 0) for arch, r in family_runs.items()}
         if name in op_names:
             extra["launches_served_paths"] = {
                 "EP": launches[name], "ESP": esp_launches[name], "mesh": mesh_launches[name]}
@@ -3384,6 +3659,7 @@ def main(argv=None) -> int:
                       "run_chunked": chunk_run,
                       "run_mesh_serving": {"small": small_served, "chunked_chaos": mesh_chunk_run,
                                            "esp": esp_mesh_run},
+                      "run_families": family_runs, "small_families": small_families,
                       "op_layer_excess": op_excess}), flush=True)
     import torch.distributed as dist
 

@@ -3,8 +3,10 @@
 ``params_from_numpy`` takes the JAX package's params as a nested dict of
 numpy arrays (e.g. ``jax.tree.map(np.asarray, T.init_params(...))`` on the
 JAX side) and returns the port's tensors with the same keys and layouts:
-``x @ W`` orientation, layers stacked on dim 0. This module itself imports
-neither JAX nor the JAX package.
+``x @ W`` orientation, layers stacked on dim 0. ``None`` leaves (the
+reference's empty stacks, e.g. zamba's ``trailing`` when no Mamba layer
+trails the last unit) stay ``None``. This module itself imports neither JAX
+nor the JAX package.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ def params_from_numpy(tree, device="cpu", dtype: torch.dtype | None = None,
     each array's own dtype."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, dtype, k) for k, v in tree.items()}
+    if tree is None:
+        return None
     t = torch.tensor(np.asarray(tree), device=device)
     if dtype is not None and t.is_floating_point() and _key not in FP32_LEAVES:
         t = t.to(dtype)

@@ -8,6 +8,15 @@ reference's CLI.
 through the ``RequestScheduler`` with chunked admission: N context tokens
 a tick ride the decode step's prefill lane.
 
+``--arch`` takes every architecture of the reference. A frontend-stub
+model (internvl2's patch embeddings, seamless's frame embeddings) gets,
+for batch i, ``0.02 * randn(requests, frontend_tokens, d_model)`` from a
+CPU ``torch.Generator`` seeded with i, as the reference's CLI draws them
+(with JAX's generator), in the model's ``--dtype``: in float32 (the
+default) that is the reference's dtype; in bfloat16 the encoder and
+``flash_attention`` then run in bf16 (fp32 embeds with bf16 weights would
+promote the encoder to fp32, as JAX does: ``models.layers.mm``).
+
 ``--mesh DxM`` serves under a ``("data", "model")`` mesh of
 ``torch.distributed`` ranks: EP (or with ``--moe-impl esp`` ESP's
 hidden-dim shards) over the model axis, the dense cache's slots (or the
@@ -18,6 +27,10 @@ with NCCL, or gloo with ``--device cpu``. A world of one (``--mesh 1x1``)
 needs no ``torchrun``. Rank 0 prints.
 
 Examples (CPU, smoke size):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --smoke \
+      --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-76b --smoke \
+      --device cpu --paged
   PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx-132b --smoke \
       --device cpu --requests 4 --prompt-len 16 --gen 8 --virtual-ep 4 --slots 3 \
       --paged
@@ -38,7 +51,7 @@ import time
 import torch
 import torch.distributed as dist
 
-from repro_torch.configs import get_config, smoke as smoke_cfg
+from repro_torch.configs import ARCHS, get_config, smoke as smoke_cfg
 from repro_torch.core.topology import MeshTopology
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
@@ -69,7 +82,7 @@ def mesh_plan(m: int):
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=ARCHS)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to this many layers (widths unchanged)")
@@ -117,11 +130,25 @@ def serve_config(args: argparse.Namespace) -> ServeConfig:
     )
 
 
-def serve_batch(server: Server, prompt, n_new: int) -> torch.Tensor:
+def stub_embeds(cfg, requests: int, batch: int, dtype, device) -> torch.Tensor | None:
+    """Batch ``batch``'s frontend-stub embeds (None without a stub):
+    ``0.02 * randn(requests, frontend_tokens, d_model)`` drawn on the CPU
+    from a generator seeded with the batch index, in ``dtype``."""
+    if not cfg.frontend_stub:
+        return None
+    gen = torch.Generator().manual_seed(batch)
+    e = torch.randn((requests, cfg.frontend_tokens, cfg.d_model), generator=gen) * 0.02
+    return e.to(device=device, dtype=dtype)
+
+
+def serve_batch(server: Server, prompt, n_new: int, embeds=None) -> torch.Tensor:
     """``(B, n_new)`` tokens of a batch of prompts: ``generate``, or with
     ``prefill_chunk`` the requests through a ``RequestScheduler``."""
     if not server.scfg.prefill_chunk:
-        return server.generate(prompt, n_new)
+        return server.generate(prompt, n_new, embeds=embeds)
+    if embeds is not None:
+        raise ValueError("--prefill-chunk admits token prompts only: a frontend-stub "
+                         "model serves through generate (no --prefill-chunk)")
     sched = RequestScheduler(server)
     for p in prompt:
         sched.submit(p, n_new)
@@ -158,9 +185,13 @@ def main(argv=None):
     server = Server(cfg, ctx, params, serve_config(args), device=device,
                     distance=distance)
     stream = request_stream(cfg.vocab_size, args.requests, args.prompt_len, args.seed)
+    if cfg.frontend_stub and main_rank:
+        print(f"frontend stub: {cfg.frontend_tokens} random embeds a request, in "
+              f"{args.dtype}")
     for i, prompt in zip(range(args.batches), stream):
+        embeds = stub_embeds(cfg, args.requests, i, DTYPES[args.dtype], device)
         t0 = time.perf_counter()
-        out = serve_batch(server, prompt, args.gen)
+        out = serve_batch(server, prompt, args.gen, embeds)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         dt = time.perf_counter() - t0

@@ -39,7 +39,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import registry
 from repro_torch.kernels.flash_decode.ref import gather_pages
-from repro_torch.models.layers import apply_rope, normal_init
+from repro_torch.models.layers import apply_rope, mm, normal_init
 from repro_torch.parallel import sharding
 from repro_torch.parallel.collectives import all_gather_dim, seq_parallel_decode_attend
 from repro_torch.parallel.ctx import ParallelCtx
@@ -68,7 +68,7 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
 def qkv_proj(p: dict, x: torch.Tensor, cfg: ModelConfig):
     b, s, _ = x.shape
     h = cfg.head_dim_
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    q, k, v = mm(x, p["wq"]), mm(x, p["wk"]), mm(x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     return (
@@ -80,7 +80,7 @@ def qkv_proj(p: dict, x: torch.Tensor, cfg: ModelConfig):
 
 def out_proj(p: dict, o: torch.Tensor) -> torch.Tensor:
     b, s = o.shape[:2]
-    return o.reshape(b, s, -1) @ p["wo"]
+    return mm(o.reshape(b, s, -1), p["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -89,10 +89,15 @@ def out_proj(p: dict, o: torch.Tensor) -> torch.Tensor:
 
 def gqa_attend(q, k, v, mask) -> torch.Tensor:
     """q (B,S,H,hd), k/v (B,T,K,hd); ``mask`` broadcastable to
-    (B, K, G, S, T) or None."""
+    (B, K, G, S, T) or None. Mixed q/k dtypes score in the wider one, as
+    JAX's einsum promotes them (the encoder-decoder's cross-attention over
+    an fp32 memory); the output takes v's dtype."""
     b, s, nh, hd = q.shape
     nk = k.shape[2]
     g = nh // nk
+    if q.dtype != k.dtype:
+        dt = torch.promote_types(q.dtype, k.dtype)
+        q, k = q.to(dt), k.to(dt)
     qg = q.reshape(b, s, nk, g, hd)
     scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float() / math.sqrt(hd)
     if mask is not None:
@@ -176,6 +181,28 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: ParallelCtx,
     if return_kv:
         return out, (k, v)
     return out
+
+
+def cross_attention(p: dict, x: torch.Tensor, kv: tuple, cfg: ModelConfig) -> torch.Tensor:
+    """Decoder cross-attention of ``x`` (B, S, d) over precomputed encoder
+    k/v (no mask, no RoPE). Plain math on every device, as the reference
+    computes it outside any kernel."""
+    b, s, _ = x.shape
+    q = mm(x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    q = q.reshape(b, s, cfg.n_heads, cfg.head_dim_)
+    return out_proj(p, gqa_attend(q, kv[0], kv[1], None))
+
+
+def cross_kv(p: dict, memory: torch.Tensor, cfg: ModelConfig) -> tuple:
+    """The encoder memory's k/v ``(B, T, K, hd)`` for one decoder layer."""
+    b, t, _ = memory.shape
+    k, v = mm(memory, p["wk"]), mm(memory, p["wv"])
+    if cfg.qkv_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    shape = (b, t, cfg.n_kv_heads, cfg.head_dim_)
+    return k.reshape(shape), v.reshape(shape)
 
 
 # ---------------------------------------------------------------------------

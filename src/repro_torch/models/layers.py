@@ -1,7 +1,8 @@
 """Shared layer primitives: norms, RoPE, SwiGLU MLP, initializers.
 
 Casts follow ``repro.models.layers``: RMSNorm normalises in fp32, casts
-back, then multiplies by ``w``; RoPE is computed in fp32.
+back, then multiplies by ``w``; RoPE is computed in fp32. Products go
+through :func:`mm`, which promotes mixed float operands as JAX does.
 """
 
 from __future__ import annotations
@@ -41,6 +42,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with JAX's promotion of mixed float operands: both operands
+    in the wider dtype (torch's ``@`` refuses mixed dtypes). The reference
+    relies on it where fp32 operands meet bf16 weights: its encoder takes
+    the frontend embeds uncast, and its recurrences carry fp32 states.
+    Same-dtype operands, every path the card serves, take the plain
+    product."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
+
+
 def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype=torch.float32,
              device="cpu") -> dict:
     return {
@@ -51,6 +65,6 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype=torch.float32,
 
 
 def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
-    h = x @ p["w_gate"]
-    u = x @ p["w_up"]
-    return (F.silu(h) * u) @ p["w_down"]
+    h = mm(x, p["w_gate"])
+    u = mm(x, p["w_up"])
+    return mm(F.silu(h) * u, p["w_down"])

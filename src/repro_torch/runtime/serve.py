@@ -37,7 +37,10 @@ every rank (each rank's device tables hold its rows). A batch-1 admission
 prefill and the prefill lane's chunk run on every rank (replicated, as the
 reference's ``chunk_specs``), so every rank's pool holds the admitted
 request's pages for its KV heads. Snapshots under a mesh are not ported
-yet.
+yet, nor the ``zamba``, ``xlstm`` and ``encdec`` patterns under a mesh:
+without one they serve their dense and recurrent caches, the balancer
+idle (it runs for MoE only). Frontend-stub embeds ride ``prefill`` and
+``generate``.
 
 Device failures: ``mark_dead`` aborts or fast-forwards in-flight migration
 slices, evacuates orphaned experts (placement table and weight rows) and
@@ -353,7 +356,9 @@ class Server:
 
     @staticmethod
     def _check_mesh(cfg: ModelConfig, ctx: ParallelCtx, scfg: ServeConfig) -> None:
-        """What serving under a mesh needs."""
+        """What serving under a mesh needs: the ``attn`` pattern (the others'
+        layouts are still to port) and an initialised process group."""
+        T.check_mesh(cfg, ctx)
         if not dist.is_initialized():
             raise RuntimeError(
                 "Server under a mesh needs an initialised torch.distributed "
@@ -406,7 +411,7 @@ class Server:
         if not self.scfg.paged:
             raise ValueError(f"{what} requires ServeConfig(paged=True)")
 
-    def _prefill(self, tokens, tables=None, lengths=None, replicated=False):
+    def _prefill(self, tokens, tables=None, lengths=None, replicated=False, embeds=None):
         # Every prefill routes by the committed table, as decode and the
         # reference's chunk lane do (JAX decode_step passes placement to the
         # chunk's moe_apply). The reference's splice prefill routes each copy
@@ -424,38 +429,55 @@ class Server:
             ctx = dataclasses.replace(ctx, batch_replicated=True)
         if not self.scfg.paged:
             return T.prefill(self.params, tokens, self.cfg, ctx,
-                             max_seq=self.scfg.max_seq, placement=placement)
+                             max_seq=self.scfg.max_seq, placement=placement,
+                             embeds=embeds)
         return T.prefill(
             self.params, tokens, self.cfg, ctx,
             max_seq=self.scfg.max_seq, paged=True,
             page_size=self.scfg.page_size, n_pages=self.n_pool_pages,
             tables=torch.as_tensor(tables, device=self.device),
             lengths=torch.as_tensor(lengths, dtype=torch.int32, device=self.device),
-            placement=placement,
+            placement=placement, embeds=embeds,
         )
 
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()
 
+    def _prompt_rows(self, tokens, embeds) -> int:
+        """KV rows a prefill writes per request: prompt tokens plus any
+        prepended frontend-stub embeddings (see ``T.prefill``)."""
+        s = tokens.shape[1]
+        if (embeds is not None and self.cfg.frontend_stub
+                and self.cfg.block_pattern != "encdec"):
+            s += embeds.shape[1]
+        return s
+
     # -- request lifecycle ---------------------------------------------------
 
-    def prefill(self, tokens, lengths=None):
+    def prefill(self, tokens, embeds=None, lengths=None):
         """Prime a cache for a batch of prompts; returns the logits of every
-        request (under a mesh too) and this rank's cache. Paged: allocate
-        each request's blocks from the shared pool (``lengths`` marks true
-        prompt lengths of right-padded ragged batches); pages of a
-        previously prefilled batch are released first."""
+        request (under a mesh too) and this rank's cache. ``embeds`` (B, F,
+        d) are the frontend stub's: prepended (vlm) or encoded (enc-dec),
+        in the dtype given (see ``T.prefill``). Paged: allocate each
+        request's blocks from the shared pool (``lengths`` marks true prompt
+        lengths of right-padded ragged batches; prepended embeds count
+        toward every request); pages of a previously prefilled batch are
+        released first."""
         tokens = self._tokens(tokens)
-        b, s = tokens.shape
+        b = tokens.shape[0]
+        s = self._prompt_rows(tokens, embeds)
         self._set_batch(b)
         rows = self._rows
+        if embeds is not None:
+            embeds = torch.as_tensor(embeds, device=self.device)[rows]
         if not self.scfg.paged:
-            logits, cache = self._prefill(tokens[rows])
+            logits, cache = self._prefill(tokens[rows], embeds=embeds)
             self._pos = s
             return self._gather_rows(logits), cache
+        n_embed = s - tokens.shape[1]
         lens = (
             np.full(b, s, np.int32) if lengths is None
-            else np.asarray(lengths, np.int32)
+            else np.asarray(lengths, np.int32) + n_embed
         )
         for slot in list(self._pages):
             self.release(slot)
@@ -470,7 +492,8 @@ class Server:
             pages = self.page_pool.alloc(need)
             self._pages[slot] = pages
             self._tables[slot, :need] = pages
-        logits, cache = self._prefill(tokens[rows], self._tables[rows], lens[rows])
+        logits, cache = self._prefill(tokens[rows], self._tables[rows], lens[rows],
+                                      embeds=embeds)
         self._written = lens.copy()
         self._pos = s
         return self._gather_rows(logits), cache
@@ -765,10 +788,10 @@ class Server:
             self._maybe_balance(counts)
         return logits, cache
 
-    def generate(self, prompt, n_tokens: int) -> torch.Tensor:
+    def generate(self, prompt, n_tokens: int, embeds=None) -> torch.Tensor:
         """Greedy decode: ``(B, n_tokens)`` int64 tokens on the device, every
-        request's on every rank under a mesh."""
-        logits, cache = self.prefill(prompt)
+        request's on every rank under a mesh; ``embeds`` as in ``prefill``."""
+        logits, cache = self.prefill(prompt, embeds=embeds)
         out = []
         tok = torch.argmax(logits[:, -1:], dim=-1)
         for _ in range(n_tokens):

@@ -260,6 +260,19 @@ def test_cuda_flash_attention_matches_plain(cuda_device, dtype, tol, hd, window,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("s,t", [(200, 200), (40, 72)])
+def test_cuda_flash_attention_noncausal_mha_hd64(cuda_device, dtype, tol, s, t):
+    """The encoder's mode (seamless: non-causal, K = H, head dim 64), at
+    query and key counts off the tiles."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    q = _rand(gen, cuda_device, dtype, 2, s, 16, 64)
+    k = _rand(gen, cuda_device, dtype, 2, t, 16, 64)
+    v = _rand(gen, cuda_device, dtype, 2, t, 16, 64)
+    _check(flash_attention(q, k, v, causal=False), fa_ref.mha(q, k, v, causal=False), tol)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("hd", [32, 64, 128])
 @pytest.mark.parametrize("s,t,causal,window", [
     (40, 72, True, 16),       # S < T, a window
@@ -928,3 +941,20 @@ def test_cuda_chunked_admission_and_restore_small_model(cuda_device):
     held = chip_smoke.small_chunk_parity(torch)
     assert held["mid_prefill"] and held["launches"]["flash_attention"] == 0
     assert held["launches"]["gmm_ragged"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-72b", "tinyllama-1.1b", "deepseek-7b", "zamba2-1.2b",
+                                  "xlstm-350m", "seamless-m4t-medium", "internvl2-76b"])
+def test_cuda_family_small_model(cuda_device, arch):
+    """``chip_smoke.small_family_parity`` on the card: the family's smoke()
+    model at head dim 32, fp32, ``Server.generate`` with the kernels equal
+    to the plain path (stub embeds for internvl2 and seamless, internvl2
+    paged), launches as the layer count predicts."""
+    import sys
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    launched = chip_smoke.small_family_parity(torch, arch)
+    assert bool(launched) == (arch != "xlstm-350m")

@@ -54,7 +54,11 @@ def test_port_imports_neither_jax_nor_repro():
     for mod in ("parallel/mesh.py", "parallel/sharding.py", "parallel/collectives.py",
                 "kernels/gmm/ops.py", "kernels/gmm/gmm.py", "runtime/faults.py",
                 "runtime/scheduler.py", "runtime/checkpoint.py", "runtime/snapshot.py",
-                "runtime/elastic.py", "configs/llama3_2_1b.py"):
+                "runtime/elastic.py", "configs/llama3_2_1b.py", "models/ssm.py",
+                "configs/deepseek_7b.py", "configs/qwen2_72b.py",
+                "configs/tinyllama_1_1b.py", "configs/internvl2_76b.py",
+                "configs/seamless_m4t_medium.py", "configs/zamba2_1_2b.py",
+                "configs/xlstm_350m.py"):
         assert f"src/repro_torch/{mod}" in names
 
 
@@ -89,6 +93,8 @@ def test_entry_points_default_to_cuda(monkeypatch):
     cfg = smoke(get_config("dbrx-132b"))
     with pytest.raises(RuntimeError, match="cuda"):
         T.init_params(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        T.init_cache(cfg, 2, 16)
     params = T.init_params(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         Server(cfg, ParallelCtx(), params, ServeConfig(paged=True))

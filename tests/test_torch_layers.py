@@ -15,7 +15,7 @@ from repro.models import attention as JA
 from repro.models import layers as JL
 from repro.models import moe as JM
 from repro.parallel.ctx import ParallelCtx as JCtx
-from repro_torch.configs import get_config, smoke
+from repro_torch.configs import ARCHS, get_config, smoke
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -35,9 +35,11 @@ def _rand(rng, *shape, scale=1.0):
     return (rng.standard_normal(shape) * scale).astype(np.float32)
 
 
-def test_configs_match_reference():
-    assert dataclasses.asdict(get_config("dbrx-132b")) == dataclasses.asdict(jget("dbrx-132b"))
-    assert dataclasses.asdict(CFG) == dataclasses.asdict(JCFG)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_configs_match_reference(arch):
+    """Every arch of the reference, field for field, and its smoke()."""
+    assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(jget(arch))
+    assert dataclasses.asdict(smoke(get_config(arch))) == dataclasses.asdict(jsmoke(jget(arch)))
 
 
 def test_rms_norm_rope_mlp():
