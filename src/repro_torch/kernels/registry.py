@@ -30,6 +30,15 @@ raises on a shape outside its ``can_*`` gate) and runs its plain PyTorch
 version on CPU tensors; there is no fallback on the card. The gates are
 derived for Hopper from what each kernel's tiles take (head dim, dtype,
 16-byte vectors), not from the TPU's (8, 128) tiling.
+
+``attend``, ``expert_ffn`` and ``expert_ffn_from_rows`` are differentiable
+on every device: each runs through a ``torch.autograd.Function`` (the
+reference's ``jax.custom_vjp``s) whose forward calls the wrapper (the CUDA
+kernel on a CUDA tensor, the plain version on a CPU tensor) and saves its
+inputs, never its output, and whose backward recomputes the plain version
+under autograd and returns its gradients: kernel forward, recomputed plain
+backward, as the reference pairs them. The backward launches no kernel.
+The decode entries serve only inference and have no backward.
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ from repro_torch.kernels.flash_decode.paged import (
     can_flash_decode_paged,
     flash_decode_paged,
 )
+from repro_torch.kernels.gmm import ref as gmm_ref
 from repro_torch.kernels.gmm.ragged import (
     can_gmm,
     gmm_dual_act_gather,
@@ -70,8 +80,116 @@ __all__ = [
     "expert_ffn_from_rows",
 ]
 
-attend = flash_attention
 decode_attend_paged = flash_decode_paged
+
+
+# ---------------------------------------------------------------------------
+# autograd: kernel forward, recomputed plain backward
+# ---------------------------------------------------------------------------
+
+def _plain_grads(fctx, plain, inputs, ct):
+    """The gradients of ``plain(*inputs)`` against the cotangent ``ct``, for
+    the inputs whose ``needs_input_grad`` is set (None for the others): the
+    plain version is recomputed on detached copies under autograd."""
+    need = fctx.needs_input_grad[: len(inputs)]
+    leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, need)]
+    with torch.enable_grad():
+        out = plain(*leaves)
+    wanted = [t for t, n in zip(leaves, need) if n]
+    grads = iter(torch.autograd.grad(out, wanted, ct, allow_unused=True) if wanted else ())
+    return tuple(next(grads) if n else None for n in need)
+
+
+class _ExpertFFN(torch.autograd.Function):
+    """``expert_ffn`` (the reference's ``_ffn_kernel``): the ragged pair
+    forward; the backward through ``ref.expert_ffn_ragged``."""
+
+    @staticmethod
+    def forward(fctx, x, wg, wu, wd, group_sizes, gpw: int):
+        fctx.save_for_backward(x, wg, wu, wd, group_sizes)
+        fctx.gpw = gpw
+        h = gmm_dual_act_ragged(x, wg, wu, group_sizes, gpw)
+        return gmm_ragged(h, wd, group_sizes, gpw)
+
+    @staticmethod
+    def backward(fctx, ct):
+        x, wg, wu, wd, gs = fctx.saved_tensors
+        grads = _plain_grads(
+            fctx, lambda a, b, c, d: gmm_ref.expert_ffn_ragged(a, b, c, d, gs, fctx.gpw),
+            (x, wg, wu, wd), ct)
+        return (*grads, None, None)
+
+
+def _gather_plain(x, wg, wu, wd, offsets, group_sizes, capacity: int, gpw: int):
+    """The padded-output flat-row FFN in plain torch: (R, D) -> (G,
+    capacity, D_out), zero tails (the reference's ``expert_ffn_gather_ref``)."""
+    h = gmm_ref.gmm_dual_act_gather(x, wg, wu, offsets, group_sizes, capacity, gpw)
+    return gmm_ref.gmm_ragged(h, wd, group_sizes, gpw)
+
+
+def _gather_kernels(x, wg, wu, wd, offsets, group_sizes, capacity: int, gpw: int):
+    h = gmm_dual_act_gather(x, wg, wu, offsets, group_sizes, capacity, gpw)
+    return gmm_ragged(h, wd, group_sizes, gpw)
+
+
+def _compact_kernels(x, wg, wu, wd, offsets, group_sizes, capacity: int, gpw: int):
+    h = gmm_dual_act_gather(x, wg, wu, offsets, group_sizes, capacity, gpw)
+    return gmm_scatter(h, wd, offsets, group_sizes, x.shape[0], gpw)
+
+
+class _RowsFFN(torch.autograd.Function):
+    """One flat-row form of ``expert_ffn_from_rows``: ``fwd`` its kernels
+    (the reference's ``_ffn_gather_kernel``, ``_ffn_compact_kernel`` or
+    ``_ffn_fused_kernel``), ``plain`` its plain version for the backward.
+    Rows of a compact output outside the live segments are unspecified
+    (they may hold NaN), so only the inputs are saved; the plain scatter's
+    backward reads the cotangent at live rows only."""
+
+    @staticmethod
+    def forward(fctx, x, wg, wu, wd, offsets, group_sizes, capacity: int, gpw: int,
+                fwd, plain):
+        fctx.save_for_backward(x, wg, wu, wd, offsets, group_sizes)
+        fctx.args = (capacity, gpw, plain)
+        return fwd(x, wg, wu, wd, offsets, group_sizes, capacity, gpw)
+
+    @staticmethod
+    def backward(fctx, ct):
+        x, wg, wu, wd, offs, gs = fctx.saved_tensors
+        cap, gpw, plain = fctx.args
+        grads = _plain_grads(
+            fctx, lambda a, b, c, d: plain(a, b, c, d, offs, gs, cap, gpw),
+            (x, wg, wu, wd), ct)
+        return (*grads, None, None, None, None, None, None)
+
+
+class _Attend(torch.autograd.Function):
+    """``attend`` (the reference's ``_attend_kernel``): ``flash_attention``
+    forward; the backward through ``models.attention.chunked_gqa_attend``,
+    the online-softmax plain attention, as the reference's is."""
+
+    @staticmethod
+    def forward(fctx, q, k, v, causal: bool, window: int):
+        fctx.save_for_backward(q, k, v)
+        fctx.args = (causal, window)
+        return flash_attention(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(fctx, ct):
+        from repro_torch.models.attention import chunked_gqa_attend  # import cycle
+
+        causal, window = fctx.args
+        grads = _plain_grads(
+            fctx, lambda q, k, v: chunked_gqa_attend(q, k, v, causal, window),
+            fctx.saved_tensors, ct)
+        return (*grads, None, None)
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+           window: int = 0) -> torch.Tensor:
+    """Flash GQA attention, q (B, S, H, hd), k/v (B, T, K, hd) -> (B, S, H,
+    hd), queries at the tail of the key range (``flash_attention``);
+    differentiable."""
+    return _Attend.apply(q, k, v, causal, window)
 
 
 def expert_ffn(
@@ -83,9 +201,8 @@ def expert_ffn(
     groups_per_weight: int = 1,
 ) -> torch.Tensor:
     """Grouped SwiGLU expert FFN; rows past each group's count are zero and
-    cost no weight traffic on the card."""
-    h = gmm_dual_act_ragged(x, wg, wu, group_sizes, groups_per_weight)
-    return gmm_ragged(h, wd, group_sizes, groups_per_weight)
+    cost no weight traffic on the card. Differentiable."""
+    return _ExpertFFN.apply(x, wg, wu, wd, group_sizes, groups_per_weight)
 
 
 def can_gmm_gather(capacity: int, d: int, f: int, dtype: torch.dtype) -> bool:
@@ -136,22 +253,25 @@ def expert_ffn_from_rows(
     ``collectives.combine_from_rows``). ``fused=True`` (requires
     ``compact_out``) runs the three products as one kernel when
     :func:`can_gmm_fused` admits the shapes, and the gather + scatter pair
-    otherwise — the reference's decision at every shape."""
+    otherwise — the reference's decision at every shape. Differentiable
+    (the fused form's backward is the pair's plain math, as the
+    reference's)."""
     if fused and not compact_out:
         raise ValueError(
             "expert_ffn_from_rows: fused=True requires compact_out=True — the "
             "one-kernel path always emits the flat compact layout"
         )
-    gpw = groups_per_weight
     offsets = offsets.to(torch.int32)
     group_sizes = group_sizes.to(torch.int32)
     if fused and can_gmm_fused(capacity, x.shape[-1], wg.shape[-1], x.dtype,
                                wd.shape[-1]):
-        return gmm_fused_ffn(x, wg, wu, wd, offsets, group_sizes, capacity, gpw)
-    h = gmm_dual_act_gather(x, wg, wu, offsets, group_sizes, capacity, gpw)
-    if compact_out:
-        return gmm_scatter(h, wd, offsets, group_sizes, x.shape[0], gpw)
-    return gmm_ragged(h, wd, group_sizes, gpw)
+        fwd, plain = gmm_fused_ffn, gmm_ref.gmm_fused_ffn
+    elif compact_out:
+        fwd, plain = _compact_kernels, gmm_ref.expert_ffn_compact
+    else:
+        fwd, plain = _gather_kernels, _gather_plain
+    return _RowsFFN.apply(x, wg, wu, wd, offsets, group_sizes, capacity,
+                          groups_per_weight, fwd, plain)
 
 
 def decode_attend(

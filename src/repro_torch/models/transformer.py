@@ -23,8 +23,14 @@ batch split over the data axis), with its shard of the dense cache or of
 the paged pool (``parallel.sharding``); the EP prefill splits the sequence
 over the model axis inside ``ep_moe_shardmap`` and gathers it back there.
 The prefill lane's chunk is the same on every rank (the reference's
-``chunk_specs`` replicate it). The other patterns under a mesh, and the
-training forward, come with later slices.
+``chunk_specs`` replicate it). The other patterns under a mesh come with a
+later slice.
+
+``forward`` is the training pass over the whole causal sequence, for
+every block pattern, on one process (training under a mesh is ROADMAP
+Queue 1 item 7b). With ``ctx.remat`` each layer body runs under
+``torch.utils.checkpoint``, where the reference checkpoints its scan
+bodies.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -59,6 +66,16 @@ from repro_torch.parallel.ctx import NO_MESH, ParallelCtx
 
 XLSTM_UNIT_M = 3  # mLSTM blocks per unit (then 1 sLSTM)
 PATTERNS = ("attn", "zamba", "xlstm", "encdec")
+
+
+def check_train_mesh(ctx: ParallelCtx) -> None:
+    """Training runs on one process so far."""
+    if ctx.mesh is not None:
+        raise NotImplementedError(
+            "training under a mesh is not ported yet (ROADMAP Queue 1 item 7b: "
+            "data-parallel gradient reduction, the EP and ESP backward through "
+            "the all-to-all and the reduce-scatter, the state's shardings)"
+        )
 
 
 def check_mesh(cfg: ModelConfig, ctx: ParallelCtx) -> None:
@@ -358,6 +375,20 @@ def _xlstm(params, x, cache, cfg):
     return x
 
 
+def _layer(body, ctx: ParallelCtx, *args):
+    """One layer body, under ``torch.utils.checkpoint`` with ``ctx.remat``
+    (the backward then recomputes it)."""
+    if ctx.remat:
+        return checkpoint(body, *args, use_reentrant=False)
+    return body(*args)
+
+
+def _enc_block(p, x, cfg, ctx):
+    h = x + attention(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg, ctx,
+                      causal=False)
+    return h + mlp_apply(p["mlp"], rms_norm(h, p["ln2"], cfg.norm_eps))
+
+
 def _encode(params, embeds, cfg, ctx):
     """The encoder over the frontend embeds, then its final norm. The
     embeds go in uncast, as in the reference: fp32 embeds with bf16
@@ -366,10 +397,7 @@ def _encode(params, embeds, cfg, ctx):
     so that ``flash_attention`` (non-causal) sees it."""
     mem = embeds
     for l in range(cfg.n_encoder_layers):
-        p = layer_view(params["encoder"], l)
-        h = mem + attention(p["attn"], rms_norm(mem, p["ln1"], cfg.norm_eps), cfg, ctx,
-                            causal=False)
-        mem = h + mlp_apply(p["mlp"], rms_norm(h, p["ln2"], cfg.norm_eps))
+        mem = _layer(_enc_block, ctx, layer_view(params["encoder"], l), mem, cfg, ctx)
     return rms_norm(mem, params["enc_norm"], cfg.norm_eps)
 
 
@@ -395,6 +423,100 @@ def _decoder(params, x, cache, cfg, ctx, pos=None, positions=None, mem=None):
         # the reference's scan output: the memory's dtype, whatever the cache's
         cache["cross_kv"] = (torch.stack(ks), torch.stack(vs))
     return x
+
+
+# ---------------------------------------------------------------------------
+# forward (train): the full causal sequence -> logits
+# ---------------------------------------------------------------------------
+
+def _attn_block(p, x, cfg, ctx, positions):
+    h = x + attention(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg, ctx, positions)
+    y, aux = _block_ffn(p, rms_norm(h, p["ln2"], cfg.norm_eps), cfg, ctx, None, None)
+    return h + y, aux
+
+
+def _dec_block(p, x, mem, cfg, ctx, positions):
+    kv = cross_kv(p["xattn"], mem, cfg)
+    h = x + attention(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg, ctx, positions)
+    h = h + cross_attention(p["xattn"], rms_norm(h, p["ln_x"], cfg.norm_eps), kv, cfg)
+    return h + mlp_apply(p["mlp"], rms_norm(h, p["ln2"], cfg.norm_eps))
+
+
+def _residual(apply, key: str):
+    """A residual recurrent block from a zero state: ``h + apply(p[key],
+    norm(h))``."""
+    def body(p, h, cfg):
+        return h + apply(p[key], rms_norm(h, p["ln"], cfg.norm_eps), cfg)[0]
+    return body
+
+
+_mamba_layer = _residual(ssm.mamba_apply, "mamba")
+_mlstm_layer = _residual(ssm.mlstm_apply, "m")
+_slstm_layer = _residual(ssm.slstm_apply, "s")
+
+
+def _zamba_unit(p_unit, h, shared, cfg, ctx, positions):
+    for j in range(cfg.attn_every):
+        h = _layer(_mamba_layer, ctx, layer_view(p_unit, j), h, cfg)
+    h = h + attention(shared["attn"], rms_norm(h, shared["ln1"], cfg.norm_eps), cfg, ctx,
+                      positions)
+    return h + mlp_apply(shared["mlp"], rms_norm(h, shared["ln2"], cfg.norm_eps))
+
+
+def _xlstm_unit(p_unit, h, cfg, ctx):
+    for j in range(XLSTM_UNIT_M):
+        h = _layer(_mlstm_layer, ctx, layer_view(p_unit["m"], j), h, cfg)
+    return _slstm_layer(p_unit["s"], h, cfg)
+
+
+def forward(params, tokens: torch.Tensor, cfg: ModelConfig, ctx: ParallelCtx = NO_MESH,
+            embeds: torch.Tensor | None = None):
+    """Full-sequence causal forward (training): ``(logits (B, S, V), aux)``
+    with ``aux`` the MoE ``loss`` and ``counts`` summed over the layers
+    (zeros without MoE). ``embeds``: the frontend stub's, prepended (vlm;
+    the logits cover only the token positions) or encoded (enc-dec,
+    required). Recurrent blocks start from their zero states, as the
+    reference's forward does. One process only (:func:`check_train_mesh`)."""
+    check_train_mesh(ctx)
+    pat = cfg.block_pattern
+    if pat not in PATTERNS:
+        raise ValueError(pat)
+    x = _embed(params, tokens)
+    b, s, _ = x.shape
+    aux = zero_aux(cfg, x.device)
+    if pat == "encdec":
+        if embeds is None:
+            raise ValueError("an encoder-decoder forward needs the frontend embeds")
+        mem = _encode(params, embeds, cfg, ctx)
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        for l in range(cfg.n_layers):
+            x = _layer(_dec_block, ctx, layer_view(params["layers"], l), x, mem, cfg, ctx,
+                       positions)
+        return _logits(params, x, cfg), aux
+    n_front = 0
+    if cfg.frontend_stub and embeds is not None:
+        n_front = embeds.shape[1]
+        x = torch.cat([embeds.to(x.dtype), x], dim=1)
+        s = x.shape[1]
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    if pat == "attn":
+        for l in range(cfg.n_layers):
+            x, a = _layer(_attn_block, ctx, layer_view(params["layers"], l), x, cfg, ctx,
+                          positions)
+            aux = {k: aux[k] + a[k] for k in aux}
+    elif pat == "zamba":
+        u, r = zamba_layout(cfg)
+        for i in range(u):
+            x = _layer(_zamba_unit, ctx, layer_view(params["units"], i), x,
+                       params["shared"], cfg, ctx, positions)
+        for j in range(r):
+            x = _layer(_mamba_layer, ctx, layer_view(params["trailing"], j), x, cfg)
+    else:
+        for i in range(cfg.n_layers // (XLSTM_UNIT_M + 1)):
+            x = _layer(_xlstm_unit, ctx, layer_view(params["units"], i), x, cfg, ctx)
+    if n_front:
+        x = x[:, n_front:]
+    return _logits(params, x, cfg), aux
 
 
 # ---------------------------------------------------------------------------

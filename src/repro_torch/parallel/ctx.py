@@ -19,6 +19,11 @@ data rank (the prefill lane's chunk, a batch-1 admission prefill, a batch
 that does not divide the data axis): the reference's eligibility tests see
 them as a batch that does not divide ``n_batch``.
 
+``remat`` is the reference's switch for training: ``T.forward`` runs each
+layer body under ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint`` of its scan bodies), so the backward recomputes the
+layer's forward, kernels included, instead of keeping its activations.
+
 ``use_kernels`` decides, per tensor, whether a hot-path call launches its
 hand-written CUDA kernel or runs the plain PyTorch version:
 
@@ -52,6 +57,9 @@ class ParallelCtx:
     seq_parallel_kv: bool = True
     # the operands' batch rows are the same on every data rank
     batch_replicated: bool = False
+    # training: recompute each layer's activations in the backward
+    # (``torch.utils.checkpoint``) instead of keeping them
+    remat: bool = False
 
     def __post_init__(self):
         if self.use_kernels not in ("auto", True, False):

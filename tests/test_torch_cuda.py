@@ -958,3 +958,95 @@ def test_cuda_family_small_model(cuda_device, arch):
 
     launched = chip_smoke.small_family_parity(torch, arch)
     assert bool(launched) == (arch != "xlstm-350m")
+
+
+# ---------------------------------------------------------------------------
+# autograd through the registry (training): kernel forward, plain backward
+# ---------------------------------------------------------------------------
+
+def _registry_case(dev, dtype, form, gen):
+    """(inputs, registry call, plain call, live rows of the output or None)
+    of one registry form at small shapes the kernels take."""
+    from repro_torch.kernels import registry as R
+    from repro_torch.models.attention import chunked_gqa_attend
+
+    if form == "attend":
+        q = _rand(gen, dev, dtype, 2, 64, 4, 32)
+        k, v = (_rand(gen, dev, dtype, 2, 64, 2, 32) for _ in range(2))
+        return ((q, k, v), lambda *a: R.attend(*a, causal=True, window=16),
+                lambda *a: chunked_gqa_attend(*a, True, 16), None)
+    g, d, f = 6, 64, 96
+    ws = (_rand(gen, dev, dtype, g // 2, d, f, scale=0.1),
+          _rand(gen, dev, dtype, g // 2, d, f, scale=0.1),
+          _rand(gen, dev, dtype, g // 2, f, d, scale=0.1))
+    if form == "ragged":
+        x = _rand(gen, dev, dtype, g, 24, d)
+        gs = torch.tensor([0, 24, 5, 17, 1, 3], dtype=torch.int32, device=dev)
+        return ((x, *ws), lambda *a: R.expert_ffn(*a, gs, 2),
+                lambda *a: gmm_ref.expert_ffn_ragged(*a, gs, 2), None)
+    cap = 24
+    counts = [0, cap, 5, cap + 3, 1, 3]
+    offsets, r, live = _flat_layout(dev, counts, 2, cap)
+    gs = torch.tensor([min(c, cap) for c in counts], dtype=torch.int32, device=dev)
+    x = _rand(gen, dev, dtype, r, d)
+    kw = dict(capacity=cap, groups_per_weight=2, compact_out=form != "gather",
+              fused=form == "fused")
+    plain = {"gather": lambda *a: gmm_ref.gmm_ragged(
+                 gmm_ref.gmm_dual_act_gather(*a[:3], offsets, gs, cap, 2), a[3], gs, 2),
+             "compact": lambda *a: gmm_ref.expert_ffn_compact(*a, offsets, gs, cap, 2),
+             "fused": lambda *a: gmm_ref.gmm_fused_ffn(*a, offsets, gs, cap, 2)}[form]
+    return ((x, *ws), lambda *a: R.expert_ffn_from_rows(*a, offsets, gs, **kw), plain,
+            None if form == "gather" else live)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("form", ["ragged", "gather", "compact", "fused", "attend"])
+def test_cuda_registry_grads_match_plain(cuda_device, dtype, tol, form):
+    """Each registry entry on CUDA tensors that require grad returns an
+    output with a ``grad_fn`` (the CUDA kernel forward, one launch), and
+    its output and its gradients for every float input equal those of the
+    plain path's autograd within the run's limit; the backward launches no
+    kernel. The plain path of attention is the online-softmax
+    ``chunked_gqa_attend`` (the plain attention beyond
+    ``CHUNKED_KV_THRESHOLD`` and the reference's backward rule): in bf16
+    its gradients part from the masked softmax's by about the bf16 limit
+    (a bf16 accumulator and normaliser), so they are held to the rule the
+    Function declares."""
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention as fa
+
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    inputs, kernel, plain, live = _registry_case(cuda_device, dtype, form, gen)
+    rows = slice(None) if live is None else live
+    kern = {"attend": fa, "ragged": gmm_ragged, "gather": gmm_dual_act_gather,
+            "compact": gmm_scatter, "fused": gmm_fused_ffn}[form]
+    tin = [t.clone().requires_grad_() for t in inputs]
+    before = kern.launches
+    out = kernel(*tin)
+    assert out.grad_fn is not None, form
+    assert kern.launches == before + 1
+    ct = torch.randn(out.shape, generator=gen, device=cuda_device).to(dtype)
+    if live is not None:
+        ct[~live] = 0
+    grads = torch.autograd.grad(out, tin, ct)
+    assert kern.launches == before + 1           # the backward is plain
+    pin = [t.clone().requires_grad_() for t in inputs]
+    want = plain(*pin)
+    want_grads = torch.autograd.grad(want, pin, ct)
+    _check(out[rows], want[rows], tol)
+    for got, w in zip(grads, want_grads):
+        _check(got, w, tol)
+
+
+@pytest.mark.cuda
+def test_cuda_no_registry_output_loses_its_graph(cuda_device):
+    """Every differentiable registry entry, on CUDA tensors that require
+    grad, in fp32 and bf16, returns an output with a ``grad_fn``: no
+    gradient through a kernel on the card is silently dropped."""
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    for dtype in (torch.float32, torch.bfloat16):
+        for form in ("ragged", "gather", "compact", "fused", "attend"):
+            inputs, kernel, _, _ = _registry_case(cuda_device, dtype, form, gen)
+            for i in range(len(inputs)):
+                tin = [t.clone().requires_grad_(j == i) for j, t in enumerate(inputs)]
+                assert kernel(*tin).grad_fn is not None, (form, dtype, i)

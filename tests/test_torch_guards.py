@@ -58,7 +58,8 @@ def test_port_imports_neither_jax_nor_repro():
                 "configs/deepseek_7b.py", "configs/qwen2_72b.py",
                 "configs/tinyllama_1_1b.py", "configs/internvl2_76b.py",
                 "configs/seamless_m4t_medium.py", "configs/zamba2_1_2b.py",
-                "configs/xlstm_350m.py"):
+                "configs/xlstm_350m.py", "runtime/train.py", "runtime/optimizer.py",
+                "runtime/data.py", "launch/train.py"):
         assert f"src/repro_torch/{mod}" in names
 
 
@@ -102,6 +103,13 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
     with pytest.raises(RuntimeError, match="cuda"):
         launch.main(["--arch", "dbrx-132b", "--smoke"])
+    from repro_torch.launch import train as train_cli
+    from repro_torch.runtime.train import init_state
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_state(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_cli.main(["--arch", "dbrx-132b", "--smoke", "--steps", "1"])
 
 
 def test_kernel_request_on_cpu_tensor_raises():

@@ -257,7 +257,9 @@ def test_mha_plain_matches_jax_and_pallas(s, t, window, causal):
     got = flash_attention(_t(q), _t(k), _t(v), causal=causal, window=window).numpy()
     np.testing.assert_allclose(got, want, **TOL)
     np.testing.assert_allclose(got, kern, **TOL)
-    assert registry.attend is flash_attention
+    # the registry's attend is flash_attention under its autograd Function
+    assert torch.equal(registry.attend(_t(q), _t(k), _t(v), causal=causal, window=window),
+                       torch.tensor(got))
     assert torch.equal(torch.tensor(got), fa_ref.mha(_t(q), _t(k), _t(v), causal, window))
 
 
