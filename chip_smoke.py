@@ -12,7 +12,11 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    with ptxas's registers and spills of each (a spill in a ``wgmma`` body,
    the decode GMM body or a bf16 body of ``gmm_fused_ffn`` fails the run),
    and the decode gates' and the fused bodies' shared-memory counts held
-   against the kernels';
+   against the kernels'; then the analytic model's fast paper figures
+   (``repro_torch.figures`` fig06 through fig14b: numpy on the host, no
+   kernel) on this machine's Python and numpy, each returning rows with a
+   finite, positive ``us_per_call`` (modelled times of the paper's
+   platforms, not of this card), and the phase's wall seconds;
 2. small fp32 models served on the card with the kernels and with the
    plain path: the greedy tokens must agree. One serves EP with the
    balancer on the paged cache, the other ESP on the dense cache with its
@@ -183,7 +187,8 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    redesigned body beside the time of the body it replaced (the two bf16
    bodies of ``gmm_fused_ffn`` also beside the kernel pair, timed in the
    same run, and their share of the bound);
-6. a ``{"kernels": [...]}`` line (thirteen entries, each partials mode
+6. an ``{"analytic_figures": ...}`` line (phase 1's rows), a
+   ``{"kernels": [...]}`` line (thirteen entries, each partials mode
    apart), the card line, and the final ``{"ok": true, "device": {...}}``
    line.
 
@@ -3621,6 +3626,31 @@ def training_path(torch, card: str) -> dict:
 
 # ---------------------------------------------------------------------------
 
+FAST_FIGURES = ("fig06_comm_imbalance", "fig13a_token_count", "fig13b_models",
+                "fig13c_scale_parallelism", "fig13d_her", "fig14a_esp", "fig14b_allgather")
+
+
+def analytic_figures() -> dict:
+    """Phase 1's analytic model: the fast paper figures' rows (fig15-17,
+    about 40 s of host time over load traces, are held by the CPU tests).
+    Every figure must return rows, each with a finite, positive
+    ``us_per_call``; nothing is caught."""
+    import importlib
+
+    t0 = time.perf_counter()
+    figures = {}
+    for name in FAST_FIGURES:
+        rows = importlib.import_module(f"repro_torch.figures.{name}").run()
+        if not rows:
+            raise AssertionError(f"analytic figure {name} returned no rows")
+        for r in rows:
+            us = r["us_per_call"]
+            if not (isinstance(us, float) and math.isfinite(us) and us > 0):
+                raise AssertionError(f"analytic figure {name}: {r}")
+        figures[name] = rows
+    return {"seconds": time.perf_counter() - t0, "figures": figures}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.parse_args(argv)
@@ -3711,6 +3741,10 @@ def main(argv=None) -> int:
         f"{decode_smem(6, 128, torch.float32)} B (fp32) of dynamic shared memory, "
         "as the gates count it")
 
+    analytic = analytic_figures()
+    log(f"analytic model: {sum(len(r) for r in analytic['figures'].values())} rows of "
+        f"{len(analytic['figures'])} figures (fig06-fig14b) in {analytic['seconds']:.3f} s, "
+        f"every us_per_call finite and positive")
     migs = small_parity(torch)
     log(f"small fp32 model on the card: kernel and plain greedy tokens agree "
         f"(migrations {migs})")
@@ -4165,6 +4199,7 @@ def main(argv=None) -> int:
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
             "shape": c["shape"], **extra,
         })
+    print(json.dumps({"analytic_figures": analytic}), flush=True)
     print(json.dumps({"kernels": entries, "run": run, "run_esp": esp_run,
                       "run_mesh": mesh_run, "run_scheduler": sched_run,
                       "run_chunked": chunk_run,

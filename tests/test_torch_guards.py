@@ -59,8 +59,18 @@ def test_port_imports_neither_jax_nor_repro():
                 "configs/tinyllama_1_1b.py", "configs/internvl2_76b.py",
                 "configs/seamless_m4t_medium.py", "configs/zamba2_1_2b.py",
                 "configs/xlstm_350m.py", "runtime/train.py", "runtime/optimizer.py",
-                "runtime/data.py", "launch/train.py"):
+                "runtime/data.py", "launch/train.py", "core/hardware.py",
+                "core/comm_model.py", "core/ftd.py", "core/workloads.py", "core/traces.py",
+                "core/simulator.py", "figures/run.py", "figures/common.py"):
         assert f"src/repro_torch/{mod}" in names
+
+
+def test_port_states_no_tpu_platform():
+    """The analytic model's platforms are the paper's (WSC, DGX, NVL72):
+    the reference's TPU constants are not copied."""
+    for path in _port_files():
+        text = path.read_text()
+        assert "TPU_V5E" not in text and "TPU_POD" not in text, path
 
 
 def test_port_runs_with_jax_unimportable():
@@ -87,6 +97,43 @@ def test_port_runs_with_jax_unimportable():
                          text=True, env=env, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
+
+
+def _run_figures(code: str) -> subprocess.CompletedProcess:
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, timeout=120)
+
+
+def test_figures_run_with_jax_unimportable():
+    res = _run_figures(
+        "import runpy, sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
+        "sys.argv = ['run', 'fig06']\n"
+        "try:\n"
+        "    runpy.run_module('repro_torch.figures.run', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "assert 'jax' not in [m for m, v in sys.modules.items() if v is not None]\n")
+    assert res.returncode == 0, res.stderr
+    lines = res.stdout.splitlines()
+    assert lines[0] == "name,us_per_call,derived"
+    assert len(lines) == 9 and all(line.startswith("fig06/") for line in lines[1:])
+
+
+def test_figures_runner_fails_on_a_failing_figure():
+    """A figure that raises stops the runner with a non-zero exit and no
+    row for it (the reference's runner prints an ERROR row and exits 0)."""
+    res = _run_figures(
+        "import sys\n"
+        "from repro_torch.figures import fig13b_models, run\n"
+        "def broken():\n"
+        "    raise ZeroDivisionError('broken figure')\n"
+        "fig13b_models.run = broken\n"
+        "sys.exit(run.main(['fig13a', 'fig13b', 'fig13c']))\n")
+    assert res.returncode != 0
+    assert "ZeroDivisionError: broken figure" in res.stderr
+    assert "fig13b" not in res.stdout and "ERROR" not in res.stdout
+    assert "fig13a/" in res.stdout and "fig13c/" not in res.stdout
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
