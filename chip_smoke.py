@@ -136,6 +136,24 @@ Phases (one line each; any failure raises and the exit code is non-zero):
       the reference CLI's defaults (losses finite, logged; 16
       ``flash_attention`` launches a step), and its ``--steps 3
       --use-kernels off`` losses equal to the first three.
+   i. the kernel bench, the dry run and the roofline: (a) the
+      bench's ``--smoke`` cells of its five families
+      (``repro_torch.benchmarks.bench_kernels``: the six FFN paths, dense
+      and paged decode, stepped migration, the chunked-admission lane,
+      the chunked EP dispatch) on the card through the kernels, every
+      parity check held and every kernel path launching its kernels;
+      (b) the reference's full shape lists of the five families, 20
+      iterations, one line a family with each path's wall and CUDA-event
+      ms and the kernels it launched; (c) ``check_baseline`` against the
+      committed ``BENCH_kernels.json`` (read only), 0 mismatches; (d) in
+      a subprocess (the dry run's fake world of ranks cannot share this
+      process with the NCCL group), the dry run of llama3.2-1b cut to 2
+      layers at ``decode_32k`` on a 2 x 4 test mesh and of dbrx-132b at
+      ``decode_32k`` on the ER 16 x 16 mesh at full depth, each cell's
+      status, FLOPs, argument, temp and collective GB and wall seconds
+      (host only, fake tensors: no memory on the card); (e) the
+      roofline's rows over those records (model output at the H100's
+      datasheet constants, not measurements).
    The expert groups' row counts (and offsets) of layer 0 in one prefill
    and one decode tick of 3a-3c and of 3f's ESP run are kept for phases
    4-5 (the EP path's dispatched buckets too);
@@ -2960,11 +2978,9 @@ FAMILY_RUNS = {"qwen2-72b": (4, False), "internvl2-76b": (4, True),
 
 def all_kernels():
     """Every kernel wrapper of the port (thirteen, each partials mode apart)."""
-    from repro_torch.kernels.flash_decode.flash_decode import flash_decode, flash_decode_partials
-    from repro_torch.kernels.gmm import ragged as K
+    from repro_torch.benchmarks.bench_kernels import kernel_wrappers
 
-    return (*ep_kernels(), K.gmm_dual_act_gather, K.gmm_scatter, K.gmm_fused_ffn,
-            flash_decode, flash_decode_partials, *op_layer_kernels())
+    return kernel_wrappers()
 
 
 def family_launches(cfg, paged: bool, n_new: int) -> dict:
@@ -3150,6 +3166,203 @@ def family_path(torch, arch: str, card: str) -> dict:
 
 # ---------------------------------------------------------------------------
 # phase 3h: training on one process
+# ---------------------------------------------------------------------------
+# phase 3i: the kernel bench, the dry run and the roofline
+# ---------------------------------------------------------------------------
+
+# the bench's FFN paths and the kernels each must launch (the einsum path
+# is plain); fp32 at the bench's widths takes gmm_fused_ffn's FMA body
+BENCH_FFN_KERNELS = {
+    "einsum_padded_dispatch": set(),
+    "gmm_padded_dispatch": {"gmm_dual_act", "gmm"},
+    "gmm_ragged_padded_dispatch": {"gmm_dual_act_ragged", "gmm_ragged"},
+    "gmm_gather_fused_dispatch": {"gmm_dual_act_gather", "gmm_ragged"},
+    "gmm_compact_fused_combine": {"gmm_dual_act_gather", "gmm_scatter"},
+    "gmm_fused_ffn_combine": {"gmm_fused_ffn"},
+}
+# (name, arch, layers kept (None: all), shape, mesh) of the dry-run cells
+DRYRUN_CELLS = (("llama3.2-1b 2 layers, 2 x 4 test mesh", "llama3.2-1b", 2, "decode_32k",
+                 "test"),
+                ("dbrx-132b, ER 16 x 16", "dbrx-132b", None, "decode_32k", "single"))
+
+
+def bench_families(iters: int, smoke: bool) -> dict:
+    """The kernel bench's five families on the card; every parity check
+    of the bench raises on a failure."""
+    from repro_torch.benchmarks import bench_kernels as B
+
+    out = {}
+    for fam, fn, kw in (("ffn", B.run, {"smoke": smoke}),
+                        ("decode", B.run_decode, {"smoke": smoke}),
+                        ("migration", B.run_migration, {"smoke": smoke}),
+                        ("prefill", B.run_prefill, {"smoke_mode": smoke}),
+                        ("ep_chunk", B.run_ep_chunk, {"smoke": smoke})):
+        t0 = time.perf_counter()
+        out[fam] = {"rows": fn(iters=iters, device="cuda", **kw),
+                    "seconds": time.perf_counter() - t0}
+    return out
+
+
+def bench_timings(fam: str, rows: list) -> list[str]:
+    """One entry a timed path of a family's rows: wall and CUDA-event ms
+    and the kernels it launched."""
+    out = []
+    for r in rows:
+        if fam in ("ffn", "decode"):
+            for p, c in r["paths"].items():
+                out.append(f"{r['shape']}/{p} {c['wall_ms']:.3f}/{c['event_ms']:.4f} ms "
+                           f"{c['launches']}")
+        elif fam == "migration":
+            out.append(f"{r['shape']} step {r['step_wall_ms']:.3f}/{r['step_event_ms']:.4f} "
+                       f"ms, step + slice {r['step_plus_slice_wall_ms']:.3f}/"
+                       f"{r['step_plus_slice_event_ms']:.4f} ms {r['launches']}")
+        elif fam == "prefill":
+            out.append(f"{r['shape']} decode {r['decode_wall_ms']:.3f}/"
+                       f"{r['decode_event_ms']:.4f} ms, + chunk "
+                       f"{r['decode_plus_chunk_wall_ms']:.3f}/"
+                       f"{r['decode_plus_chunk_event_ms']:.4f} ms {r['launches']}")
+        else:
+            for kk, c in r["chunks"].items():
+                out.append(f"{r['shape']}/K={kk} {c['wall_ms']:.3f}/{c['event_ms']:.4f} ms "
+                           f"{c['launches']}")
+    return out
+
+
+def check_bench_launches(runs: dict, what: str) -> None:
+    """Every kernel path of the FFN, decode, migration and prefill families
+    launched its kernels (and the plain einsum path none); the EP-chunk
+    family's are logged."""
+    for r in runs["ffn"]["rows"]:
+        for p, c in r["paths"].items():
+            if set(c["launches"]) != BENCH_FFN_KERNELS[p]:
+                raise AssertionError(f"{what} {r['shape']}/{p}: launched {c['launches']}, "
+                                     f"want {sorted(BENCH_FFN_KERNELS[p])}")
+    for r in runs["decode"]["rows"]:
+        for p, want in (("flash_decode_dense_masked", "flash_decode"),
+                        ("flash_decode_paged", "flash_decode_paged")):
+            if r["paths"][p]["launches"] != {want: 1}:
+                raise AssertionError(f"{what} {r['shape']}/{p}: launched "
+                                     f"{r['paths'][p]['launches']}")
+    for r in runs["migration"]["rows"]:
+        if r["launches"] != {"gmm_dual_act_ragged": r["L"], "gmm_ragged": r["L"]}:
+            raise AssertionError(f"{what} {r['shape']}: launched {r['launches']}")
+    for r in runs["prefill"]["rows"]:   # the decode lane's paged attention, a layer
+        if r["launches"] != {"flash_decode_paged": r["L"]}:
+            raise AssertionError(f"{what} {r['shape']}: launched {r['launches']}")
+
+
+def bench_launch_totals(runs: dict) -> dict:
+    """kernel -> {family/path: launches of one call}, over every path."""
+    totals: dict = {}
+
+    def add(where, launches):
+        for k, n in launches.items():
+            totals.setdefault(k, {})[where] = totals.get(k, {}).get(where, 0) + n
+
+    for fam, run in runs.items():
+        for r in run["rows"]:
+            if "paths" in r:
+                for p, c in r["paths"].items():
+                    add(f"{fam}/{p}", c["launches"])
+            elif "chunks" in r:
+                for kk, c in r["chunks"].items():
+                    add(f"{fam}/K={kk}", c["launches"])
+            else:
+                add(fam, r["launches"])
+    return totals
+
+
+def dryrun_cells(out_dir: str) -> None:
+    """The dry-run cells of phase 3i (d), one record file each; run in a
+    process of its own (``python3 -c``)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import dataclasses
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_test_mesh
+
+    Path(out_dir).mkdir(parents=True, exist_ok=True)
+    for i, (name, arch, layers, shape, mesh_kind) in enumerate(DRYRUN_CELLS):
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        if mesh_kind == "test":
+            D.fake_world(8)
+            rec = {"arch": arch, "shape": shape, "mesh": "2x4", "mapping": "none",
+                   **D.trace_cell(cfg, SHAPES[shape], make_test_mesh(2, 4)), "status": "OK"}
+        else:
+            rec = D.run_cell(arch, shape, mesh_kind, "er", cfg=cfg)
+        rec["cell"] = name
+        rec["t_total_s"] = time.perf_counter() - t0
+        (Path(out_dir) / f"{i}.json").write_text(json.dumps(rec))
+
+
+def kernel_bench_path(torch, card: str) -> dict:
+    """Phase 3i: (a) the bench's smoke cells, (b) its full shape lists,
+    (c) its ``--check``, (d) the dry run in a subprocess, (e) the
+    roofline over the dry run's records."""
+    import os
+
+    from repro_torch.benchmarks import bench_kernels as B
+    from repro_torch.figures import roofline
+
+    t_phase = time.perf_counter()
+    smoke_runs = bench_families(2, smoke=True)
+    check_bench_launches(smoke_runs, "phase 3i (a) smoke")
+    log("phase 3i (a) kernel bench smoke cells on the card, parity held in all five families: "
+        + "; ".join(f"{fam} {r['seconds']:.1f} s" for fam, r in smoke_runs.items())
+        + f" [{card}]")
+    full = bench_families(20, smoke=False)
+    check_bench_launches(full, "phase 3i (b)")
+    for fam, run in full.items():
+        log(f"phase 3i (b) kernel bench {fam} (best of 20, wall/CUDA-event ms, launches of "
+            f"one call; reference shapes, fp32, launch-bound): "
+            + "; ".join(bench_timings(fam, run["rows"])) + f" [{card}]")
+    failures = B.check_baseline(str(ROOT / "BENCH_kernels.json"))
+    if failures:
+        raise AssertionError(f"phase 3i (c): {len(failures)} mismatches against "
+                             f"BENCH_kernels.json: {failures[:5]}")
+    log("phase 3i (c) check_baseline(BENCH_kernels.json): 0 mismatches")
+    out_dir = ROOT / "results" / "torch" / "chip_smoke_dryrun"
+    for f in out_dir.glob("*.json"):
+        f.unlink()
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.dryrun_cells({str(out_dir)!r})"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    if res.returncode:
+        raise AssertionError(f"phase 3i (d): the dry run exited {res.returncode}: "
+                             f"{res.stderr[-3000:]}")
+    records = [json.loads(f.read_text()) for f in sorted(out_dir.glob("*.json"))]
+    for rec in records:
+        if rec["status"] != "OK" or not rec["collectives"]["total"] > 0:
+            raise AssertionError(f"phase 3i (d) {rec.get('cell')}: {rec['status']} "
+                                 f"{rec.get('error', '')[-1500:]}")
+        log(f"phase 3i (d) dry run {rec['cell']} {rec['shape']}: {rec['status']}, "
+            f"{rec['flops']:.4g} FLOP, arguments {rec['argument_size_in_bytes'] / 1e9:.3f} GB, "
+            f"temp {rec['temp_size_in_bytes'] / 1e9:.3f} GB, collectives "
+            f"{rec['collectives']['total'] / 1e9:.4f} GB "
+            f"({', '.join(f'{k} {v}' for k, v in rec['collective_calls'].items())} calls), "
+            f"{rec['t_total_s']:.1f} s (rank 0 of {rec['n_devices']}, fake tensors on the host)")
+    rows = [roofline.analyze_record(rec) for rec in records]
+    for rec, r in zip(records, rows):
+        log(f"phase 3i (e) roofline {rec['cell']} (model output at H100 datasheet constants, "
+            f"not measured): compute {r['t_compute_s'] * 1e3:.3f} ms, memory "
+            f"{r['t_memory_s'] * 1e3:.3f} ms, collective {r['t_collective_s'] * 1e3:.3f} ms, "
+            f"dominant {r['dominant']}, useful FLOP ratio {r['useful_ratio']:.3f}, roofline "
+            f"fraction {r['roofline_fraction']:.3f}, HBM/dev {r['hbm_per_device_gb']:.2f} GB"
+            + (" (the model FLOPs count the full 16 layers)" if "2 layers" in rec["cell"]
+               else ""))
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 3i: {seconds:.1f} s (dry run subprocess {time.perf_counter() - t0:.1f} s)")
+    return {"smoke": smoke_runs, "full": full, "launch_totals": bench_launch_totals(full),
+            "check_baseline_mismatches": 0, "dryrun": records, "roofline": rows,
+            "seconds": seconds}
+
+
 # ---------------------------------------------------------------------------
 
 # (a) arch, moe_impl of the small fp32 models trained with the kernels and
@@ -3819,6 +4032,9 @@ def main(argv=None) -> int:
     training = training_path(torch, card)
     gc.collect()
     torch.cuda.empty_cache()
+    bench = kernel_bench_path(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     op_launches, op_excess = op_layer_path(torch, groups, mesh_rows, card)
 
     timer = Timer(torch)
@@ -4184,6 +4400,7 @@ def main(argv=None) -> int:
                                                 if name == "flash_attention" else 0),
             **{f"small {what}, 3 steps": r["launches"].get(name, 0)
                for what, r in training["small"].items()}}
+        extra["launches_kernel_bench"] = bench["launch_totals"].get(name, {})
         if name in op_names:
             extra["launches_served_paths"] = {
                 "EP": launches[name], "ESP": esp_launches[name], "mesh": mesh_launches[name]}
@@ -4207,6 +4424,7 @@ def main(argv=None) -> int:
                                            "esp": esp_mesh_run},
                       "run_families": family_runs, "small_families": small_families,
                       "run_training": training,
+                      "run_kernel_bench": {k: v for k, v in bench.items() if k != "smoke"},
                       "op_layer_excess": op_excess}), flush=True)
     import torch.distributed as dist
 

@@ -1,11 +1,22 @@
 """Architecture registry: ``get_config(arch_id)`` for every ``--arch`` of the
-reference, in its order."""
+reference, in its order; the dry run's shape cells (``SHAPES``,
+``shapes_for``)."""
 
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig, smoke
+from repro_torch.configs.base import (
+    DECODE_32K,
+    LONG_500K,
+    PREFILL_32K,
+    SHAPES,
+    TRAIN_4K,
+    ModelConfig,
+    ShapeConfig,
+    shapes_for,
+    smoke,
+)
 
 _MODULES = {
     "llama3.2-1b": "llama3_2_1b",
@@ -30,4 +41,7 @@ def get_config(arch: str) -> ModelConfig:
     return mod.CONFIG
 
 
-__all__ = ["ARCHS", "ModelConfig", "get_config", "smoke"]
+__all__ = [
+    "ARCHS", "DECODE_32K", "LONG_500K", "PREFILL_32K", "SHAPES", "TRAIN_4K",
+    "ModelConfig", "ShapeConfig", "get_config", "shapes_for", "smoke",
+]

@@ -1,8 +1,8 @@
-"""Model configuration (copy of ``repro.configs.base``, cut to what the
-serving slice reads).
+"""Model and shape configuration (copy of ``repro.configs.base``).
 
-``ModelConfig`` fully describes an architecture; ``smoke()`` is the tiny
-same-family reduction the CPU tests run.
+``ModelConfig`` fully describes an architecture; ``ShapeConfig`` describes
+one (seq_len, global_batch, step-kind) workload cell of the dry run;
+``smoke()`` is the tiny same-family reduction the CPU tests run.
 """
 
 from __future__ import annotations
@@ -52,6 +52,82 @@ class ModelConfig:
     @property
     def moe_d_ff_(self) -> int:
         return self.moe_d_ff or self.d_ff
+
+    @property
+    def subquadratic(self) -> bool:
+        """Eligible for the long_500k cell (sub-quadratic decode)."""
+        return self.block_pattern in ("mamba", "zamba", "xlstm") or (
+            self.sliding_window > 0
+        )
+
+    def param_count(self) -> int:
+        """Approximate parameter count (embeddings + blocks)."""
+        d, h = self.d_model, self.head_dim_
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        attn = d * self.n_heads * h + 2 * d * self.n_kv_heads * h + self.n_heads * h * d
+        dense_mlp = 3 * d * self.d_ff if self.d_ff else 0
+        if self.is_moe:
+            mlp = self.n_experts * 3 * d * self.moe_d_ff_
+        else:
+            mlp = dense_mlp
+        if self.block_pattern == "mamba" or self.block_pattern == "zamba":
+            # Mamba2 block: in_proj (2*d_inner + heads...), rough 6*d^2.
+            mamba = 6 * d * d
+        else:
+            mamba = 0
+        per_layer = {
+            "attn": attn + mlp,
+            "encdec": attn + mlp,
+            "mamba": mamba,
+            "zamba": mamba,          # shared attn counted once below
+            "xlstm": 5 * d * d,
+        }[self.block_pattern]
+        total = emb + self.n_layers * per_layer
+        if self.block_pattern == "zamba":
+            total += attn + dense_mlp        # one shared attention block
+        if self.n_encoder_layers:
+            total += self.n_encoder_layers * (attn + dense_mlp)
+        return int(total)
+
+    def active_param_count(self) -> int:
+        """Activated params per token (MoE: only top-k experts)."""
+        if not self.is_moe:
+            return self.param_count()
+        d = self.d_model
+        full = self.param_count()
+        all_experts = self.n_layers * self.n_experts * 3 * d * self.moe_d_ff_
+        active = self.n_layers * self.experts_per_token * 3 * d * self.moe_d_ff_
+        return int(full - all_experts + active)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+
+def shapes_for(cfg: ModelConfig) -> list[ShapeConfig]:
+    """The shape cells applicable to an architecture. ``long_500k`` needs
+    sub-quadratic attention (an O(L^2) full-attention pass cannot fit the
+    524k context)."""
+    out = [TRAIN_4K, PREFILL_32K, DECODE_32K]
+    if cfg.subquadratic:
+        out.append(LONG_500K)
+    return out
 
 
 def smoke(cfg: ModelConfig) -> ModelConfig:

@@ -5,10 +5,9 @@
 prints ``name,us_per_call,derived``, one row per point, the rows of the
 reference's ``python -m benchmarks.run``; each argument selects the modules
 whose name contains it. The times are outputs of the analytic model for the
-paper's platforms (``repro_torch.core.hardware``), not measurements.
-
-``roofline`` is not here: it reads the dry-run cost probe's output, which
-comes with the kernel bench and the dry run (ROADMAP Queue 1 item 8). A
+paper's platforms (``repro_torch.core.hardware``), not measurements;
+``roofline``'s are model output at H100 datasheet constants over the dry
+run's records (``results/torch/dryrun``; no rows before a dry run). A
 figure that raises stops the run with its traceback and a non-zero exit,
 where the reference's runner prints an ``ERROR`` row and goes on; an
 argument that selects no module is refused.
@@ -31,6 +30,7 @@ MODULES = [
     "fig15_load_traces",
     "fig16_balancers",
     "fig17_nvl72",
+    "roofline",
 ]
 
 

@@ -441,7 +441,7 @@ def _flash_decode_heads(q, k_cache, v_cache, mask, n_kv: int, ctx: ParallelCtx):
         v_cache = v_cache[:, :, i : i + 1].contiguous()
     qh = q[:, :, _q_heads(q.shape[2], ctx)].contiguous()
     o = _flash_decode(qh, k_cache, v_cache, mask)
-    return all_gather_dim(o, 2, ctx.mesh.model_group)
+    return all_gather_dim(o, 2, ctx.mesh.model_group, ctx.mesh.model_order)
 
 
 def _attend_heads(q, k, v, mask, n_kv: int, ctx: ParallelCtx):
@@ -452,7 +452,7 @@ def _attend_heads(q, k, v, mask, n_kv: int, ctx: ParallelCtx):
     if ctx.mesh is None or k.shape[2] == n_kv:
         return gqa_attend(q, k, v, mask)
     o = gqa_attend(q[:, :, _q_heads(q.shape[2], ctx)], k, v, mask)
-    return all_gather_dim(o, 2, ctx.mesh.model_group)
+    return all_gather_dim(o, 2, ctx.mesh.model_group, ctx.mesh.model_order)
 
 
 def _paged_decode_attention(p: dict, x: torch.Tensor, cache: dict,
@@ -501,7 +501,7 @@ def _paged_decode_attention(p: dict, x: torch.Tensor, cache: dict,
         o = registry.decode_attend_paged(qh.contiguous(), pool_k, pool_v, tables,
                                          live)[:, None]
         if tp > 1:
-            o = all_gather_dim(o, 2, ctx.mesh.model_group)
+            o = all_gather_dim(o, 2, ctx.mesh.model_group, ctx.mesh.model_order)
     else:
         k_all = gather_pages(pool_k, tables)
         v_all = gather_pages(pool_v, tables)

@@ -228,7 +228,7 @@ def _moe_esp_mesh(p: dict, x: torch.Tensor, ids, w, cfg: ModelConfig,
         y = esp_expert_ffn(bufs[None], counts[None], p["w_gate"], p["w_up"],
                            p["w_down"], ctx)[0]                        # (E, cap, d/M)
         out = bucket_combine(y, ids2, slots, keep, w2)
-        return all_gather_dim(out, 1, group).reshape(b, s, d)
+        return all_gather_dim(out, 1, group, ctx.mesh.model_order).reshape(b, s, d)
     h = torch.einsum("ecd,edf->ecf", bufs, p["w_gate"])
     u = torch.einsum("ecd,edf->ecf", bufs, p["w_up"])
     y = torch.einsum("ecf,efd->ecd", F.silu(h) * u, p["w_down"])

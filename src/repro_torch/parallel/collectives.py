@@ -274,14 +274,24 @@ def validate_ep_token_split(b: int, s: int, n_batch: int, ep: int, decode: bool)
         )
 
 
-def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+def all_to_all(t: torch.Tensor, group, order=None) -> torch.Tensor:
     """``lax.all_to_all(split_axis=0, concat_axis=0, tiled=False)`` over
-    ``group``: block i of dim 0 goes to rank i, block j of the result
-    came from rank j (equal, contiguous splits)."""
-    t = t.contiguous()
+    ``group``: block i of dim 0 goes to the rank of logical index i, block
+    j of the result came from logical index j (equal, contiguous splits).
+    ``order`` is the group rank of each logical index (``Mesh.
+    model_order``; None: the same)."""
+    t = t.contiguous() if order is None else t[_inverse(order)].contiguous()
     out = torch.empty_like(t)
     dist.all_to_all_single(out, t, group=group)
-    return out
+    return out if order is None else out[order]
+
+
+def _inverse(order: list[int]) -> list[int]:
+    """The logical index at each group rank."""
+    inv = [0] * len(order)
+    for i, g in enumerate(order):
+        inv[g] = i
+    return inv
 
 
 def dispatch_fused(xt, slots, total_slots: int, cap: int, ep: int, kc: int):
@@ -359,7 +369,7 @@ def ep_moe_shardmap(
     takes the padded branch: ``(slots, cap, d)`` buckets, the plain grouped
     FFN, ``bucket_combine``."""
     mesh = ctx.mesh
-    group = mesh.model_group
+    group, order = mesh.model_group, mesh.model_order
     ep = mesh.model
     rank = mesh.model_rank
     spd = slots_per_device
@@ -367,7 +377,7 @@ def ep_moe_shardmap(
 
     b, s, d = x.shape
     k = expert_ids.shape[-1]
-    validate_ep_token_split(b * mesh.data, s, mesh.data, ep, decode)
+    validate_ep_token_split(b * mesh.n_batch, s, mesh.n_batch, ep, decode)
     if not decode:
         sl = s // ep
         part = slice(rank * sl, (rank + 1) * sl)
@@ -397,8 +407,8 @@ def ep_moe_shardmap(
             xt, slots, total_slots, cap, ep, kc)
 
         def exchange(c):
-            return (all_to_all(sends[c], group),
-                    all_to_all(kept_ck[:, c].contiguous(), group))
+            return (all_to_all(sends[c], group, order),
+                    all_to_all(kept_ck[:, c].contiguous(), group, order))
 
         def chunk_ffn(recv, cnt, c):
             # recv[r'] = my chunk's spc buckets' rows from source rank r',
@@ -415,7 +425,7 @@ def ep_moe_shardmap(
                 offsets_g, counts_g, capacity=cap, groups_per_weight=ep,
                 compact_out=True, fused=True,
             )
-            return all_to_all(y.reshape(ep, spc * cap, d), group)
+            return all_to_all(y.reshape(ep, spc * cap, d), group, order)
 
         recv = [None] * kc
         recv[0] = exchange(0)
@@ -432,46 +442,47 @@ def ep_moe_shardmap(
     else:
         bufs, pos, keep = bucket_dispatch(xt, slots, total_slots, cap)
         counts = kept_counts(slots, keep, total_slots)
-        recv = all_to_all(bufs.reshape(ep, spd, cap, d), group)
-        cnt = all_to_all(counts.reshape(ep, spd), group)
+        recv = all_to_all(bufs.reshape(ep, spd, cap, d), group, order)
+        cnt = all_to_all(counts.reshape(ep, spd), group, order)
         recv = recv.transpose(0, 1)                      # (spd, ep, cap, d)
         y = expert_ffn_ragged(recv.reshape(spd * ep, cap, d), wg, wu, wd,
                               cnt.transpose(0, 1).reshape(-1), ep)
         y = y.reshape(spd, ep, cap, d).transpose(0, 1)
-        back = all_to_all(y, group).reshape(total_slots, cap, d)
+        back = all_to_all(y, group, order).reshape(total_slots, cap, d)
         out = bucket_combine(back, slots, pos, keep, w)
     out = out.reshape(bl, sl, d)
     if decode:
         dist.all_reduce(out, group=group)               # the owners' results
         return out
-    parts = [torch.empty_like(out) for _ in range(ep)]
-    dist.all_gather(parts, out.contiguous(), group=group)
-    return torch.cat(parts, dim=1)
+    return all_gather_dim(out, 1, group, order)
 
 
 # ---------------------------------------------------------------------------
 # gathers and ESP's reduce-scatter over the model group
 # ---------------------------------------------------------------------------
 
-def all_gather_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
-    """Every rank's block of ``group`` concatenated along ``dim`` in rank
-    order (a tiled ``all_gather``)."""
+def all_gather_dim(t: torch.Tensor, dim: int, group, order=None) -> torch.Tensor:
+    """Every rank's block of ``group`` concatenated along ``dim`` in
+    logical order (a tiled ``all_gather``; ``order`` as in
+    :func:`all_to_all`)."""
     n = dist.get_world_size(group)
     if n == 1:
         return t
     parts = [torch.empty_like(t) for _ in range(n)]
     dist.all_gather(parts, t.contiguous(), group=group)
-    return torch.cat(parts, dim=dim)
+    return torch.cat(parts if order is None else [parts[g] for g in order], dim=dim)
 
 
-def reduce_scatter_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+def reduce_scatter_dim(t: torch.Tensor, dim: int, group, order=None) -> torch.Tensor:
     """``psum_scatter(t, scatter_dimension=dim, tiled=True)`` over
-    ``group``: the sum of every rank's ``t``, of which rank r keeps block r
-    of ``dim``. The reduced dim is moved first for the collective's flat
-    split and back after."""
+    ``group``: the sum of every rank's ``t``, of which logical index r
+    keeps block r of ``dim`` (``order`` as in :func:`all_to_all`). The
+    reduced dim is moved first for the collective's flat split and back
+    after."""
     n = dist.get_world_size(group)
     size = t.shape[dim] // n
-    blocks = t.unflatten(dim, (n, size)).movedim(dim, 0).contiguous()
+    blocks = t.unflatten(dim, (n, size)).movedim(dim, 0)
+    blocks = (blocks if order is None else blocks[_inverse(order)]).contiguous()
     out = blocks.new_empty(blocks.shape[1:])
     dist.reduce_scatter_tensor(out.view(-1), blocks.view(-1), group=group)
     return out
@@ -501,7 +512,7 @@ def esp_expert_ffn(
     y = y.reshape(e, g, cap, -1).transpose(0, 1)
     if ctx.mesh is None:
         return y
-    return reduce_scatter_dim(y, 3, ctx.mesh.model_group)
+    return reduce_scatter_dim(y, 3, ctx.mesh.model_group, ctx.mesh.model_order)
 
 
 # ---------------------------------------------------------------------------

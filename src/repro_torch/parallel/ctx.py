@@ -3,7 +3,7 @@
 
 ``mesh`` is ``None`` for one process, or a :class:`~repro_torch.parallel.
 mesh.Mesh` of ``torch.distributed`` ranks. Under a mesh the batch is split
-over the data axis and every other computation is replicated on the ranks
+over the batch axes (``pod x data``) and every other computation is replicated on the ranks
 of a data index, except the regions the reference writes by hand: the EP
 dispatch and combine (``collectives.ep_moe_shardmap``) with its decode
 ownership sum; ESP's hidden-dim shards and their reduce-scatter
@@ -87,7 +87,7 @@ class ParallelCtx:
 
     @property
     def n_batch(self) -> int:
-        return 1 if self.mesh is None else self.mesh.data
+        return 1 if self.mesh is None else self.mesh.n_batch
 
     @property
     def model_rank(self) -> int:
@@ -95,7 +95,7 @@ class ParallelCtx:
 
     @property
     def batch_rank(self) -> int:
-        return 0 if self.mesh is None else self.mesh.data_rank
+        return 0 if self.mesh is None else self.mesh.batch_rank
 
     @property
     def batch_split(self) -> bool:

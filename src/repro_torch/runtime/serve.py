@@ -402,7 +402,7 @@ class Server:
         """The global batch from every data rank's rows (dim 0)."""
         if not self._split:
             return t
-        return all_gather_dim(t, 0, self.mesh.data_group)
+        return all_gather_dim(t, 0, self.mesh.data_group, self.mesh.batch_order)
 
     def _moe(self) -> dict:
         return self.params["layers"]["moe"]

@@ -1050,3 +1050,32 @@ def test_cuda_no_registry_output_loses_its_graph(cuda_device):
             for i in range(len(inputs)):
                 tin = [t.clone().requires_grad_(j == i) for j, t in enumerate(inputs)]
                 assert kernel(*tin).grad_fn is not None, (form, dtype, i)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_bench_smoke(cuda_device, capsys):
+    """The kernel bench's ``--smoke`` cells through the kernels: every
+    parity check of its five families holds."""
+    from repro_torch.benchmarks import bench_kernels as B
+
+    B.main(["--smoke", "--device", "cuda"])
+    assert capsys.readouterr().out.rstrip().endswith("BENCH SMOKE OK")
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_bench_ffn_cell_launches(cuda_device):
+    """One FFN cell of the bench: each path launches the kernels the
+    path names (the einsum path none), once a call."""
+    from repro_torch.benchmarks import bench_kernels as B
+
+    (row,) = B.run(iters=2, smoke=True, device=cuda_device)
+    want = {
+        "einsum_padded_dispatch": {},
+        "gmm_padded_dispatch": {"gmm_dual_act": 1, "gmm": 1},
+        "gmm_ragged_padded_dispatch": {"gmm_dual_act_ragged": 1, "gmm_ragged": 1},
+        "gmm_gather_fused_dispatch": {"gmm_dual_act_gather": 1, "gmm_ragged": 1},
+        "gmm_compact_fused_combine": {"gmm_dual_act_gather": 1, "gmm_scatter": 1},
+        "gmm_fused_ffn_combine": {"gmm_fused_ffn": 1},
+    }
+    assert {p: c["launches"] for p, c in row["paths"].items()} == want
+    assert all(c["event_ms"] > 0 for c in row["paths"].values())

@@ -34,12 +34,13 @@ def test_figure_rows_equal_reference(name):
 
 
 def test_runner_lists_every_reference_figure():
-    """The runner's modules are the reference's but ``roofline`` (it reads
-    the dry run's output, not yet ported)."""
+    """The runner's modules are the reference's, ``roofline`` (over the
+    dry run's records) included."""
     from repro_torch.figures import run
 
     ref = importlib.import_module("benchmarks.run").MODULES
-    assert run.MODULES == [m for m in ref if m != "roofline"]
+    assert run.MODULES == ref
     assert run.select(["fig13"]) == [m for m in run.MODULES if "fig13" in m]
-    with pytest.raises(ValueError, match="roofline"):
-        run.select(["roofline"])
+    assert run.select(["roofline"]) == ["roofline"]
+    with pytest.raises(ValueError, match="fig99"):
+        run.select(["fig99"])

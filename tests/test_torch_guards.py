@@ -61,7 +61,9 @@ def test_port_imports_neither_jax_nor_repro():
                 "configs/xlstm_350m.py", "runtime/train.py", "runtime/optimizer.py",
                 "runtime/data.py", "launch/train.py", "core/hardware.py",
                 "core/comm_model.py", "core/ftd.py", "core/workloads.py", "core/traces.py",
-                "core/simulator.py", "figures/run.py", "figures/common.py"):
+                "core/simulator.py", "figures/run.py", "figures/common.py",
+                "launch/mesh.py", "launch/dryrun.py", "benchmarks/bench_kernels.py",
+                "figures/roofline.py"):
         assert f"src/repro_torch/{mod}" in names
 
 
