@@ -135,7 +135,18 @@ Phases (one line each; any failure raises and the exit code is non-zero):
       llama3.2-1b at full size, fp32, 16 layers, 20 steps of 8 x 512 with
       the reference CLI's defaults (losses finite, logged; 16
       ``flash_attention`` launches a step), and its ``--steps 3
-      --use-kernels off`` losses equal to the first three.
+      --use-kernels off`` losses equal to the first three; (d) training
+      on the 1 x 1 NCCL mesh, autograd through the EP and ESP collectives:
+      (i) the smoke() models of dbrx-132b under ``ep`` (the fused branch)
+      and mixtral-8x22b under ``esp``, fp32, 3 steps on the mesh against
+      3 without it, both with the kernels, within the fp32 limit, launches
+      as predicted on a mesh; (ii) inside (b), on the same state after
+      its no-mesh steps, mixtral-8x22b width on the mesh under ``ep`` and
+      ``esp``: step 0's gradients within (b)'s bf16 bound (their distance
+      from the fp32 run's at most twice the plain path's plus 2^-5) and
+      beside the no-mesh kernels', then 5 timed steps beside (b)'s, peak
+      memory; (iii) ``launch.train.main --mesh 1x1`` at llama3.2-1b for 3
+      steps, its losses those of (c)'s first three.
    i. the kernel bench, the dry run and the roofline: (a) the
       bench's ``--smoke`` cells of its five families
       (``repro_torch.benchmarks.bench_kernels``: the six FFN paths, dense
@@ -3165,7 +3176,7 @@ def family_path(torch, arch: str, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 3h: training on one process
+# phase 3h: training on one process (and (d) on the 1 x 1 NCCL mesh)
 # ---------------------------------------------------------------------------
 # phase 3i: the kernel bench, the dry run and the roofline
 # ---------------------------------------------------------------------------
@@ -3387,13 +3398,15 @@ def read_launches() -> dict:
     return {k.__name__: k.launches for k in all_kernels()}
 
 
-def train_launches(cfg, impl: str, dtype, steps: int) -> dict:
+def train_launches(cfg, impl: str, dtype, steps: int, mesh: bool = False) -> dict:
     """The launches of ``steps`` train steps: the forward's only, one a
     kernel call (the registry's backward is plain): ``flash_attention``
     once a self-attention layer (an encoder's too), and on an ``attn`` MoE
     model its expert FFN once a layer: the ragged pair under ``ep``; under
     ``esp`` ``gmm_fused_ffn`` where ``can_gmm_fused`` admits the shapes,
-    else the gather/scatter pair; nothing under ``dense``."""
+    else the gather/scatter pair; nothing under ``dense``. On a mesh
+    (``mesh``) the two swap: EP's fused branch takes the flat-row FFN,
+    ESP's hidden-dim shard the ragged pair."""
     from repro_torch.kernels.registry import can_gmm_fused
     from repro_torch.models.transformer import zamba_layout
 
@@ -3403,7 +3416,7 @@ def train_launches(cfg, impl: str, dtype, steps: int) -> dict:
     want = {k.__name__: 0 for k in all_kernels()}
     want["flash_attention"] = attn * steps
     if cfg.is_moe and impl in ("ep", "esp"):
-        if impl == "ep":
+        if (impl == "ep") != mesh:
             names = ("gmm_dual_act_ragged", "gmm_ragged")
         elif can_gmm_fused(0, cfg.d_model, cfg.moe_d_ff_, dtype):
             names = ("gmm_fused_ffn",)
@@ -3597,9 +3610,11 @@ def grad_distance(torch, g, ref) -> float:
     return float(d / n) if float(n) > 0 else float(d)
 
 
-def full_width_train(torch, impl: str, card: str, steps: int = 5) -> dict:
+def full_width_train(torch, impl: str, card: str, steps: int = 5, mesh=None) -> dict:
     """mixtral-8x22b at full width, cut to 1 layer (56 -> 1), bf16, under
     ``impl``: ``SyntheticLM`` batches of 8 x 256, capacity factor 2.0.
+    With ``mesh`` (the 1 x 1 NCCL mesh) also phase 3h (d) (ii):
+    :func:`mesh_width_train` on the same state, after the no-mesh steps.
 
     * Step 0's gradients with the kernels (one launch a kernel form and
       ``flash_attention``), on the plain path, and in fp32 on the plain
@@ -3629,7 +3644,9 @@ def full_width_train(torch, impl: str, card: str, steps: int = 5) -> dict:
     batch, seq = 8, 256
     ctx = ParallelCtx(moe_impl=impl, capacity_factor=2.0)
     plain = dataclasses.replace(ctx, use_kernels=False)
-    batches = train_batches(torch, cfg, batch, seq, range(steps + 2), seed=43)
+    # the mesh steps take batches of their own, unseen by the no-mesh steps
+    n_batches = steps + 2 if mesh is None else 2 * steps + 3
+    batches = train_batches(torch, cfg, batch, seq, range(n_batches), seed=43)
     what = f"phase 3h (b) {impl}"
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
@@ -3670,6 +3687,10 @@ def full_width_train(torch, impl: str, card: str, steps: int = 5) -> dict:
                                  f"from fp32 against the plain path's {dp:.4f}")
     losses0 = {"kernels": float(mk["loss"]), "plain": float(mp["loss"]),
                "fp32": float(m32["loss"])}
+    on_mesh = None
+    if mesh is not None:
+        on_mesh = mesh_width_step0(torch, cfg, dataclasses.replace(ctx, mesh=mesh), params,
+                                   batches[0], gk, gp, g32, float(mk["loss"]), impl)
     del gk, gp, g32
     gc.collect()
     torch.cuda.empty_cache()
@@ -3696,7 +3717,7 @@ def full_width_train(torch, impl: str, card: str, steps: int = 5) -> dict:
         raise AssertionError(f"{what}: launches {launched} != {want}")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{what}: losses {losses}")
-    g, _ = grads_of(state["params"], batches[-1], cfg, ctx)
+    g, _ = grads_of(state["params"], batches[steps + 1], cfg, ctx)
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     e0.record()
@@ -3705,7 +3726,11 @@ def full_width_train(torch, impl: str, card: str, steps: int = 5) -> dict:
     torch.cuda.synchronize()
     adamw_ms = e0.elapsed_time(e1)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    del state, g
+    del g
+    if mesh is not None:
+        on_mesh.update(mesh_width_steps(torch, cfg, dataclasses.replace(ctx, mesh=mesh), opt,
+                                        state, batches[steps + 2 :], steps, impl))
+    del state
     mean_ms = sum(ms) / len(ms)
     out = {"params": n_params, "ms_per_step": ms, "mean_ms": mean_ms,
            "tokens_per_s": batch * seq / (mean_ms / 1e3), "adamw_ms": adamw_ms,
@@ -3714,7 +3739,7 @@ def full_width_train(torch, impl: str, card: str, steps: int = 5) -> dict:
            "remat_excess": remat_ex, "remat_bitwise": remat_bitwise,
            "vs_plain_excess": vs_plain,
            "distance_from_fp32": {k: {"kernels": a, "plain": b} for k, (a, b) in dist.items()},
-           "phase_s": time.perf_counter() - t0}
+           "mesh": on_mesh, "phase_s": time.perf_counter() - t0}
     worst = max(dist, key=lambda k: dist[k][0] / max(dist[k][1], 1e-30))
     log(f"{what}: mixtral-8x22b width, 1 layer, {n_params / 1e9:.2f}B params, bf16, "
         f"{batch} x {seq} tokens: {mean_ms:.1f} ms a step ({', '.join(f'{x:.1f}' for x in ms)})"
@@ -3728,6 +3753,170 @@ def full_width_train(torch, impl: str, card: str, steps: int = 5) -> dict:
         f"max {max(vs_plain.values()):.3g}; remat: 2x launches, {remat_ex:.3g} x the bf16 "
         f"limit, bitwise {remat_bitwise} [{card}]")
     return out
+
+
+# phase 3h (d): training on the 1 x 1 NCCL mesh
+
+def mesh_width_step0(torch, cfg, ctx, params, batch, gk, gp, g32, loss_k: float,
+                     impl: str) -> dict:
+    """Phase 3h (d) (ii), step 0: the gradients on the mesh (the EP or ESP
+    collectives under autograd, on one rank copies), with the kernels,
+    held to 3h (b)'s bf16 bound (each leaf's relative L2 distance from
+    the fp32 gradients at most twice the plain path's plus 2^-5) and
+    their distance from the no-mesh kernels' logged; launches once a
+    kernel form."""
+    from repro_torch.runtime.train import grads_of
+
+    what = f"phase 3h (d) (ii) {impl}"
+    one = train_launches(cfg, impl, torch.bfloat16, 1, mesh=True)
+    zero_launches()
+    gm, mm = grads_of(params, batch, cfg, ctx)
+    torch.cuda.synchronize()
+    if read_launches() != one:
+        raise AssertionError(f"{what}: step 0 launches {read_launches()} != {one}")
+    dist = {}
+    for (name, a), k, p, r in zip(named_leaves(gm), leaves_of(gk), leaves_of(gp),
+                                  leaves_of(g32)):
+        dm, dp = grad_distance(torch, a, r), grad_distance(torch, p, r)
+        dist[name] = {"mesh": dm, "plain": dp, "mesh_vs_no_mesh": grad_distance(
+            torch, a, k.float())}
+        if dm > 2 * dp + 2.0**-5:
+            raise AssertionError(f"{what}: {name}'s gradient on the mesh is {dm:.4f} from "
+                                 f"fp32 against the plain path's {dp:.4f}")
+    return {"step0_loss": float(mm["loss"]), "step0_loss_no_mesh": loss_k,
+            "distance": dist,
+            "bitwise_no_mesh": all(torch.equal(a, b) for a, b in zip(leaves_of(gm),
+                                                                     leaves_of(gk)))}
+
+
+def mesh_width_steps(torch, cfg, ctx, opt, state, batches, steps: int, impl: str) -> dict:
+    """Phase 3h (d) (ii): ``steps`` train steps on the mesh after a warm-up
+    step (``batches``: ``steps + 1`` the no-mesh steps did not see), each
+    timed with CUDA events, the losses finite, launches once a kernel form
+    a step; the peak memory from the warm-up on."""
+    from repro_torch.runtime.train import make_train_step
+
+    what = f"phase 3h (d) (ii) {impl}"
+    step = make_train_step(cfg, ctx, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, met = step(state, batches[0])
+    torch.cuda.synchronize()
+    zero_launches()
+    ms, losses = [], [float(met["loss"])]
+    for b in batches[1 : steps + 1]:
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, met = step(state, b)
+        e1.record()
+        torch.cuda.synchronize()
+        ms.append(e0.elapsed_time(e1))
+        losses.append(float(met["loss"]))
+    launched = read_launches()
+    want = train_launches(cfg, impl, torch.bfloat16, steps, mesh=True)
+    if launched != want:
+        raise AssertionError(f"{what}: launches {launched} != {want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{what}: losses {losses}")
+    return {"ms_per_step": ms, "mean_ms": sum(ms) / len(ms), "losses": losses,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": {k: v for k, v in launched.items() if v}}
+
+
+def small_mesh_train_parity(torch, mesh, arch: str, impl: str, steps: int = 3) -> dict:
+    """Phase 3h (d) (i): ``arch``'s smoke() model at head dim 32, fp32,
+    ``steps`` train steps on the 1 x 1 NCCL mesh and without it, both with
+    the kernels, from one state: every step's metrics and gradients and
+    the state after, within the fp32 limit (``hold_trained``); the mesh
+    run's launches as ``train_launches`` predicts on a mesh."""
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.parallel.ctx import ParallelCtx
+    from repro_torch.runtime.optimizer import AdamWConfig
+    from repro_torch.runtime.train import init_state
+
+    cfg = dataclasses.replace(smoke(get_config(arch)), head_dim=32)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    batches = train_batches(torch, cfg, 2, 32, range(steps), seed=48)
+    runs = {}
+    for name, ctx in (("mesh", ParallelCtx(mesh=mesh, moe_impl=impl)),
+                      ("no mesh", ParallelCtx(moe_impl=impl))):
+        state = init_state(cfg, seed=49, device="cuda", ctx=ctx)
+        runs[name] = run_train(torch, cfg, ctx, opt, batches, state, name == "mesh")
+    (sm, mm, gm, launched), (sn, mn, gn, _) = runs["mesh"], runs["no mesh"]
+    what = f"phase 3h (d) (i) {arch} {impl}"
+    hold_metrics(mm, mn, what)
+    out = hold_trained(torch, sm, sn, gm, gn, [m["lr"] for m in mn], what)
+    want = train_launches(cfg, impl, torch.float32, steps, mesh=True)
+    if launched != want:
+        raise AssertionError(f"{what}: launches {launched} != {want}")
+    return {"launches": {k: v for k, v in launched.items() if v},
+            "losses": [m["loss"] for m in mm], **out}
+
+
+def mesh_train_cli(torch, card: str, one_process: list, steps: int = 3) -> dict:
+    """Phase 3h (d) (iii): ``launch.train.main --mesh 1x1`` (it joins this
+    process's NCCL world of one) at llama3.2-1b, fp32, 16 layers, batch 8 x
+    512, ``steps`` steps: ``flash_attention`` 16 launches a step and no
+    other kernel, and each step's loss that of the one-process CLI's run
+    of phase 3h (c) (``one_process``, the same init and batches) within
+    1e-6 relative; whether they are bitwise is logged."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train as cli
+
+    args = ["--arch", "llama3.2-1b", "--batch", "8", "--seq", "512", "--log-every", "1",
+            "--mesh", "1x1", "--steps", str(steps)]
+    zero_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        state, hist = cli.main(args)
+    launched = read_launches()
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = {k.__name__: 0 for k in all_kernels()}
+    want["flash_attention"] = 16 * steps
+    if launched != want:
+        raise AssertionError(f"phase 3h (d) (iii): launches {launched} != {want}")
+    losses = [r["loss"] for r in hist]
+    for i, (a, b) in enumerate(zip(losses, one_process, strict=False)):
+        if not abs(a - b) <= 1e-6 * abs(b):
+            raise AssertionError(f"phase 3h (d) (iii): step {i}'s loss {a!r} on the mesh, "
+                                 f"{b!r} in one process")
+    secs = [r["seconds"] for r in hist]
+    return {"losses": losses, "one_process_losses": one_process[:steps],
+            "bitwise": losses == list(one_process[:steps]), "seconds": secs,
+            "launches_flash_attention": launched["flash_attention"]}
+
+
+def mesh_training_path(torch, mesh, card: str, cli_losses: list) -> dict:
+    """Phase 3h (d) (i) and (iii); (ii) runs inside 3h (b)."""
+    t0 = time.perf_counter()
+    small = {}
+    for arch, impl in (("dbrx-132b", "ep"), ("mixtral-8x22b", "esp")):
+        r = small_mesh_train_parity(torch, mesh, arch, impl)
+        small[f"{arch} {impl}"] = r
+        log(f"phase 3h (d) (i) small fp32 {arch} ({impl}) on the 1 x 1 NCCL mesh: 3 train "
+            f"steps equal the no-mesh steps' within the fp32 limit (gradients "
+            f"{r['excess_grads']:.3g}, params {r['excess_params']:.3g}, mu "
+            f"{r['excess_mu']:.3g}, sqrt(nu) {r['excess_sqrt_nu']:.3g} x the limit; "
+            f"{r['loose_elements']} of {r['elements']} elements near a parted gradient; "
+            f"bitwise {r['bitwise']}), losses {', '.join(f'{x:.4f}' for x in r['losses'])}, "
+            f"launches {r['launches']} as predicted")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli_run = mesh_train_cli(torch, card, cli_losses)
+    log(f"phase 3h (d) (iii) train CLI --mesh 1x1: llama3.2-1b, fp32, 16 layers, 8 x 512 "
+        f"tokens, 3 steps: losses {', '.join(f'{x:.6f}' for x in cli_run['losses'])} against "
+        f"the one-process CLI's {', '.join(f'{x:.6f}' for x in cli_run['one_process_losses'])}"
+        f" (bitwise {cli_run['bitwise']}), step seconds "
+        f"{', '.join(f'{x:.3f}' for x in cli_run['seconds'])}, flash_attention "
+        f"{cli_run['launches_flash_attention']} launches [{card}]")
+    return {"small": small, "cli": cli_run, "phase_s": time.perf_counter() - t0}
+
+
+def leaves_of(tree):
+    return (t for _, t in named_leaves(tree))
 
 
 def named_leaves(tree, prefix=""):
@@ -3804,9 +3993,10 @@ def train_cli_path(torch, card: str, steps: int = 20, plain_steps: int = 3) -> d
     return out
 
 
-def training_path(torch, card: str) -> dict:
+def training_path(torch, card: str, mesh) -> dict:
     """Phase 3h: (a) the small fp32 models and the train/restore check,
-    (b) mixtral-8x22b width under ``ep`` and ``esp``, (c) the train CLI."""
+    (b) mixtral-8x22b width under ``ep`` and ``esp`` (and (d) (ii) on
+    ``mesh``), (c) the train CLI, (d) training on the 1 x 1 NCCL mesh."""
     t0 = time.perf_counter()
     small = {}
     for arch, impl in TRAIN_SMALL:
@@ -3829,12 +4019,27 @@ def training_path(torch, card: str) -> dict:
     torch.cuda.empty_cache()
     full = {}
     for impl in ("ep", "esp"):
-        full[impl] = full_width_train(torch, impl, card)
+        full[impl] = full_width_train(torch, impl, card, mesh=mesh)
+        r, m = full[impl], full[impl]["mesh"]
+        worst = max(m["distance"], key=lambda k: m["distance"][k]["mesh"]
+                    / max(m["distance"][k]["plain"], 1e-30))
+        log(f"phase 3h (d) (ii) {impl} on the 1 x 1 NCCL mesh: mixtral-8x22b width, 1 layer, "
+            f"bf16, 8 x 256 tokens: {m['mean_ms']:.1f} ms a step "
+            f"({', '.join(f'{x:.1f}' for x in m['ms_per_step'])}) beside {r['mean_ms']:.1f} "
+            f"without the mesh in this run, peak {m['peak_gb']:.2f} GB (from its warm-up "
+            f"step), losses {', '.join(f'{x:.4f}' for x in m['losses'])}; launches "
+            f"{m['launches']}; step 0 loss {m['step0_loss']:.5f} (no mesh "
+            f"{m['step0_loss_no_mesh']:.5f}), gradients' distance from fp32 (mesh / plain): "
+            + ", ".join(f"{k} {v['mesh']:.4f}/{v['plain']:.4f}" for k, v in m["distance"].items())
+            + f" (worst ratio {worst}), from the no-mesh kernels' at most "
+            f"{max(v['mesh_vs_no_mesh'] for v in m['distance'].values()):.3g}, bitwise "
+            f"{m['bitwise_no_mesh']} [{card}]")
         gc.collect()
         torch.cuda.empty_cache()
     cli_run = train_cli_path(torch, card)
+    on_mesh = mesh_training_path(torch, mesh, card, cli_run["losses"])
     return {"small": small, "restore": restore, "full_width": full, "cli": cli_run,
-            "phase_s": time.perf_counter() - t0}
+            "mesh": on_mesh, "phase_s": time.perf_counter() - t0}
 
 
 # ---------------------------------------------------------------------------
@@ -4029,7 +4234,7 @@ def main(argv=None) -> int:
         family_runs[arch] = family_path(torch, arch, card)
         gc.collect()
         torch.cuda.empty_cache()
-    training = training_path(torch, card)
+    training = training_path(torch, card, mesh)
     gc.collect()
     torch.cuda.empty_cache()
     bench = kernel_bench_path(torch, card)
@@ -4399,7 +4604,14 @@ def main(argv=None) -> int:
             "train CLI llama3.2-1b, 20 steps": (training["cli"]["launches_flash_attention"]
                                                 if name == "flash_attention" else 0),
             **{f"small {what}, 3 steps": r["launches"].get(name, 0)
-               for what, r in training["small"].items()}}
+               for what, r in training["small"].items()},
+            **{f"1 x 1 mesh, full width {impl}, {len(r['mesh']['ms_per_step'])} steps":
+               r["mesh"]["launches"].get(name, 0) for impl, r in training["full_width"].items()},
+            **{f"1 x 1 mesh, small {what}, 3 steps": r["launches"].get(name, 0)
+               for what, r in training["mesh"]["small"].items()},
+            "1 x 1 mesh, train CLI llama3.2-1b, 3 steps": (
+                training["mesh"]["cli"]["launches_flash_attention"]
+                if name == "flash_attention" else 0)}
         extra["launches_kernel_bench"] = bench["launch_totals"].get(name, {})
         if name in op_names:
             extra["launches_served_paths"] = {

@@ -9,18 +9,22 @@ collectives complete without moving data. The mesh is built over that
 world with ``launch.mesh`` (the ER placement by default). Then, under
 ``FakeTensorMode`` (tensors with shapes, dtypes and devices but no
 storage, on ``"cpu"``), rank 0's parameters come from ``T.init_params``,
-cut to rank 0's slices by the Server's own ``parallel.sharding``
-functions (EP: the slot rows of the experts at their native homes; ESP:
-every expert's hidden-dim shard), its cache from ``T.init_cache(ctx=)``,
-and one ``T.prefill`` or ``T.decode_step`` runs on rank 0's batch rows
-(one new token against a ``seq_len`` cache):
+cut to rank 0's slices by ``parallel.sharding.rank_params`` (EP: the slot
+rows of the experts at their native homes; ESP: every expert's
+hidden-dim shard), its cache from ``T.init_cache(ctx=)``, and one
+``T.prefill``, ``T.decode_step`` or train step runs on rank 0's batch
+rows (one new token against a ``seq_len`` cache):
 
 * ``prefill_*`` -> ``transformer.prefill``;
 * ``decode_*`` / ``long_*`` -> ``transformer.decode_step``;
-* ``train_*`` under a mesh, and the ``zamba``, ``xlstm`` and ``encdec``
-  patterns under a mesh, are recorded as ``SKIP`` naming the ROADMAP item
-  that brings them (Queue 1 items 7b and 6), as ``long_500k`` is for a
-  model with full attention.
+* ``train_*`` -> ``runtime.train.make_train_step``: one step (forward,
+  backward with remat over layers, as the reference's ``make_ctx`` sets,
+  and AdamW) on rank 0's slices of the train state (``sharding.
+  rank_params``: the moments take their parameter's layout) and its batch
+  rows, traced with gradients on;
+* the ``zamba``, ``xlstm`` and ``encdec`` patterns under a mesh are
+  recorded as ``SKIP`` naming the ROADMAP item that brings them (Queue 1
+  item 6), as ``long_500k`` is for a model with full attention.
 
 The ctx is the reference's: capacity factor 1.25 and the plain path
 (``use_kernels=False``), since no CUDA kernel launches on a fake tensor
@@ -60,11 +64,12 @@ from repro_torch.models import transformer as T
 from repro_torch.parallel import sharding
 from repro_torch.parallel.ctx import ParallelCtx
 from repro_torch.parallel.mesh import Mesh
+from repro_torch.runtime.optimizer import AdamWConfig, adamw_init
+from repro_torch.runtime.train import make_train_step
 
 PARAM_DTYPE = torch.bfloat16
 WORLD = {"single": 256, "multi": 512}
 ITEM_6 = "ROADMAP Queue 1 item 6"
-ITEM_7B = "ROADMAP Queue 1 item 7b"
 
 # c10d op the port's collectives dispatch to -> the reference's HLO name
 # (``parallel/collectives.py``: ``all_reduce``, ``all_gather``,
@@ -143,33 +148,6 @@ def make_ctx(mesh: Mesh, batch: int) -> ParallelCtx:
         use_kernels=False,
         batch_replicated=batch % mesh.n_batch != 0,
     )
-
-
-def moe_impl(cfg: ModelConfig, ctx: ParallelCtx) -> str:
-    """What ``moe_apply``'s ``"auto"`` picks under the mesh."""
-    return "ep" if cfg.n_experts % ctx.n_model == 0 else "esp"
-
-
-def rank_params(params: dict, cfg: ModelConfig, ctx: ParallelCtx) -> dict:
-    """Rank ``ctx``'s slices of the stacked parameters, as the Server
-    keeps them: under EP the slot rows of the experts at their native
-    homes (``sharding.slot_rows`` over ``n_experts`` slots), under ESP
-    every expert's hidden-dim shard (``sharding.expert_hidden``); every
-    other leaf whole (the port has no tensor parallelism, ROADMAP Queue 1
-    item 5)."""
-    if not cfg.is_moe or ctx.mesh is None:
-        return params
-    moe = dict(params["layers"]["moe"])
-    if moe_impl(cfg, ctx) == "ep":
-        rows = sharding.slot_rows(cfg.n_experts, ctx.n_model, ctx.model_rank)
-        for w in ("w_gate", "w_up", "w_down"):
-            moe[w] = moe[w][:, rows]
-    else:
-        fs = sharding.expert_hidden(cfg.moe_d_ff_, ctx.n_model, ctx.model_rank)
-        moe["w_gate"] = moe["w_gate"][..., fs]
-        moe["w_up"] = moe["w_up"][..., fs]
-        moe["w_down"] = moe["w_down"][:, :, fs]
-    return {**params, "layers": {**params["layers"], "moe": moe}}
 
 
 def _tensors(tree):
@@ -268,9 +246,10 @@ class _Cost(TorchDispatchMode):
             del self.live[key]
 
 
-def analyze(fn, *args) -> tuple[object, dict]:
-    """Run ``fn(*args)`` (fake tensors) under the counters; returns its
-    result and the record:
+def analyze(fn, *args, grad: bool = False) -> tuple[object, dict]:
+    """Run ``fn(*args)`` (fake tensors) under the counters, with autograd
+    on only where ``grad`` asks for it (a train step); returns its result
+    and the record:
 
     * ``flops``: ``FlopCounterMode``'s count of the matmuls, convolutions
       and attention calls;
@@ -292,7 +271,7 @@ def analyze(fn, *args) -> tuple[object, dict]:
     held = {_key(t) for t in _tensors(args)}
     cost = _Cost(held)
     flops = FlopCounterMode(display=False)
-    with torch.no_grad(), flops, cost:
+    with torch.set_grad_enabled(grad), flops, cost:
         out = fn(*args)
     coll = dict(cost.collectives)
     coll["total"] = sum(coll.values())
@@ -316,8 +295,6 @@ def skip_reason(cfg: ModelConfig, shape: ShapeConfig) -> str | None:
     """Why a cell is not traced (every cell here is under a mesh)."""
     if shape.name == "long_500k" and not cfg.subquadratic:
         return "SKIP (full attention cannot fit the 524k context)"
-    if shape.kind == "train":
-        return f"SKIP (training under a mesh: {ITEM_7B})"
     if cfg.block_pattern != "attn":
         return f"SKIP ({cfg.block_pattern} under a mesh: {ITEM_6})"
     return None
@@ -332,16 +309,23 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh,
     if multi_pod != (mesh.pod > 1):
         raise ValueError(f"multi_pod={multi_pod} but the mesh has {mesh.pod} pod(s)")
     ctx = make_ctx(mesh, shape.global_batch)
+    if shape.kind == "train":
+        ctx = dataclasses.replace(ctx, remat=True)
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     with FakeTensorMode():
-        params = rank_params(T.init_params(cfg, dtype=PARAM_DTYPE, device="cpu"), cfg, ctx)
+        params = sharding.rank_params(T.init_params(cfg, dtype=PARAM_DTYPE, device="cpu"),
+                                      cfg, ctx)
         rows = sharding.batch_rows(shape.global_batch, ctx.n_batch, ctx.batch_rank)
         inputs = {}
         for name, (shp, dt) in input_specs(cfg, shape).items():
             shp = (rows.stop - rows.start, *shp[1:])
             inputs[name] = torch.zeros(shp, dtype=dt, device="cpu")
-        if shape.kind == "prefill":
+        if shape.kind == "train":
+            state = {"params": params, "opt": adamw_init(params)}
+            step = make_train_step(cfg, ctx, AdamWConfig(total_steps=10_000))
+            out, rec = analyze(step, state, inputs, grad=True)
+        elif shape.kind == "prefill":
             def step(params, inputs):
                 return T.prefill(params, inputs["tokens"], cfg, ctx, max_seq=shape.seq_len,
                                  dtype=PARAM_DTYPE, embeds=inputs.get("embeds"))

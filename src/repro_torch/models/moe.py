@@ -23,7 +23,6 @@ and ESP otherwise, as the reference does.
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
@@ -38,10 +37,13 @@ from repro_torch.parallel.collectives import (
     bucket_dispatch,
     combine_from_rows,
     dispatch_metadata,
+    enter,
     ep_moe_local,
     ep_moe_shardmap,
     esp_expert_ffn,
     kept_counts,
+    psum,
+    reduce_sum,
     tiled_placement,
     uniform_placement,
     validate_ep_chunks,
@@ -61,8 +63,15 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
     }
 
 
-def route(p: dict, x: torch.Tensor, cfg: ModelConfig):
+def route(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: ParallelCtx | None = None):
     """Top-k routing in fp32. Returns (expert_ids, weights, aux_loss).
+
+    The Switch aux loss ``E * sum_e frac_e * mean_prob_e`` is over the
+    global batch, as the reference's under GSPMD: where the batch is split
+    over the data group and the loss's gradient is taken (training), the
+    token counts and the summed probabilities are summed over the data
+    group (``psum``: every data rank's loss reads them). Serving never
+    reads the aux loss and keeps it local.
 
     ``torch.topk`` and ``lax.top_k`` may order exactly tied probabilities
     differently; the parity tests use continuous random inputs, where ties
@@ -73,8 +82,17 @@ def route(p: dict, x: torch.Tensor, cfg: ModelConfig):
     weights = weights / weights.sum(dim=-1, keepdim=True)
     e = cfg.n_experts
     one_hot = F.one_hot(ids, e).float()                      # (..., k, E)
-    frac = one_hot.sum(dim=-2).reshape(-1, e).mean(dim=0)
-    mean_prob = probs.reshape(-1, e).mean(dim=0)
+    picks = one_hot.sum(dim=-2).reshape(-1, e)
+    probs = probs.reshape(-1, e)
+    if ctx is not None and ctx.n_batch > 1 and ctx.batch_split and probs.requires_grad:
+        group = ctx.mesh.data_group
+        tallies = psum(torch.cat([picks.sum(dim=0), picks.new_full((1,), picks.shape[0])]),
+                       group)
+        frac = tallies[:e] / tallies[e]
+        mean_prob = psum(probs.sum(dim=0), group) / tallies[e]
+    else:
+        frac = picks.mean(dim=0)
+        mean_prob = probs.mean(dim=0)
     aux = e * (frac * mean_prob).sum()
     return ids, weights.to(x.dtype), aux
 
@@ -104,7 +122,7 @@ def _mask_ids(ids, token_mask, cfg: ModelConfig):
 
 def moe_dense(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: ParallelCtx,
               token_mask=None):
-    ids, w, aux = route(p, x, cfg)
+    ids, w, aux = route(p, x, cfg, ctx)
     ids = _mask_ids(ids, token_mask, cfg)
     h = torch.einsum("...d,edf->...ef", x, p["w_gate"])
     u = torch.einsum("...d,edf->...ef", x, p["w_up"])
@@ -135,7 +153,7 @@ def moe_esp(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: ParallelCtx,
     call. ``use_kernels=False`` takes the padded path: ``(E, cap, d)``
     buckets, einsums, ``bucket_combine``. Under a mesh:
     :func:`_moe_esp_mesh`."""
-    ids, w, aux = route(p, x, cfg)
+    ids, w, aux = route(p, x, cfg, ctx)
     ids = _mask_ids(ids, token_mask, cfg)
     if ctx.mesh is not None:
         return _moe_esp_mesh(p, x, ids, w, cfg, ctx), _aux(aux, ids, cfg)
@@ -219,21 +237,25 @@ def _moe_esp_mesh(p: dict, x: torch.Tensor, ids, w, cfg: ModelConfig,
     n = b * s
     cap = bucket_capacity(n, k, ctx.capacity_factor, e)
     ids2, w2 = ids.reshape(n, k), w.reshape(n, k)
-    bufs, slots, keep = bucket_dispatch(x.reshape(n, d), ids2, e, cap)   # (E, cap, d)
     group = ctx.mesh.model_group
+    # the replicated tokens meet the rank's hidden shard
+    xs = enter(x, group) if sharding.is_split(f, m) else x
+    bufs, slots, keep = bucket_dispatch(xs.reshape(n, d), ids2, e, cap)  # (E, cap, d)
     kernel_ok = (ctx.use_kernels is not False and d % m == 0 and f % m == 0
                  and ctx.batch_split)
     if kernel_ok:
         counts = kept_counts(ids2, keep, e)
         y = esp_expert_ffn(bufs[None], counts[None], p["w_gate"], p["w_up"],
                            p["w_down"], ctx)[0]                        # (E, cap, d/M)
-        out = bucket_combine(y, ids2, slots, keep, w2)
+        # the replicated combine weights meet the rank's d-shard
+        ws = enter(w2, group) if sharding.is_split(d, m) else w2
+        out = bucket_combine(y, ids2, slots, keep, ws)
         return all_gather_dim(out, 1, group, ctx.mesh.model_order).reshape(b, s, d)
     h = torch.einsum("ecd,edf->ecf", bufs, p["w_gate"])
     u = torch.einsum("ecd,edf->ecf", bufs, p["w_up"])
     y = torch.einsum("ecf,efd->ecd", F.silu(h) * u, p["w_down"])
     if sharding.is_split(f, m):
-        dist.all_reduce(y, group=group)
+        y = reduce_sum(y, group)
     return bucket_combine(y, ids2, slots, keep, w2).reshape(b, s, d)
 
 
@@ -292,7 +314,7 @@ def moe_ep(
     else:
         slot_of, n_replicas = placement
 
-    ids, w, aux = route(p, x, cfg)
+    ids, w, aux = route(p, x, cfg, ctx)
     ids = _mask_ids(ids, token_mask, cfg)
     if ctx.mesh is None:
         out = ep_moe_local(
@@ -313,12 +335,8 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: ParallelCtx,
     are dead serving slots — they route nowhere."""
     impl = ctx.moe_impl
     if impl == "auto":
-        if ctx.mesh is None:
-            impl = "dense"
-        elif cfg.n_experts % ctx.n_model == 0:
-            impl = "ep"          # E/D >= 1: expert parallelism
-        else:
-            impl = "esp"         # E/D < 1: the reference's choice is ESP
+        # under a mesh EP where the experts divide the model axis, else ESP
+        impl = sharding.moe_layout(cfg, ctx) or "dense"
     if impl == "dense":
         return moe_dense(p, x, cfg, ctx, token_mask=token_mask)
     if impl == "esp":

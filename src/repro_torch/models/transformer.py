@@ -27,10 +27,11 @@ The prefill lane's chunk is the same on every rank (the reference's
 later slice.
 
 ``forward`` is the training pass over the whole causal sequence, for
-every block pattern, on one process (training under a mesh is ROADMAP
-Queue 1 item 7b). With ``ctx.remat`` each layer body runs under
-``torch.utils.checkpoint``, where the reference checkpoints its scan
-bodies.
+every block pattern on one process and for the ``attn`` pattern under a
+mesh, where autograd runs through the EP and ESP collectives. With
+``ctx.remat`` each layer body runs under ``torch.utils.checkpoint``,
+where the reference checkpoints its scan bodies; the recompute re-issues
+the layer's collectives, in the same order on every rank.
 """
 
 from __future__ import annotations
@@ -68,18 +69,8 @@ XLSTM_UNIT_M = 3  # mLSTM blocks per unit (then 1 sLSTM)
 PATTERNS = ("attn", "zamba", "xlstm", "encdec")
 
 
-def check_train_mesh(ctx: ParallelCtx) -> None:
-    """Training runs on one process so far."""
-    if ctx.mesh is not None:
-        raise NotImplementedError(
-            "training under a mesh is not ported yet (ROADMAP Queue 1 item 7b: "
-            "data-parallel gradient reduction, the EP and ESP backward through "
-            "the all-to-all and the reduce-scatter, the state's shardings)"
-        )
-
-
 def check_mesh(cfg: ModelConfig, ctx: ParallelCtx) -> None:
-    """Only the ``attn`` pattern serves under a mesh so far."""
+    """Only the ``attn`` pattern serves and trains under a mesh so far."""
     if ctx.mesh is not None and cfg.block_pattern != "attn":
         raise NotImplementedError(
             f"block_pattern={cfg.block_pattern!r} under a mesh is not ported yet "
@@ -476,8 +467,10 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, ctx: ParallelCtx = N
     (zeros without MoE). ``embeds``: the frontend stub's, prepended (vlm;
     the logits cover only the token positions) or encoded (enc-dec,
     required). Recurrent blocks start from their zero states, as the
-    reference's forward does. One process only (:func:`check_train_mesh`)."""
-    check_train_mesh(ctx)
+    reference's forward does. Under a mesh (the ``attn`` pattern only,
+    :func:`check_mesh`) every rank runs its batch rows, the EP and ESP
+    collectives differentiable (``parallel.collectives``)."""
+    check_mesh(cfg, ctx)
     pat = cfg.block_pattern
     if pat not in PATTERNS:
         raise ValueError(pat)

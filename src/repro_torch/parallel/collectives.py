@@ -14,6 +14,20 @@ return the rank's own block; collectives are blocking and issued in the
 same order on every rank, which enters each of them whether or not it has
 rows to send (a rank with no work enters with zero counts).
 
+Autograd sees a collective only through the ``torch.autograd.Function``s
+below (a ``dist`` call writes into a fresh buffer, and a gradient through
+it would be dropped without an error). Their adjoints follow one
+convention: a tensor replicated over a group carries the same, whole
+cotangent on every rank of it. So the all-to-all's adjoint is the same
+exchange; the reduce-scatter's is the all-gather; a sum whose result is
+replicated passes its cotangent through (:func:`reduce_sum`); a gather
+whose result is replicated gives each rank its own block back
+(:func:`all_gather_dim`); a replicated tensor entering rank-local work
+sums the ranks' cotangents (:func:`enter`), as does a slice of it
+(:func:`split`). :func:`psum` is the sum whose every rank feeds a loss of
+its own (the data group's, whose gradients are averaged): its adjoint is
+the sum. Without a gradient to take, each is the plain ``dist`` call.
+
 JAX's out-of-range semantics have no torch default, so each is explicit
 here: ``jnp.bincount(length=n)`` drops ids ``>= n`` (``bucket_counts``
 counts into ``n + 1`` bins and cuts the last); gathers at the decode
@@ -274,16 +288,12 @@ def validate_ep_token_split(b: int, s: int, n_batch: int, ep: int, decode: bool)
         )
 
 
-def all_to_all(t: torch.Tensor, group, order=None) -> torch.Tensor:
-    """``lax.all_to_all(split_axis=0, concat_axis=0, tiled=False)`` over
-    ``group``: block i of dim 0 goes to the rank of logical index i, block
-    j of the result came from logical index j (equal, contiguous splits).
-    ``order`` is the group rank of each logical index (``Mesh.
-    model_order``; None: the same)."""
-    t = t.contiguous() if order is None else t[_inverse(order)].contiguous()
-    out = torch.empty_like(t)
-    dist.all_to_all_single(out, t, group=group)
-    return out if order is None else out[order]
+# ---------------------------------------------------------------------------
+# differentiable collectives
+# ---------------------------------------------------------------------------
+
+def _wants_grad(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
 
 
 def _inverse(order: list[int]) -> list[int]:
@@ -292,6 +302,170 @@ def _inverse(order: list[int]) -> list[int]:
     for i, g in enumerate(order):
         inv[g] = i
     return inv
+
+
+def _logical_index(group, order=None) -> int:
+    """This rank's logical index in ``group`` (``order`` as in
+    :func:`all_to_all`)."""
+    g = dist.get_rank(group)
+    return g if order is None else _inverse(order)[g]
+
+
+def _all_to_all(t, group, order):
+    t = t.contiguous() if order is None else t[_inverse(order)].contiguous()
+    out = torch.empty_like(t)
+    dist.all_to_all_single(out, t, group=group)
+    return out if order is None else out[order]
+
+
+def _all_gather_dim(t, dim, group, order):
+    n = dist.get_world_size(group)
+    if n == 1:
+        return t
+    parts = [torch.empty_like(t) for _ in range(n)]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.cat(parts if order is None else [parts[g] for g in order], dim=dim)
+
+
+def _reduce_scatter_dim(t, dim, group, order):
+    n = dist.get_world_size(group)
+    size = t.shape[dim] // n
+    blocks = t.unflatten(dim, (n, size)).movedim(dim, 0)
+    blocks = (blocks if order is None else blocks[_inverse(order)]).contiguous()
+    out = blocks.new_empty(blocks.shape[1:])
+    dist.reduce_scatter_tensor(out.view(-1), blocks.view(-1), group=group)
+    return out
+
+
+def _all_reduce(t, group):
+    out = t.contiguous().clone()
+    dist.all_reduce(out, group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, t, group, order):
+        fctx.args = (group, order)
+        return _all_to_all(t, group, order)
+
+    @staticmethod
+    def backward(fctx, ct):
+        return _all_to_all(ct, *fctx.args), None, None
+
+
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, t, dim, group, order):
+        fctx.args = (dim, t.shape[dim], _logical_index(group, order))
+        return _all_gather_dim(t, dim, group, order)
+
+    @staticmethod
+    def backward(fctx, ct):
+        dim, size, idx = fctx.args
+        return ct.narrow(dim, idx * size, size), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, t, dim, group, order):
+        fctx.args = (dim, group, order)
+        return _reduce_scatter_dim(t, dim, group, order)
+
+    @staticmethod
+    def backward(fctx, ct):
+        return _all_gather_dim(ct, *fctx.args), None, None, None
+
+
+class _ReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, t, group):
+        return _all_reduce(t, group)
+
+    @staticmethod
+    def backward(fctx, ct):
+        return ct, None
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, t, group):
+        fctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(fctx, ct):
+        return _all_reduce(ct, fctx.group), None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, t, dim, group, order):
+        size = t.shape[dim] // dist.get_world_size(group)
+        fctx.args = (dim, group, order)
+        return t.narrow(dim, _logical_index(group, order) * size, size)
+
+    @staticmethod
+    def backward(fctx, ct):
+        return _all_gather_dim(ct, *fctx.args), None, None, None
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, t, group):
+        fctx.group = group
+        return _all_reduce(t, group)
+
+    @staticmethod
+    def backward(fctx, ct):
+        return _all_reduce(ct, fctx.group), None
+
+
+def all_to_all(t: torch.Tensor, group, order=None) -> torch.Tensor:
+    """``lax.all_to_all(split_axis=0, concat_axis=0, tiled=False)`` over
+    ``group``: block i of dim 0 goes to the rank of logical index i, block
+    j of the result came from logical index j (equal, contiguous splits).
+    ``order`` is the group rank of each logical index (``Mesh.
+    model_order``; None: the same). Its adjoint is the same exchange."""
+    if _wants_grad(t):
+        return _AllToAll.apply(t, group, order)
+    return _all_to_all(t, group, order)
+
+
+def enter(t: torch.Tensor, group) -> torch.Tensor:
+    """``t``, replicated over ``group``, entering work that each rank does
+    on its own part (ESP's hidden-dim shard, EP's owned decode tokens):
+    the identity, whose backward sums the ranks' cotangents."""
+    if _wants_grad(t):
+        return _Enter.apply(t, group)
+    return t
+
+
+def split(t: torch.Tensor, dim: int, group, order=None) -> torch.Tensor:
+    """This rank's block of ``dim`` of ``t``, which is replicated over
+    ``group`` (block i for logical index i); the backward all-gathers the
+    blocks' cotangents into the whole one."""
+    if _wants_grad(t):
+        return _Split.apply(t, dim, group, order)
+    size = t.shape[dim] // dist.get_world_size(group)
+    return t.narrow(dim, _logical_index(group, order) * size, size)
+
+
+def reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every rank's ``t`` over ``group``, replicated there: its
+    backward passes the cotangent through to each rank's part."""
+    if _wants_grad(t):
+        return _ReduceSum.apply(t, group)
+    return _all_reduce(t, group)
+
+
+def psum(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every rank's ``t`` over ``group`` where each rank feeds
+    its own loss (the data group, whose gradients are averaged): the
+    backward sums the cotangents too."""
+    if _wants_grad(t):
+        return _PSum.apply(t, group)
+    return _all_reduce(t, group)
 
 
 def dispatch_fused(xt, slots, total_slots: int, cap: int, ep: int, kc: int):
@@ -378,10 +552,12 @@ def ep_moe_shardmap(
     b, s, d = x.shape
     k = expert_ids.shape[-1]
     validate_ep_token_split(b * mesh.n_batch, s, mesh.n_batch, ep, decode)
-    if not decode:
+    if decode:
+        x, weights = enter(x, group), enter(weights, group)
+    else:
         sl = s // ep
-        part = slice(rank * sl, (rank + 1) * sl)
-        x, expert_ids, weights = x[:, part], expert_ids[:, part], weights[:, part]
+        expert_ids = expert_ids[:, rank * sl : (rank + 1) * sl]
+        x, weights = split(x, 1, group, order), split(weights, 1, group, order)
     bl, sl, _ = x.shape
     n = bl * sl
     cap = bucket_capacity(n, k, capacity_factor, total_slots)
@@ -452,8 +628,7 @@ def ep_moe_shardmap(
         out = bucket_combine(back, slots, pos, keep, w)
     out = out.reshape(bl, sl, d)
     if decode:
-        dist.all_reduce(out, group=group)               # the owners' results
-        return out
+        return reduce_sum(out, group)                   # the owners' results
     return all_gather_dim(out, 1, group, order)
 
 
@@ -464,13 +639,11 @@ def ep_moe_shardmap(
 def all_gather_dim(t: torch.Tensor, dim: int, group, order=None) -> torch.Tensor:
     """Every rank's block of ``group`` concatenated along ``dim`` in
     logical order (a tiled ``all_gather``; ``order`` as in
-    :func:`all_to_all`)."""
-    n = dist.get_world_size(group)
-    if n == 1:
-        return t
-    parts = [torch.empty_like(t) for _ in range(n)]
-    dist.all_gather(parts, t.contiguous(), group=group)
-    return torch.cat(parts if order is None else [parts[g] for g in order], dim=dim)
+    :func:`all_to_all`). The result is replicated over ``group``, so the
+    backward gives each rank its own block of the cotangent."""
+    if _wants_grad(t) and dist.get_world_size(group) > 1:
+        return _GatherReplicated.apply(t, dim, group, order)
+    return _all_gather_dim(t, dim, group, order)
 
 
 def reduce_scatter_dim(t: torch.Tensor, dim: int, group, order=None) -> torch.Tensor:
@@ -478,14 +651,10 @@ def reduce_scatter_dim(t: torch.Tensor, dim: int, group, order=None) -> torch.Te
     ``group``: the sum of every rank's ``t``, of which logical index r
     keeps block r of ``dim`` (``order`` as in :func:`all_to_all`). The
     reduced dim is moved first for the collective's flat split and back
-    after."""
-    n = dist.get_world_size(group)
-    size = t.shape[dim] // n
-    blocks = t.unflatten(dim, (n, size)).movedim(dim, 0)
-    blocks = (blocks if order is None else blocks[_inverse(order)]).contiguous()
-    out = blocks.new_empty(blocks.shape[1:])
-    dist.reduce_scatter_tensor(out.view(-1), blocks.view(-1), group=group)
-    return out
+    after. Its adjoint is the all-gather."""
+    if _wants_grad(t):
+        return _ReduceScatter.apply(t, dim, group, order)
+    return _reduce_scatter_dim(t, dim, group, order)
 
 
 def esp_expert_ffn(

@@ -22,9 +22,21 @@ dimension returns its whole range.
   dim unsharded, KV heads over ``model`` when they divide);
 * :func:`batch_rows` — the batch over ``data`` (``batch_spec_for``); page
   tables and lengths follow it (``bdim_spec``).
+
+The train state's layout (``state_specs``) follows from these:
+:func:`param_layout` names the model-sharded parameter leaves (the EP
+slot rows of the experts at their native homes, or the ESP hidden-dim
+shards) with the dim and slice a rank keeps; every other leaf is
+replicated over the model group (the port has no tensor parallelism,
+ROADMAP Queue 1 item 5), and the AdamW moments take their parameter's
+layout. :func:`rank_params` cuts a full tree (parameters or a moment) to
+a rank's slices, so that every rank starting from the same full init
+trains the same model on any mesh.
 """
 
 from __future__ import annotations
+
+import torch
 
 
 def _ok(dim: int, n: int) -> bool:
@@ -82,3 +94,55 @@ def batch_rows(batch: int, n_batch: int, batch_rank: int) -> slice:
     """The requests a rank serves (all of them when the batch does not
     divide the data axis)."""
     return _block(batch, n_batch, batch_rank)
+
+
+def moe_layout(cfg, ctx) -> str | None:
+    """How the expert weights lie under ``ctx``'s mesh: ``"ep"`` (slot
+    rows over the model axis), ``"esp"`` (hidden-dim shards) or None
+    (whole on every rank: no mesh, no MoE, or the dense oracle).
+    ``moe_impl="auto"`` under a mesh: EP where the experts divide the
+    model axis, else ESP, the reference's choice (``moe_apply`` takes it;
+    without a mesh it serves the dense oracle)."""
+    if ctx.mesh is None or not cfg.is_moe or ctx.moe_impl == "dense":
+        return None
+    if ctx.moe_impl != "auto":
+        return ctx.moe_impl
+    return "ep" if cfg.n_experts % ctx.n_model == 0 else "esp"
+
+
+def param_layout(cfg, ctx) -> dict[str, tuple[int, slice]]:
+    """The model-sharded leaves of the stacked ``attn`` parameters, by
+    path (``"layers/moe/w_gate"``): ``(dim, the rank's slice)``. Under EP
+    the slot rows (dim 1 of ``(L, E, ...)``), under ESP the hidden dim
+    (``w_gate``/``w_up`` dim 3, ``w_down`` dim 2), each only where it
+    splits; empty when every leaf is replicated."""
+    m, r = ctx.n_model, ctx.model_rank
+    impl = moe_layout(cfg, ctx)
+    names = ("w_gate", "w_up", "w_down")
+    if impl == "ep" and is_split(cfg.n_experts, m):
+        rows = slot_rows(cfg.n_experts, m, r)
+        return {f"layers/moe/{w}": (1, rows) for w in names}
+    if impl == "esp" and is_split(cfg.moe_d_ff_, m):
+        fs = expert_hidden(cfg.moe_d_ff_, m, r)
+        return {f"layers/moe/{w}": (2 if w == "w_down" else 3, fs) for w in names}
+    return {}
+
+
+def rank_params(params: dict, cfg, ctx) -> dict:
+    """Rank ``ctx``'s slices of a full parameter tree (or of a moment
+    shaped like it), as the Server and the trainer keep them: the leaves
+    of :func:`param_layout` cut into contiguous copies (the full tensor
+    can then be freed), every other leaf whole (the same object)."""
+    layout = param_layout(cfg, ctx)
+
+    def cut(tree, prefix):
+        if isinstance(tree, dict):
+            return {k: cut(v, f"{prefix}{k}/") for k, v in tree.items()}
+        spec = layout.get(prefix.rstrip("/"))
+        if spec is None:
+            return tree
+        dim, sl = spec
+        return tree.narrow(dim, sl.start, sl.stop - sl.start).clone(
+            memory_format=torch.contiguous_format)
+
+    return cut(params, "")

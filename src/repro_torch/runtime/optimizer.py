@@ -22,6 +22,7 @@ import math
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,22 +86,32 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of the sum of squares, each in fp32."""
-    total = None
-    for x in leaves(tree):
-        sq = x.float().square().sum()
-        total = sq if total is None else total + sq
-    return torch.sqrt(total)
+def global_norm(tree, sharded=None, group=None) -> torch.Tensor:
+    """sqrt of the sum over leaves of the sum of squares, each in fp32.
+
+    Under a mesh the norm is the whole model's, the same on every rank:
+    ``sharded`` (one bool a leaf, in :func:`leaves` order) marks the leaves
+    split over ``group`` (the model group), whose sums of squares are
+    all-reduced there; a replicated leaf counts once."""
+    xs = list(leaves(tree))
+    flags = [False] * len(xs) if sharded is None else sharded
+    parts = [torch.zeros((), dtype=torch.float32, device=xs[0].device) for _ in range(2)]
+    for x, split in zip(xs, flags, strict=True):
+        parts[split] += x.float().square().sum()
+    if any(flags):
+        dist.all_reduce(parts[1], group=group)
+    return torch.sqrt(parts[0] + parts[1])
 
 
-def adamw_update(grads, opt_state: dict, params, cfg: AdamWConfig):
+def adamw_update(grads, opt_state: dict, params, cfg: AdamWConfig, sharded=None,
+                 group=None):
     """One AdamW step, in place: ``params``, ``opt_state["mu"]`` and
     ``["nu"]`` are overwritten and ``opt_state["step"]`` advances. Returns
     ``(params, opt_state, {"grad_norm": pre-clip norm, "lr": lr})``, the
-    same objects, as the reference returns its new state."""
+    same objects, as the reference returns its new state. ``sharded`` and
+    ``group``: the clip norm's under a mesh (:func:`global_norm`)."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, sharded, group)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     lr = cosine_lr(cfg)(step)
     stepf = step.float()

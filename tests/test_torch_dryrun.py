@@ -13,8 +13,12 @@ reference's ``test_dryrun_machinery_small_mesh``
 * the EP all-to-all's operand bytes equal to ``ep_moe_shardmap``'s static
   buffers, and the call counts;
 * FLOPs of the dense model's decode against its matmuls;
-* a train cell (and a recurrent pattern) recorded as ``SKIP`` naming its
-  ROADMAP item, never ``FAIL``; the CLI's file per cell.
+* llama's ``train_4k`` cell (one train step with remat, gradients on):
+  its arguments are exactly rank 0's parameters, two fp32 moments, the
+  step and its batch rows, and its FLOPs at least three times its
+  forward's;
+* a recurrent pattern's cells (a train cell too) recorded as ``SKIP``
+  naming its ROADMAP item, never ``FAIL``; the CLI's file per cell.
 
 The reference's dry run is not imported here: it sets ``XLA_FLAGS`` when
 imported. Its config helpers are held in ``test_torch_configs_shapes.py``.
@@ -26,10 +30,13 @@ import json
 import pytest
 import torch
 import torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs import SHAPES, ShapeConfig, get_config, smoke
 from repro_torch.launch import dryrun as D
 from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.models import transformer as T
+from repro_torch.parallel import sharding
 from repro_torch.parallel.collectives import bucket_capacity
 
 torch.set_num_threads(1)
@@ -46,6 +53,15 @@ def records():
     mesh = make_test_mesh(DATA, MODEL)
     out = {(m, c): D.trace_cell(make(), shape, mesh)
            for m, make in MODELS.items() for c, shape in CELLS.items()}
+    cfg, shape = MODELS["llama3.2-1b"](), SHAPES["train_4k"]
+    out[("llama3.2-1b", "train")] = D.trace_cell(cfg, shape, mesh)
+    ctx = D.make_ctx(mesh, shape.global_batch)
+    with FakeTensorMode():
+        params = sharding.rank_params(T.init_params(cfg, dtype=D.PARAM_DTYPE, device="cpu"),
+                                      cfg, ctx)
+        tokens = torch.zeros((shape.global_batch // DATA, shape.seq_len), dtype=torch.int32)
+        _, out[("llama3.2-1b", "forward")] = D.analyze(
+            lambda p, t: T.forward(p, t, cfg, ctx), params, tokens)
     dist.destroy_process_group()
     return out
 
@@ -119,8 +135,27 @@ def test_dense_decode_flops(records):
     assert records[("llama3.2-1b", "decode")]["flops"] == want
 
 
+def test_train_cell_arguments_and_flops(records):
+    """Rank 0's train state and batch rows are the step's arguments, byte
+    for byte: its bf16 parameters, two fp32 moments of them, the int32
+    step, and 128 rows of 4096 int32 tokens and labels. The backward's
+    products (two a forward product, and the forward recomputed under
+    remat) put the step's FLOPs at three times the forward's or more."""
+    cfg, shape = MODELS["llama3.2-1b"](), SHAPES["train_4k"]
+    rec = records[("llama3.2-1b", "train")]
+    params = _param_bytes(cfg, MODEL)
+    assert rec["param_bytes"] == params
+    rows = shape.global_batch // DATA
+    assert rec["argument_size_in_bytes"] == \
+        params + 2 * 2 * params + 4 + 2 * rows * shape.seq_len * 4
+    assert rec["flops"] >= 3 * records[("llama3.2-1b", "forward")]["flops"] > 0
+    assert rec["temp_size_in_bytes"] > 0 and rec["n_devices"] == DATA * MODEL
+    # the data-parallel gradient average and the clip norm's sum
+    assert rec["collective_calls"]["all-reduce"] > 0
+
+
 def test_skips_name_their_roadmap_item():
-    for arch, shape, item in (("llama3.2-1b", "train_4k", "item 7b"),
+    for arch, shape, item in (("zamba2-1.2b", "train_4k", "item 6"),
                               ("zamba2-1.2b", "decode_32k", "item 6"),
                               ("xlstm-350m", "long_500k", "item 6"),
                               ("seamless-m4t-medium", "prefill_32k", "item 6")):

@@ -63,7 +63,7 @@ def test_port_imports_neither_jax_nor_repro():
                 "core/comm_model.py", "core/ftd.py", "core/workloads.py", "core/traces.py",
                 "core/simulator.py", "figures/run.py", "figures/common.py",
                 "launch/mesh.py", "launch/dryrun.py", "benchmarks/bench_kernels.py",
-                "figures/roofline.py"):
+                "figures/roofline.py", "parallel/grad_compress.py"):
         assert f"src/repro_torch/{mod}" in names
 
 

@@ -65,8 +65,8 @@ def test_analyze_record_matches_reference(h100_reference, rec):
 
 
 def test_skip_and_fail_records(h100_reference):
-    for status in ("SKIP (training under a mesh: ROADMAP Queue 1 item 7b)", "FAIL: X"):
-        rec = {"arch": "llama3.2-1b", "shape": "train_4k", "mesh": "single",
+    for status in ("SKIP (zamba under a mesh: ROADMAP Queue 1 item 6)", "FAIL: X"):
+        rec = {"arch": "zamba2-1.2b", "shape": "train_4k", "mesh": "single",
                "status": status}
         assert R.analyze_record(rec) is None is h100_reference.analyze_record(rec)
 

@@ -14,7 +14,9 @@ numpy inputs and bridged parameters (``repro_torch.bridge``):
 * the CLI: a checkpoint the JAX trainer wrote after 2 steps, resumed by
   the port's CLI for 2 more, against the JAX trainer's 4 uninterrupted
   steps, and the log lines against the reference's;
-* the refusals that name ROADMAP Queue 1 item 7b.
+* a 1 x 1 gloo mesh in this process: the train step, ``grad_compress``,
+  ``--mesh 1x1`` and ``--pod-sync`` equal to the no-mesh run bit for bit
+  (four ranks: ``tests/test_torch_mesh_train.py``).
 
 Tolerances (fp32): forward values and gradients ``rtol = atol = 1e-5``
 (summation order only); after AdamW steps see ``_state_close``.
@@ -31,6 +33,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro.configs import get_config as jget
 from repro.configs import smoke as jsmoke
@@ -48,7 +51,7 @@ from repro_torch.kernels import registry as R
 from repro_torch.launch import train as cli
 from repro_torch.models import transformer as T
 from repro_torch.parallel.ctx import ParallelCtx
-from repro_torch.parallel.mesh import Mesh
+from repro_torch.parallel.mesh import make_mesh
 from repro_torch.runtime import optimizer as O
 from repro_torch.runtime import train as TR
 from repro_torch.runtime.data import DataConfig, SyntheticLM
@@ -482,24 +485,74 @@ def test_bridge_carries_bf16_state():
 
 
 # ---------------------------------------------------------------------------
-# refusals: training under a mesh is ROADMAP Queue 1 item 7b
+# a mesh of one rank: the same training, bit for bit
 # ---------------------------------------------------------------------------
 
-def test_training_under_a_mesh_raises(monkeypatch):
+def _states_equal(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(O.leaves(a), O.leaves(b), strict=True))
+
+
+def test_training_under_a_mesh_raises(tmp_path):
+    """On a 1 x 1 gloo mesh in this process the train step (EP over the
+    all-to-all legs, the kernels' plain versions and the plain path), and
+    with ``grad_compress=True`` (taken and unused, as in the reference),
+    equals the no-mesh step bit for bit; so do the CLI's ``--mesh 1x1``
+    (its own world of one, torn down after) and ``--pod-sync`` (no pod
+    axis: nothing to sync): metrics bit for bit, states too but for
+    dbrx's under ``--mesh``, where ``moe_impl="auto"`` serves EP against
+    the no-mesh run's dense oracle (within 1e-5)."""
     cfg = smoke(get_config("dbrx-132b"))
-    mesh_ctx = ParallelCtx(mesh=Mesh(1, 1, 0, None, None))
-    opt = O.AdamWConfig()
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        TR.make_train_step(cfg, mesh_ctx, opt)
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        TR.make_train_step(cfg, ParallelCtx(), opt, grad_compress=True)
-    params = T.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        T.forward(params, torch.zeros((1, 4), dtype=torch.int32), cfg, mesh_ctx)
-    base = ["--arch", "dbrx-132b", "--smoke", "--device", "cpu", "--steps", "1"]
-    for extra in (["--mesh", "2x2"], ["--mesh", "1x1"], ["--pod-sync", "5"]):
-        with pytest.raises(NotImplementedError, match="item 7b"):
-            cli.main([*base, *extra])
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        cli.main(base)
+    opt = O.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    rng = np.random.default_rng(3)
+    batch = {k: torch.tensor(rng.integers(0, cfg.vocab_size, (2, 8))) for k in ("tokens",
+                                                                                 "labels")}
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, 1)
+        for uk in ("auto", False):
+            runs = {}
+            for name, ctx, compress in (
+                ("no mesh", ParallelCtx(moe_impl="ep", use_kernels=uk), False),
+                ("mesh", ParallelCtx(mesh=mesh, moe_impl="ep", use_kernels=uk), False),
+                ("grad_compress", ParallelCtx(moe_impl="ep", use_kernels=uk), True),
+            ):
+                state = TR.init_state(cfg, device="cpu", ctx=ctx)
+                step = TR.make_train_step(cfg, ctx, opt, grad_compress=compress)
+                mets = []
+                for _ in range(2):
+                    state, met = step(state, batch)
+                    mets.append({k: float(v) for k, v in met.items()})
+                runs[name] = state, mets
+            want, want_m = runs["no mesh"]
+            for name in ("mesh", "grad_compress"):
+                assert runs[name][1] == want_m, (uk, name)
+                assert _states_equal(runs[name][0], want), (uk, name)
+    finally:
+        dist.destroy_process_group()
+    for arch in ("llama3.2-1b", "dbrx-132b"):
+        base = ["--arch", arch, "--smoke", "--device", "cpu", "--steps", "3", "--batch", "2",
+                "--seq", "8"]
+        want_state, want = cli.main(base)
+        for extra in (["--mesh", "1x1"], ["--pod-sync", "5"],
+                      ["--mesh", "1x1", "--pod-sync", "1"]):
+            state, got = cli.main([*base, *extra])
+            assert [{k: v for k, v in r.items() if k != "seconds"} for r in got] == \
+                [{k: v for k, v in r.items() if k != "seconds"} for r in want], extra
+            assert not dist.is_initialized()
+            if arch == "llama3.2-1b" or "--mesh" not in extra:
+                assert _states_equal(state, want_state), (arch, extra)
+            else:   # moe_impl "auto": the dense oracle with no mesh, EP on the mesh
+                _tree_close(O.tree_map(_np, state), O.tree_map(_np, want_state))
+
+
+@pytest.mark.parametrize("spec,world,want", [
+    ("auto", 1, None), ("auto", 2, (1, 2)), ("auto", 4, (1, 4)), ("auto", 6, (3, 2)),
+    ("auto", 16, (2, 8)), ("auto", 24, (3, 8)), ("2x2", 4, (2, 2)), ("1x1", 1, (1, 1)),
+])
+def test_cli_mesh_shape(spec, world, want):
+    """``--mesh`` over a world: ``auto`` takes the reference CLI's model
+    axis (the largest power of two up to 8 dividing the world, the rest
+    data); a ``DxM`` that does not cover the world is refused."""
+    assert cli.mesh_shape(spec, world) == want
+    with pytest.raises(ValueError, match="needs 4 ranks"):
+        cli.mesh_shape("2x2", 2)
