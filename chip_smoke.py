@@ -111,7 +111,17 @@ Phases (one line each; any failure raises and the exit code is non-zero):
       are plain, so xlstm launches none); TTFT, decode tok/s, the busy
       share over 8 profiled decode steps, peak memory and the phase's wall
       time; for zamba2 and xlstm the host and device time inside the plain
-      recurrences over 8 more decode steps.
+      recurrences over 8 more decode steps. (m) The families that serve
+      under a mesh since item 6 on the 1 x 1 NCCL mesh: each one's smoke()
+      model, head dim 32, fp32, on the mesh and without it, greedy tokens
+      equal and every step's logits within the fp32 limit; then
+      zamba2-1.2b, xlstm-350m and seamless-m4t-medium at full depth, bf16,
+      3g's prompts, embeds and weights, after a short warm-up on the mesh:
+      launches as predicted (``family_mesh_launches``: the dense-cache
+      decode through ``flash_decode``'s partials mode, the normalised
+      kernel 0), TTFT, decode tok/s, the busy share over 4 profiled decode
+      steps, peak memory, and each request's bf16 token prefix shared with
+      its no-mesh run.
    h. training on one process (``runtime/train.py``, the registry's
       autograd Functions: kernel forward, plain backward), after every
       server is freed: (a) the smoke() model, head dim 32, fp32, of
@@ -140,7 +150,8 @@ Phases (one line each; any failure raises and the exit code is non-zero):
       (i) the smoke() models of dbrx-132b under ``ep`` (the fused branch)
       and mixtral-8x22b under ``esp``, fp32, 3 steps on the mesh against
       3 without it, both with the kernels, within the fp32 limit, launches
-      as predicted on a mesh; (ii) inside (b), on the same state after
+      as predicted on a mesh, and one such step of zamba2-1.2b,
+      xlstm-350m and seamless-m4t-medium; (ii) inside (b), on the same state after
       its no-mesh steps, mixtral-8x22b width on the mesh under ``ep`` and
       ``esp``: step 0's gradients within (b)'s bf16 bound (their distance
       from the fp32 run's at most twice the plain path's plus 2^-5) and
@@ -159,8 +170,10 @@ Phases (one line each; any failure raises and the exit code is non-zero):
       committed ``BENCH_kernels.json`` (read only), 0 mismatches; (d) in
       a subprocess (the dry run's fake world of ranks cannot share this
       process with the NCCL group), the dry run of llama3.2-1b cut to 2
-      layers at ``decode_32k`` on a 2 x 4 test mesh and of dbrx-132b at
-      ``decode_32k`` on the ER 16 x 16 mesh at full depth, each cell's
+      layers at ``decode_32k`` on a 2 x 4 test mesh and of dbrx-132b and
+      zamba2-1.2b at ``decode_32k`` on the ER 16 x 16 mesh at full depth
+      (zamba2's calls held: two all-reduces a Mamba2 layer, three a
+      shared-block merge), each cell's
       status, FLOPs, argument, temp and collective GB and wall seconds
       (host only, fake tensors: no memory on the card); (e) the
       roofline's rows over those records (model output at the H100's
@@ -3172,6 +3185,128 @@ def family_path(torch, arch: str, card: str) -> dict:
         f"{run['decode_tok_s']:.1f} tok/s, device busy {run['device_busy_share']:.1%}, peak "
         f"memory {peak_gb:.2f} GB, phase {run['phase_s']:.1f}s, launches "
         f"{ {k: v for k, v in launches.items() if v} } as predicted{rec} [{card}]")
+    return {"launches": {k: v for k, v in launches.items() if v}, **run}, out_cpu
+
+
+# phase 3g (m): the families that serve under a mesh since item 6
+FAMILY_MESH = ("zamba2-1.2b", "xlstm-350m", "seamless-m4t-medium")
+
+
+def family_mesh_launches(cfg, n_new: int) -> dict:
+    """The launches of one ``generate`` of ``n_new`` tokens on the 1 x 1
+    mesh: ``flash_attention`` as without it (``family_launches``), and the
+    dense-cache decode through ``flash_decode``'s partials mode and the
+    LSE merge (the ``attn`` mesh path's ``seq_parallel_decode_attend``),
+    once a self-attention layer and step; the normalised ``flash_decode``
+    none, cross-attention and the recurrences plain."""
+    want = family_launches(cfg, False, n_new)
+    want["flash_decode_partials"] = want.pop("flash_decode")
+    want["flash_decode"] = 0
+    return want
+
+
+def small_family_mesh_parity(torch, mesh, arch: str) -> dict:
+    """Phase 3g (m): ``arch``'s smoke() model at head dim 32, fp32, served
+    with the kernels on the 1 x 1 NCCL mesh and without it: greedy tokens
+    equal, the prefill's and each decode step's logits within the fp32
+    limit, the mesh run's launches as ``family_mesh_launches`` predicts.
+    Returns the mesh run's launches and the logits' excess."""
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.kernels.tolerance import PLAIN
+    from repro_torch.launch.serve import stub_embeds
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.ctx import ParallelCtx
+    from repro_torch.runtime.serve import ServeConfig, Server
+
+    cfg = dataclasses.replace(smoke(get_config(arch)), head_dim=32)
+    n_new = 12
+    prompt = torch.randint(0, cfg.vocab_size, (4, 12),
+                           generator=torch.Generator().manual_seed(33))
+    embeds = stub_embeds(cfg, 4, 0, torch.float32, "cuda")
+    runs = {}
+    for name, ctx in (("mesh", ParallelCtx(mesh=mesh)), ("no mesh", ParallelCtx())):
+        zero_launches()
+        srv = Server(cfg, ctx, T.init_params(cfg, seed=34, device="cuda"),
+                     ServeConfig(max_seq=64, batch=4), device="cuda")
+        logits, cache = srv.prefill(prompt, embeds=embeds)
+        steps, toks = [logits], []
+        tok = torch.argmax(logits[:, -1:], dim=-1)
+        for _ in range(n_new):
+            toks.append(tok)
+            logits, cache = srv.decode(tok, cache)
+            steps.append(logits)
+            tok = torch.argmax(logits[:, -1:], dim=-1)
+        torch.cuda.synchronize()
+        runs[name] = (torch.cat(toks, 1).cpu(), steps, read_launches())
+    (tm, lm, launched), (tn, ln, _) = runs["mesh"], runs["no mesh"]
+    if not torch.equal(tm, tn):
+        raise AssertionError(f"phase 3g (m) small {arch}: mesh tokens differ from the "
+                             f"no-mesh run's:\n{tm}\n{tn}")
+    ex = max(held(torch, a, b, PLAIN[torch.float32],
+                  f"phase 3g (m) small {arch} logits, step {i}")["excess"]
+             for i, (a, b) in enumerate(zip(lm, ln, strict=True)))
+    want = family_mesh_launches(cfg, n_new)
+    if launched != want:
+        raise AssertionError(f"phase 3g (m) small {arch}: launches {launched} != {want}")
+    return {"launches": {k: v for k, v in launched.items() if v}, "excess": ex}
+
+
+def family_mesh_path(torch, arch: str, mesh, card: str, no_mesh_tokens) -> dict:
+    """Phase 3g (m) for one family at its full width and depth on the 1 x 1
+    NCCL mesh, after its no-mesh run of 3g (whose kernels and cuBLAS
+    shapes are warm): bf16, 3g's prompts, embeds and 32 new tokens after a
+    short warm-up on the mesh; launches as ``family_mesh_launches``
+    predicts; TTFT, decode tok/s, the busy share over 4 profiled decode
+    steps, peak memory; each request's bf16 token prefix shared with the
+    no-mesh run (logged: the mesh's partials decode and LSE merge round
+    apart from the normalised kernel)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import stub_embeds
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.ctx import ParallelCtx
+    from repro_torch.runtime.data import request_stream
+    from repro_torch.runtime.serve import ServeConfig, Server
+
+    batch, prompt_len, n_new = 8, 256, 32
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    srv = Server(cfg, ParallelCtx(mesh=mesh),
+                 T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda"),
+                 ServeConfig(max_seq=1024, batch=batch), device="cuda")
+    prompt = next(request_stream(cfg.vocab_size, batch, prompt_len, seed=0))
+    embeds = stub_embeds(cfg, batch, 0, torch.bfloat16, "cuda")
+    srv.generate(prompt[:, :16], 2, embeds=embeds)    # warm-up on the mesh
+    zero_launches()
+    out, logits, ttft_s, decode_s = timed_generate(torch, srv, prompt, n_new, embeds)
+    launches = read_launches()
+    predicted = family_mesh_launches(cfg, n_new)
+    if launches != predicted:
+        raise AssertionError(f"phase 3g (m) {arch}: launches {launches} != {predicted}")
+    out_cpu = out.cpu()
+    if out_cpu.shape != (batch, n_new) or int(out_cpu.min()) < 0 or \
+            int(out_cpu.max()) >= cfg.vocab_size:
+        raise AssertionError(f"phase 3g (m) {arch}: tokens out of range")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"phase 3g (m) {arch}: non-finite prefill logits")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # 4 profiled steps, where 3g takes 8: the profiler's own start-up and
+    # processing are most of a zamba2 window's seconds
+    profile = profile_decode(torch, srv, prompt, card, steps=4, embeds=embeds)
+    same = (out_cpu == no_mesh_tokens).int().cumprod(dim=1).sum(dim=1).tolist()
+    del srv
+    torch.cuda.synchronize()
+    run = {"ttft_ms": ttft_s * 1e3, "decode_ms": decode_s * 1e3,
+           "decode_tok_s": batch * n_new / decode_s, "peak_gb": peak_gb,
+           "prefix_shared_with_no_mesh": same, "phase_s": time.perf_counter() - t_phase,
+           **profile}
+    log(f"phase 3g (m) {arch} on the 1 x 1 NCCL mesh: {cfg.n_layers} layers, bf16, dense "
+        f"cache, {batch} x {prompt_len}-token prompts -> {n_new} decode steps: TTFT (prefill) "
+        f"{run['ttft_ms']:.1f} ms, decode {run['decode_ms']:.1f} ms = "
+        f"{run['decode_tok_s']:.1f} tok/s, device busy {run['device_busy_share']:.1%}, peak "
+        f"memory {peak_gb:.2f} GB, phase {run['phase_s']:.1f}s, launches "
+        f"{ {k: v for k, v in launches.items() if v} } as predicted; bf16 tokens shared with "
+        f"the no-mesh run from the start: {same} of {n_new} [{card}]")
     return {"launches": {k: v for k, v in launches.items() if v}, **run}
 
 
@@ -3194,7 +3329,8 @@ BENCH_FFN_KERNELS = {
 # (name, arch, layers kept (None: all), shape, mesh) of the dry-run cells
 DRYRUN_CELLS = (("llama3.2-1b 2 layers, 2 x 4 test mesh", "llama3.2-1b", 2, "decode_32k",
                  "test"),
-                ("dbrx-132b, ER 16 x 16", "dbrx-132b", None, "decode_32k", "single"))
+                ("dbrx-132b, ER 16 x 16", "dbrx-132b", None, "decode_32k", "single"),
+                ("zamba2-1.2b, ER 16 x 16", "zamba2-1.2b", None, "decode_32k", "single"))
 
 
 def bench_families(iters: int, smoke: bool) -> dict:
@@ -3352,6 +3488,17 @@ def kernel_bench_path(torch, card: str) -> dict:
         if rec["status"] != "OK" or not rec["collectives"]["total"] > 0:
             raise AssertionError(f"phase 3i (d) {rec.get('cell')}: {rec['status']} "
                                  f"{rec.get('error', '')[-1500:]}")
+        if rec["arch"] == "zamba2-1.2b":
+            # two all-reduces a Mamba2 layer (its 64 heads split 4 a rank),
+            # the shared block's three-all-reduce LSE merge a unit
+            from repro_torch.configs import get_config
+            from repro_torch.models.transformer import zamba_layout
+
+            cfg = get_config("zamba2-1.2b")
+            want = {"all-reduce": 2 * cfg.n_layers + 3 * zamba_layout(cfg)[0]}
+            if rec["collective_calls"] != want:
+                raise AssertionError(f"phase 3i (d) {rec['cell']}: collective calls "
+                                     f"{rec['collective_calls']} != {want}")
         log(f"phase 3i (d) dry run {rec['cell']} {rec['shape']}: {rec['status']}, "
             f"{rec['flops']:.4g} FLOP, arguments {rec['argument_size_in_bytes'] / 1e9:.3f} GB, "
             f"temp {rec['temp_size_in_bytes'] / 1e9:.3f} GB, collectives "
@@ -3893,10 +4040,11 @@ def mesh_training_path(torch, mesh, card: str, cli_losses: list) -> dict:
     """Phase 3h (d) (i) and (iii); (ii) runs inside 3h (b)."""
     t0 = time.perf_counter()
     small = {}
-    for arch, impl in (("dbrx-132b", "ep"), ("mixtral-8x22b", "esp")):
-        r = small_mesh_train_parity(torch, mesh, arch, impl)
+    for arch, impl, steps in (("dbrx-132b", "ep", 3), ("mixtral-8x22b", "esp", 3),
+                              *((a, "auto", 1) for a in FAMILY_MESH)):
+        r = small_mesh_train_parity(torch, mesh, arch, impl, steps)
         small[f"{arch} {impl}"] = r
-        log(f"phase 3h (d) (i) small fp32 {arch} ({impl}) on the 1 x 1 NCCL mesh: 3 train "
+        log(f"phase 3h (d) (i) small fp32 {arch} ({impl}) on the 1 x 1 NCCL mesh: {steps} train "
             f"steps equal the no-mesh steps' within the fp32 limit (gradients "
             f"{r['excess_grads']:.3g}, params {r['excess_params']:.3g}, mu "
             f"{r['excess_mu']:.3g}, sqrt(nu) {r['excess_sqrt_nu']:.3g} x the limit; "
@@ -4229,11 +4377,23 @@ def main(argv=None) -> int:
     esp_mesh_launches, esp_mesh_groups, esp_mesh_run = mesh_esp_path(torch, mesh, card, esp_run)
     gc.collect()
     torch.cuda.empty_cache()
-    family_runs = {}
+    family_runs, family_tokens = {}, {}
     for arch in FAMILY_RUNS:
-        family_runs[arch] = family_path(torch, arch, card)
+        family_runs[arch], family_tokens[arch] = family_path(torch, arch, card)
         gc.collect()
         torch.cuda.empty_cache()
+    t_mesh = time.perf_counter()
+    small_family_mesh, family_mesh_runs = {}, {}
+    for arch in FAMILY_MESH:
+        small_family_mesh[arch] = r = small_family_mesh_parity(torch, mesh, arch)
+        log(f"phase 3g (m) small fp32 {arch} model (smoke, head dim 32) on the 1 x 1 NCCL "
+            f"mesh: greedy tokens equal the no-mesh run's, logits within the fp32 limit "
+            f"({r['excess']:.3g} x), launches {r['launches']} as predicted")
+        family_mesh_runs[arch] = family_mesh_path(torch, arch, mesh, card, family_tokens[arch])
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phase 3g (m): {time.perf_counter() - t_mesh:.1f} s")
+    del family_tokens
     training = training_path(torch, card, mesh)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4598,6 +4758,8 @@ def main(argv=None) -> int:
                 for what, c in bf["family"].items() if what.startswith(name + " ")}
         extra["launches_family_paths"] = {
             arch: r["launches"].get(name, 0) for arch, r in family_runs.items()}
+        extra["launches_family_mesh_paths"] = {
+            arch: r["launches"].get(name, 0) for arch, r in family_mesh_runs.items()}
         extra["launches_training_paths"] = {
             **{f"full width {impl}, {len(r['ms_per_step'])} steps": r["launches"].get(name, 0)
                for impl, r in training["full_width"].items()},
@@ -4607,7 +4769,7 @@ def main(argv=None) -> int:
                for what, r in training["small"].items()},
             **{f"1 x 1 mesh, full width {impl}, {len(r['mesh']['ms_per_step'])} steps":
                r["mesh"]["launches"].get(name, 0) for impl, r in training["full_width"].items()},
-            **{f"1 x 1 mesh, small {what}, 3 steps": r["launches"].get(name, 0)
+            **{f"1 x 1 mesh, small {what}, {len(r['losses'])} steps": r["launches"].get(name, 0)
                for what, r in training["mesh"]["small"].items()},
             "1 x 1 mesh, train CLI llama3.2-1b, 3 steps": (
                 training["mesh"]["cli"]["launches_flash_attention"]
@@ -4635,6 +4797,8 @@ def main(argv=None) -> int:
                       "run_mesh_serving": {"small": small_served, "chunked_chaos": mesh_chunk_run,
                                            "esp": esp_mesh_run},
                       "run_families": family_runs, "small_families": small_families,
+                      "run_families_mesh": family_mesh_runs,
+                      "small_families_mesh": small_family_mesh,
                       "run_training": training,
                       "run_kernel_bench": {k: v for k, v in bench.items() if k != "smoke"},
                       "op_layer_excess": op_excess}), flush=True)

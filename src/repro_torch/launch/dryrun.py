@@ -22,9 +22,19 @@ rows (one new token against a ``seq_len`` cache):
   and AdamW) on rank 0's slices of the train state (``sharding.
   rank_params``: the moments take their parameter's layout) and its batch
   rows, traced with gradients on;
-* the ``zamba``, ``xlstm`` and ``encdec`` patterns under a mesh are
-  recorded as ``SKIP`` naming the ROADMAP item that brings them (Queue 1
-  item 6), as ``long_500k`` is for a model with full attention.
+* ``long_500k`` is recorded as ``SKIP`` for a model with full attention.
+
+Every block pattern is traced. The recurrent blocks' time loops
+(``models.ssm``: a Python loop over the sequence where the reference
+traces one ``lax.scan`` body) would dispatch every step of every layer,
+about 32768 x 38 steps for zamba2's ``prefill_32k``. A cost probe
+(:class:`TimeProbe`) runs three steps of each loop instead, counts the
+middle one's forward and backward ops ``t - 2`` times, and pads the
+stacked output to its ``t`` steps, counted as their stack: the cost of a
+step does not depend on ``t``, so FLOPs, bytes accessed and collectives
+come out as a full trace's (``tests/test_torch_dryrun.py`` holds them
+equal at a small ``t``). ``temp_size_in_bytes`` holds three steps'
+temporaries live, not ``t``.
 
 The ctx is the reference's: capacity factor 1.25 and the plain path
 (``use_kernels=False``), since no CUDA kernel launches on a fake tensor
@@ -60,6 +70,7 @@ from torch.utils.flop_counter import FlopCounterMode
 from repro_torch.configs import ARCHS, SHAPES, get_config, shapes_for
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.launch.mesh import make_er_mesh, make_production_mesh
+from repro_torch.models import ssm
 from repro_torch.models import transformer as T
 from repro_torch.parallel import sharding
 from repro_torch.parallel.ctx import ParallelCtx
@@ -69,7 +80,6 @@ from repro_torch.runtime.train import make_train_step
 
 PARAM_DTYPE = torch.bfloat16
 WORLD = {"single": 256, "multi": 512}
-ITEM_6 = "ROADMAP Queue 1 item 6"
 
 # c10d op the port's collectives dispatch to -> the reference's HLO name
 # (``parallel/collectives.py``: ``all_reduce``, ``all_gather``,
@@ -189,30 +199,56 @@ def _key(t: torch.Tensor) -> int:
 
 class _Cost(TorchDispatchMode):
     """Counts what every aten op of a traced step reads, writes and
-    allocates, and the operand bytes of every c10d collective."""
+    allocates, and the operand bytes of every c10d collective. An op of a
+    step that :class:`TimeProbe` stands for counts ``1 + extra`` times:
+    its FLOPs (read off ``flops``, the ``FlopCounterMode`` beneath this
+    mode) go to ``extra_flops``."""
 
-    def __init__(self, held: set[int]):
+    def __init__(self, held: set[int], flops: FlopCounterMode):
         super().__init__()
         self.held = held                 # the arguments' storages
+        self.flops = flops
         self.bytes_accessed = 0
+        self.extra_flops = 0
         self.collectives: dict[str, int] = {}
         self.calls: dict[str, int] = {}
         self.live: dict[int, list[int]] = {}   # storage -> [bytes, tensor objects]
         self.now = 0
         self.peak = 0
+        self.step_extra = 0              # a probed forward step's extra count
+        self.paused = False              # the probe's padding: no cost
+        # (first, last) autograd sequence numbers of a probed step's
+        # nodes, and the step's extra count, for its backward
+        self.windows: list[tuple[int, int, int]] = []
+
+    def _extra(self) -> int:
+        if self.step_extra or not self.windows:
+            return self.step_extra
+        node = torch._C._current_autograd_node()
+        if node is None:
+            return 0
+        seq = node._sequence_nr()
+        return next((n for lo, hi, n in self.windows if lo <= seq <= hi), 0)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        extra = 0 if self.paused else self._extra()
+        f0 = self.flops.get_total_flops() if extra else 0
         out = func(*args, **kwargs)
-        if func.namespace == "c10d":
-            self._collective(func, args)
+        if extra:
+            self.extra_flops += extra * (self.flops.get_total_flops() - f0)
+        if self.paused:
+            pass                         # the probe's padding costs nothing
+        elif func.namespace == "c10d":
+            self._collective(func, args, 1 + extra)
         elif _moves_bytes(func, out):
-            self.bytes_accessed += tree_bytes(args) + tree_bytes(kwargs) + tree_bytes(out)
+            self.bytes_accessed += (1 + extra) * (
+                tree_bytes(args) + tree_bytes(kwargs) + tree_bytes(out))
         for t in _tensors(out):
             self._track(t)
         return out
 
-    def _collective(self, func, args) -> None:
+    def _collective(self, func, args, times: int) -> None:
         name = func._schema.name.split("::")[-1]
         if name == "recv_":
             return                       # the send counts the permute's operand
@@ -223,8 +259,8 @@ class _Cost(TorchDispatchMode):
         # in the all-gather and all-to-all schemas)
         operand = args[0] if name in ("allreduce_", "send") else args[1]
         n = tree_bytes(operand) * (2 if op == "all-reduce" else 1)
-        self.collectives[op] = self.collectives.get(op, 0) + n
-        self.calls[op] = self.calls.get(op, 0) + 1
+        self.collectives[op] = self.collectives.get(op, 0) + times * n
+        self.calls[op] = self.calls.get(op, 0) + times
 
     def _track(self, t: torch.Tensor) -> None:
         key = _key(t)
@@ -246,7 +282,61 @@ class _Cost(TorchDispatchMode):
             del self.live[key]
 
 
-def analyze(fn, *args, grad: bool = False) -> tuple[object, dict]:
+def _last_node(*trees) -> int | None:
+    """The highest autograd sequence number among the nodes that made the
+    tensors of ``trees`` (None when none of them has one)."""
+    seqs = [t.grad_fn._sequence_nr() for t in _tensors(trees) if t.grad_fn is not None]
+    return max(seqs) if seqs else None
+
+
+class TimeProbe:
+    """Stands in for the recurrent blocks' time loops under
+    :func:`analyze` (``ssm.time_probe``). A loop of ``t`` steps runs steps
+    0, 1 and 2; step 1, a step with a step on either side as in the full
+    loop, counts ``t - 2`` times in the forward, and so do the backward
+    ops of its autograd nodes (those made between step 0's last output
+    and its own, by sequence number). The stacked output is padded to
+    ``t`` steps at no cost and counted as the stack of ``t`` steps. A loop
+    of three steps or fewer runs whole."""
+
+    STEPS = 3
+
+    def __init__(self, cost: _Cost):
+        self.cost = cost
+
+    def scan(self, step, carry, t: int):
+        ys = []
+        for i in range(min(t, self.STEPS)):
+            if i == 1 and t > self.STEPS:
+                lo = _last_node(carry, ys[-1])
+                self.cost.step_extra = t - self.STEPS
+                try:
+                    carry, y = step(carry, i)
+                finally:
+                    self.cost.step_extra = 0
+                hi = _last_node(carry, y)
+                if lo is not None and hi is not None:
+                    self.cost.windows.append((lo + 1, hi, t - self.STEPS))
+            else:
+                carry, y = step(carry, i)
+            ys.append(y)
+        if t <= self.STEPS:
+            return carry, torch.stack(ys, dim=1)
+        # the stack of all t steps, costed as the full loop's (its bytes:
+        # t outputs read, one t-step tensor written; its backward unbinds,
+        # views only), built from the three steps and a padding
+        y = ys[-1]
+        self.cost.paused = True
+        try:
+            pad = y.new_empty((y.shape[0], t - self.STEPS, *y.shape[1:]))
+            out = torch.cat([torch.stack(ys, dim=1), pad], dim=1)
+        finally:
+            self.cost.paused = False
+        self.cost.bytes_accessed += 2 * t * y.numel() * y.element_size()
+        return carry, out
+
+
+def analyze(fn, *args, grad: bool = False, probe: bool = True) -> tuple[object, dict]:
     """Run ``fn(*args)`` (fake tensors) under the counters, with autograd
     on only where ``grad`` asks for it (a train step); returns its result
     and the record:
@@ -267,16 +357,20 @@ def analyze(fn, *args, grad: bool = False) -> tuple[object, dict]:
     * ``collectives``: operand bytes per c10d op under the reference's
       HLO names, ``all-reduce`` weighted x2 (a ring all-reduce moves about
       twice its operand), plus ``total``; ``collective_calls``: the calls.
+
+    With ``probe`` the recurrences' time loops run under a
+    :class:`TimeProbe`; without it every step is traced.
     """
     held = {_key(t) for t in _tensors(args)}
-    cost = _Cost(held)
     flops = FlopCounterMode(display=False)
-    with torch.set_grad_enabled(grad), flops, cost:
+    cost = _Cost(held, flops)
+    with torch.set_grad_enabled(grad), flops, cost, \
+            ssm.time_probe(TimeProbe(cost) if probe else None):
         out = fn(*args)
     coll = dict(cost.collectives)
     coll["total"] = sum(coll.values())
     rec = {
-        "flops": float(flops.get_total_flops()),
+        "flops": float(flops.get_total_flops() + cost.extra_flops),
         "bytes_accessed": float(cost.bytes_accessed),
         "argument_size_in_bytes": tree_bytes(args),
         "output_size_in_bytes": tree_bytes(out),
@@ -295,17 +389,16 @@ def skip_reason(cfg: ModelConfig, shape: ShapeConfig) -> str | None:
     """Why a cell is not traced (every cell here is under a mesh)."""
     if shape.name == "long_500k" and not cfg.subquadratic:
         return "SKIP (full attention cannot fit the 524k context)"
-    if cfg.block_pattern != "attn":
-        return f"SKIP ({cfg.block_pattern} under a mesh: {ITEM_6})"
     return None
 
 
 def trace_cell(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh,
-               multi_pod: bool = False) -> dict:
+               multi_pod: bool = False, probe: bool = True) -> dict:
     """Trace rank 0's step of one cell on fake tensors; the record of
-    :func:`analyze` plus ``param_count`` (the config's), ``param_bytes``
-    (rank 0's slices) and ``n_devices``. ``multi_pod`` must match the
-    mesh (the batch spans ``pod x data`` there)."""
+    :func:`analyze` (``probe`` as there) plus ``param_count`` (the
+    config's), ``param_bytes`` (rank 0's slices) and ``n_devices``.
+    ``multi_pod`` must match the mesh (the batch spans ``pod x data``
+    there)."""
     if multi_pod != (mesh.pod > 1):
         raise ValueError(f"multi_pod={multi_pod} but the mesh has {mesh.pod} pod(s)")
     ctx = make_ctx(mesh, shape.global_batch)
@@ -324,12 +417,12 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh,
         if shape.kind == "train":
             state = {"params": params, "opt": adamw_init(params)}
             step = make_train_step(cfg, ctx, AdamWConfig(total_steps=10_000))
-            out, rec = analyze(step, state, inputs, grad=True)
+            out, rec = analyze(step, state, inputs, grad=True, probe=probe)
         elif shape.kind == "prefill":
             def step(params, inputs):
                 return T.prefill(params, inputs["tokens"], cfg, ctx, max_seq=shape.seq_len,
                                  dtype=PARAM_DTYPE, embeds=inputs.get("embeds"))
-            out, rec = analyze(step, params, inputs)
+            out, rec = analyze(step, params, inputs, probe=probe)
         else:
             cache = T.init_cache(cfg, rows.stop - rows.start, shape.seq_len, PARAM_DTYPE,
                                  device="cpu", ctx=ctx)
@@ -338,7 +431,7 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh,
             def step(params, inputs, cache):
                 logits, cache, _ = T.decode_step(params, inputs["tokens"], cache, cfg, ctx)
                 return logits, cache
-            out, rec = analyze(step, params, inputs, cache)
+            out, rec = analyze(step, params, inputs, cache, probe=probe)
         del out
     rec["param_count"] = cfg.param_count()
     rec["param_bytes"] = tree_bytes(params)

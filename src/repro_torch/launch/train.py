@@ -111,9 +111,11 @@ def mesh_shape(spec: str, world: int) -> tuple[int, int] | None:
 
 
 def _with_paths(fn, tree, prefix: str = ""):
+    """``fn(path, leaf)`` over the tensors of a nested dict (``None``
+    subtrees, zamba's empty ``trailing`` stack, stay ``None``)."""
     if isinstance(tree, dict):
         return {k: _with_paths(fn, v, f"{prefix}{k}/") for k, v in tree.items()}
-    return fn(prefix.rstrip("/"), tree)
+    return None if tree is None else fn(prefix.rstrip("/"), tree)
 
 
 def state_layout(cfg, ctx: ParallelCtx) -> dict:
@@ -125,23 +127,30 @@ def state_layout(cfg, ctx: ParallelCtx) -> dict:
 
 def gather_state(state: dict, layout: dict, ctx: ParallelCtx) -> dict:
     """The state with its model-sharded leaves gathered over the model
-    group (global arrays); a collective: every rank of the group calls it."""
+    group (global arrays; a Mamba2 leaf's B/C columns, which every rank
+    holds, once); a collective: every rank of the group calls it."""
     if not layout:
         return state
     mesh = ctx.mesh
-    return _with_paths(
-        lambda p, t: all_gather_dim(t, layout[p][0], mesh.model_group, mesh.model_order)
-        if p in layout else t, state)
+
+    def gather(p, t):
+        if p not in layout:
+            return t
+        dim, part = layout[p]
+        own, every = sharding.split_entries(t, dim, part)
+        whole = all_gather_dim(own, dim, mesh.model_group, mesh.model_order)
+        return whole if every is None else torch.cat([whole, every], dim=dim)
+
+    return _with_paths(gather, state)
 
 
 def restore_shardings(state: dict, layout: dict, device) -> dict:
     """One callable a leaf of ``state``, taking the checkpoint's global
     host array to this rank's slice on ``device``."""
     def cut(p, _):
-        def fn(host, dim_sl=layout.get(p)):
-            if dim_sl is not None:
-                dim, sl = dim_sl
-                host = host.narrow(dim, sl.start, sl.stop - sl.start).contiguous()
+        def fn(host, spec=layout.get(p)):
+            if spec is not None:
+                host = sharding.take(host, *spec)
             return host.to(device)
         return fn
     return _with_paths(cut, state)

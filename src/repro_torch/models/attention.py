@@ -183,16 +183,37 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: ParallelCtx,
     return out
 
 
-def cross_attention(p: dict, x: torch.Tensor, kv: tuple, cfg: ModelConfig) -> torch.Tensor:
+def cross_attention(p: dict, x: torch.Tensor, kv: tuple, cfg: ModelConfig,
+                    ctx: ParallelCtx | None = None) -> torch.Tensor:
     """Decoder cross-attention of ``x`` (B, S, d) over precomputed encoder
     k/v (no mask, no RoPE). Plain math on every device, as the reference
-    computes it outside any kernel."""
+    computes it outside any kernel.
+
+    With ``ctx``, ``kv`` is this rank's shard of the cached cross K/V
+    (:func:`cross_shard`): over a sequence shard each rank's plain
+    ``(acc, m, l)`` partials LSE-merge across the model group
+    (``collectives.merge_partials``); over a head shard the rank attends
+    its query heads and the heads are all-gathered; a whole cache takes
+    the plain math."""
     b, s, _ = x.shape
     q = mm(x, p["wq"])
     if cfg.qkv_bias:
         q = q + p["bq"]
     q = q.reshape(b, s, cfg.n_heads, cfg.head_dim_)
-    return out_proj(p, gqa_attend(q, kv[0], kv[1], None))
+    k, v = kv
+    if ctx is None or ctx.mesh is None:
+        return out_proj(p, gqa_attend(q, k, v, None))
+    slots, _ = cross_shard(cfg, ctx)
+    if slots.stop - slots.start < cfg.frontend_tokens:
+        if q.dtype != k.dtype:
+            dt = torch.promote_types(q.dtype, k.dtype)
+            q, k = q.to(dt), k.to(dt)
+        mask = torch.ones(k.shape[1], dtype=torch.bool, device=x.device)
+        o = seq_parallel_decode_attend(q, k, v, mask,
+                                       dataclasses.replace(ctx, use_kernels=False))
+    else:
+        o = _attend_heads(q, k, v, None, cfg.n_kv_heads, ctx)
+    return out_proj(p, o)
 
 
 def cross_kv(p: dict, memory: torch.Tensor, cfg: ModelConfig) -> tuple:
@@ -222,6 +243,13 @@ def dense_shard(cfg: ModelConfig, length: int, ctx: ParallelCtx | None):
         return slice(0, length), slice(0, cfg.n_kv_heads)
     return sharding.dense_cache_shard(length, cfg.n_kv_heads, ctx.n_model,
                                       ctx.model_rank, ctx.seq_parallel_kv)
+
+
+def cross_shard(cfg: ModelConfig, ctx: ParallelCtx | None):
+    """``(slots, heads)`` of the cached cross K/V (one slot per frontend
+    token) this rank holds: the dense KV layout (the reference's
+    ``kv_spec`` of ``cross_kv``)."""
+    return dense_shard(cfg, cfg.frontend_tokens, ctx)
 
 
 def pool_heads(cfg: ModelConfig, ctx: ParallelCtx | None) -> slice:

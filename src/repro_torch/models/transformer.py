@@ -18,17 +18,25 @@ view; zamba's and xlstm's units as ``(units, per-unit, ...)``) and driven
 by a Python loop where the reference scans; the caches are written in
 place. Recurrent states (``models.ssm``) are fp32 and O(1) in context.
 
-Under a mesh every rank runs the ``attn`` pattern on its own requests (the
-batch split over the data axis), with its shard of the dense cache or of
-the paged pool (``parallel.sharding``); the EP prefill splits the sequence
-over the model axis inside ``ep_moe_shardmap`` and gathers it back there.
-The prefill lane's chunk is the same on every rank (the reference's
-``chunk_specs`` replicate it). The other patterns under a mesh come with a
-later slice.
+Under a mesh every rank runs its own requests (the batch split over the
+data axis) with its shard of the caches (``parallel.sharding``):
+
+* ``attn``: the dense cache or the paged pool; the EP prefill splits the
+  sequence over the model axis inside ``ep_moe_shardmap`` and gathers it
+  back there. The prefill lane's chunk is the same on every rank (the
+  reference's ``chunk_specs`` replicate it);
+* ``zamba``: each Mamba2 layer on the rank's heads and their states
+  (``ssm.mamba_apply``: two all-reduces over the model group), the shared
+  block's ``shared_kv`` on the dense-cache path of the ``attn`` pattern;
+* ``xlstm``: the rank's rows, every parameter replicated;
+* ``encdec``: the rank's rows through the encoder and the decoder, whose
+  self-attention takes the dense-cache path and whose cross-attention
+  attends the rank's shard of ``cross_kv`` at decode
+  (``attention.cross_attention``).
 
 ``forward`` is the training pass over the whole causal sequence, for
-every block pattern on one process and for the ``attn`` pattern under a
-mesh, where autograd runs through the EP and ESP collectives. With
+every block pattern on one process or under a mesh, where autograd runs
+through the EP and ESP collectives and the Mamba2 all-reduces. With
 ``ctx.remat`` each layer body runs under ``torch.utils.checkpoint``,
 where the reference checkpoints its scan bodies; the recompute re-issues
 the layer's collectives, in the same order on every rank.
@@ -37,6 +45,7 @@ the layer's collectives, in the same order on every rank.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -53,6 +62,7 @@ from repro_torch.models.attention import (
     chunk_prefill_attention,
     cross_attention,
     cross_kv,
+    cross_shard,
     decode_attention,
     dense_prefill_fill,
     dense_shard,
@@ -67,16 +77,6 @@ from repro_torch.parallel.ctx import NO_MESH, ParallelCtx
 
 XLSTM_UNIT_M = 3  # mLSTM blocks per unit (then 1 sLSTM)
 PATTERNS = ("attn", "zamba", "xlstm", "encdec")
-
-
-def check_mesh(cfg: ModelConfig, ctx: ParallelCtx) -> None:
-    """Only the ``attn`` pattern serves and trains under a mesh so far."""
-    if ctx.mesh is not None and cfg.block_pattern != "attn":
-        raise NotImplementedError(
-            f"block_pattern={cfg.block_pattern!r} under a mesh is not ported yet "
-            f"(ROADMAP Queue 1 item 6: the reference's layouts of the Mamba, "
-            f"xLSTM and encoder-decoder states and caches)"
-        )
 
 
 # ---------------------------------------------------------------------------
@@ -245,8 +245,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.float32,
 
     * ``attn``: ``layers``, one stacked leaf per layer: dense ``(L, B,
       slots, heads, hd)`` k/v, or with ``paged`` a shared page pool + block
-      tables; under a mesh ``batch`` is the rank's requests and the cache
-      its shard (``attention.dense_shard``, ``attention.pool_heads``);
+      tables;
     * ``zamba``: ``units_ssm`` / ``trailing_ssm`` Mamba2 states (conv, ssm)
       stacked ``(units, attn_every, ...)`` / ``(trailing, ...)`` and
       ``shared_kv``, the shared block's dense k/v, one per unit;
@@ -256,12 +255,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.float32,
       encoder memory's (k, v) of every decoder layer ``(L, B, frontend
       tokens, K, hd)``.
 
-    The paged cache takes the ``attn`` pattern only (the reference's
-    ``ValueError``)."""
+    Under a mesh ``batch`` is the rank's requests and every leaf its
+    shard: the dense caches (``shared_kv`` and ``cross_kv`` too) by
+    ``attention.dense_shard``, the pool by ``attention.pool_heads``, the
+    Mamba2 states by ``ssm.mamba_state_init``; the xLSTM states take the
+    rows only. The paged cache takes the ``attn`` pattern only (the
+    reference's ``ValueError``)."""
     pat = cfg.block_pattern
     if paged and pat != "attn":
         raise ValueError(f"paged KV cache requires block_pattern='attn', got {pat}")
-    check_mesh(cfg, ctx)
     dev = resolve_device(device)
     cache: dict = {"pos": 0, "len": cache_len(cfg, max_seq)}
     if pat == "attn":
@@ -274,10 +276,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.float32,
         }
     elif pat == "zamba":
         u, r = zamba_layout(cfg)
-        st = ssm.mamba_state_init(cfg, batch, dev)
+        st = ssm.mamba_state_init(cfg, batch, dev, ctx)
         cache["units_ssm"] = _zeros_stack(st, u, cfg.attn_every)
         cache["trailing_ssm"] = _zeros_stack(st, r)
-        cache["shared_kv"] = _zeros_stack(cache_init(cfg, batch, max_seq, dtype, dev), u)
+        cache["shared_kv"] = _zeros_stack(cache_init(cfg, batch, max_seq, dtype, dev, ctx), u)
     elif pat == "xlstm":
         # zeros, as the reference's init_cache builds them: the block
         # inits' stabilisers (mLSTM m = -1e30, sLSTM n = 1) hold only for a
@@ -286,9 +288,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.float32,
         cache["m"] = _zeros_stack(ssm.mlstm_state_init(cfg, batch, dev), u, XLSTM_UNIT_M)
         cache["s"] = _zeros_stack(ssm.slstm_state_init(cfg, batch, dev), u)
     else:
-        cache["layers"] = _zeros_stack(cache_init(cfg, batch, max_seq, dtype, dev),
+        cache["layers"] = _zeros_stack(cache_init(cfg, batch, max_seq, dtype, dev, ctx),
                                        cfg.n_layers)
-        shape = (cfg.n_layers, batch, cfg.frontend_tokens, cfg.n_kv_heads, cfg.head_dim_)
+        slots, heads = cross_shard(cfg, ctx)
+        shape = (cfg.n_layers, batch, slots.stop - slots.start, heads.stop - heads.start,
+                 cfg.head_dim_)
         cache["cross_kv"] = (torch.zeros(shape, dtype=dtype, device=dev),
                              torch.zeros(shape, dtype=dtype, device=dev))
     return cache
@@ -312,11 +316,13 @@ def _block_ffn(p_l, z2, cfg, ctx, placement, token_mask):
 def _self_attention(p, z, kv: dict, cfg, ctx, length: int, pos: int, positions):
     """The dense-cache self-attention of zamba's shared block and the
     enc-dec decoder: a prefill over ``positions`` filling ``kv`` (``pos``
-    None), or one decode step at ``pos``; ``kv`` is written in place."""
+    None; under a mesh the rank's shard of it), or one decode step at
+    ``pos``; ``kv`` is written in place."""
     if pos is not None:
         return decode_attention(p, z, kv, pos, cfg, ctx, length)[0]
     o, (k, v) = attention(p, z, cfg, ctx, positions, return_kv=True)
-    dense_prefill_fill(kv, k, v, cfg, length)
+    slots, heads = dense_shard(cfg, length, ctx)
+    dense_prefill_fill(kv, k[:, :, heads], v[:, :, heads], cfg, length, slots.start)
     return o
 
 
@@ -335,11 +341,12 @@ def _zamba(params, x, cache, cfg, ctx, pos=None, positions=None):
     block against its own slice ``i`` of ``shared_kv``."""
     u, r = zamba_layout(cfg)
     shared = params["shared"]
+    mamba = functools.partial(ssm.mamba_apply, ctx=ctx)
     for i in range(u):
         unit = layer_view(params["units"], i)
         for j in range(cfg.attn_every):
             pl = layer_view(unit, j)
-            x = _recur(ssm.mamba_apply, pl["mamba"], pl["ln"], x,
+            x = _recur(mamba, pl["mamba"], pl["ln"], x,
                        _layer_cache(cache["units_ssm"], i, j), cfg)
         z = rms_norm(x, shared["ln1"], cfg.norm_eps)
         x = x + _self_attention(shared["attn"], z, _layer_cache(cache["shared_kv"], i),
@@ -347,14 +354,15 @@ def _zamba(params, x, cache, cfg, ctx, pos=None, positions=None):
         x = x + mlp_apply(shared["mlp"], rms_norm(x, shared["ln2"], cfg.norm_eps))
     for j in range(r):
         pl = layer_view(params["trailing"], j)
-        x = _recur(ssm.mamba_apply, pl["mamba"], pl["ln"], x,
+        x = _recur(mamba, pl["mamba"], pl["ln"], x,
                    _layer_cache(cache["trailing_ssm"], j), cfg)
     return x
 
 
 def _xlstm(params, x, cache, cfg):
-    """The xlstm stack over ``x`` (a prompt or one token): each unit's
-    mLSTM blocks, then its sLSTM block, from the cached states."""
+    """The xlstm stack over ``x`` (a prompt or one token; the rank's rows
+    under a mesh): each unit's mLSTM blocks, then its sLSTM block, from the
+    cached states."""
     for i in range(cfg.n_layers // (XLSTM_UNIT_M + 1)):
         unit = layer_view(params["units"], i)
         for j in range(XLSTM_UNIT_M):
@@ -394,21 +402,25 @@ def _encode(params, embeds, cfg, ctx):
 
 def _decoder(params, x, cache, cfg, ctx, pos=None, positions=None, mem=None):
     """The enc-dec decoder over ``x``: a prefill (``positions``; the cross
-    K/V of ``mem`` computed and cached per layer) or one decode step at
-    ``pos`` over the cached cross K/V."""
+    K/V of ``mem`` computed whole, attended, and the rank's shard of them
+    cached per layer) or one decode step at ``pos`` over the cached cross
+    K/V (under a mesh the rank's shard, ``attention.cross_attention``)."""
     ks, vs = [], []
+    slots, heads = cross_shard(cfg, ctx)
     for l in range(cfg.n_layers):
         p_l = layer_view(params["layers"], l)
         z = rms_norm(x, p_l["ln1"], cfg.norm_eps)
         x = x + _self_attention(p_l["attn"], z, _layer_cache(cache["layers"], l), cfg,
                                 ctx, cache["len"], pos, positions)
+        zx = rms_norm(x, p_l["ln_x"], cfg.norm_eps)
         if mem is None:
             kv = (cache["cross_kv"][0][l], cache["cross_kv"][1][l])
+            x = x + cross_attention(p_l["xattn"], zx, kv, cfg, ctx)
         else:
             kv = cross_kv(p_l["xattn"], mem, cfg)
-            ks.append(kv[0])
-            vs.append(kv[1])
-        x = x + cross_attention(p_l["xattn"], rms_norm(x, p_l["ln_x"], cfg.norm_eps), kv, cfg)
+            ks.append(kv[0][:, slots, heads])
+            vs.append(kv[1][:, slots, heads])
+            x = x + cross_attention(p_l["xattn"], zx, kv, cfg)
         x = x + mlp_apply(p_l["mlp"], rms_norm(x, p_l["ln2"], cfg.norm_eps))
     if mem is not None:
         # the reference's scan output: the memory's dtype, whatever the cache's
@@ -441,14 +453,20 @@ def _residual(apply, key: str):
     return body
 
 
-_mamba_layer = _residual(ssm.mamba_apply, "mamba")
 _mlstm_layer = _residual(ssm.mlstm_apply, "m")
 _slstm_layer = _residual(ssm.slstm_apply, "s")
 
 
+def _mamba_layer(p, h, cfg, ctx):
+    """A residual Mamba2 block from a zero state, on the rank's heads
+    under a mesh that splits them."""
+    return h + ssm.mamba_apply(p["mamba"], rms_norm(h, p["ln"], cfg.norm_eps), cfg,
+                               ctx=ctx)[0]
+
+
 def _zamba_unit(p_unit, h, shared, cfg, ctx, positions):
     for j in range(cfg.attn_every):
-        h = _layer(_mamba_layer, ctx, layer_view(p_unit, j), h, cfg)
+        h = _layer(_mamba_layer, ctx, layer_view(p_unit, j), h, cfg, ctx)
     h = h + attention(shared["attn"], rms_norm(h, shared["ln1"], cfg.norm_eps), cfg, ctx,
                       positions)
     return h + mlp_apply(shared["mlp"], rms_norm(h, shared["ln2"], cfg.norm_eps))
@@ -467,10 +485,9 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, ctx: ParallelCtx = N
     (zeros without MoE). ``embeds``: the frontend stub's, prepended (vlm;
     the logits cover only the token positions) or encoded (enc-dec,
     required). Recurrent blocks start from their zero states, as the
-    reference's forward does. Under a mesh (the ``attn`` pattern only,
-    :func:`check_mesh`) every rank runs its batch rows, the EP and ESP
-    collectives differentiable (``parallel.collectives``)."""
-    check_mesh(cfg, ctx)
+    reference's forward does. Under a mesh every rank runs its batch rows,
+    the EP and ESP collectives and the Mamba2 all-reduces differentiable
+    (``parallel.collectives``)."""
     pat = cfg.block_pattern
     if pat not in PATTERNS:
         raise ValueError(pat)
@@ -503,7 +520,7 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, ctx: ParallelCtx = N
             x = _layer(_zamba_unit, ctx, layer_view(params["units"], i), x,
                        params["shared"], cfg, ctx, positions)
         for j in range(r):
-            x = _layer(_mamba_layer, ctx, layer_view(params["trailing"], j), x, cfg)
+            x = _layer(_mamba_layer, ctx, layer_view(params["trailing"], j), x, cfg, ctx)
     else:
         for i in range(cfg.n_layers // (XLSTM_UNIT_M + 1)):
             x = _layer(_xlstm_unit, ctx, layer_view(params["units"], i), x, cfg, ctx)
@@ -554,7 +571,6 @@ def decode_step(
     pat = cfg.block_pattern
     if chunk is not None and pat != "attn":
         raise ValueError(f"chunked prefill requires block_pattern='attn', got {pat}")
-    check_mesh(cfg, ctx)
     if chunk is not None and not chunk["length"]:
         chunk = None
     x = _embed(params, token)

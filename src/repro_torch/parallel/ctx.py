@@ -7,10 +7,12 @@ over the batch axes (``pod x data``) and every other computation is replicated o
 of a data index, except the regions the reference writes by hand: the EP
 dispatch and combine (``collectives.ep_moe_shardmap``) with its decode
 ownership sum; ESP's hidden-dim shards and their reduce-scatter
-(``collectives.esp_expert_ffn``); and decode attention over a KV cache
+(``collectives.esp_expert_ffn``); decode attention over a KV cache
 split over the model axis, by sequence (partials LSE-merged across the
 model group) or by KV heads (each rank attends its heads, then the heads
-are gathered). The layouts are ``parallel.sharding``'s.
+are gathered), the encoder-decoder's cross K/V cache too; and the Mamba2
+heads (``models.ssm.mamba_apply``, two all-reduces a layer). The layouts
+are ``parallel.sharding``'s.
 
 ``seq_parallel_kv`` is the reference's switch: the dense cache's sequence
 over the model axis when it divides (default), else its KV heads.

@@ -21,7 +21,32 @@ dimension returns its whole range.
 * :func:`kv_heads` — the paged pool's KV heads (``pool_spec``: the page
   dim unsharded, KV heads over ``model`` when they divide);
 * :func:`batch_rows` — the batch over ``data`` (``batch_spec_for``); page
-  tables and lengths follow it (``bdim_spec``).
+  tables and lengths follow it (``bdim_spec``); the xLSTM states take
+  only this split (``cache_specs``' ``xlstm`` branch);
+* :func:`mamba_heads` / :func:`mamba_channels` — Mamba2's heads, aligned
+  to heads (below), and the ``head``-wide channels of those heads.
+
+**The Mamba2 layout departs from the reference's.** The reference splits
+the last dim of ``w_z``, ``w_xbc``, ``conv_w``, ``conv_b`` and ``norm_w``
+evenly over ``model`` and ``w_out`` on its inner dim, replicates ``w_dt``,
+``a_log``, ``dt_bias`` and ``d_skip``, and lets GSPMD re-lay the
+concatenated ``x|B|C`` dim out before the scan. An even split of that dim
+cuts across heads: at zamba2-1.2b width ``w_xbc`` is 4096 + 128 = 4224
+wide, 264 columns a rank on 16 ranks, against heads of 64. The port
+aligns the split to heads instead. A rank holds its block of the
+``n_heads`` Mamba heads (all of them when they do not divide the axis,
+the reference's ``_ok`` fallback) and those heads' channels of ``w_z``,
+``norm_w`` and ``w_out``'s rows, and of the x part of ``w_xbc``,
+``conv_w`` and ``conv_b``; the ``2N`` B/C columns of those three stay
+whole on every rank (:class:`Part`: its block, then the tail), since
+every head reads them. ``w_dt``, ``a_log``, ``dt_bias`` and ``d_skip``
+stay replicated, as in the reference; a rank reads its heads' entries.
+The SSM state holds the rank's heads (the reference's spec wherever the
+heads divide), the conv state the rank's x channels and all ``2N`` B/C
+channels. What is left to communicate is two all-reduces per Mamba layer
+(``models.ssm.mamba_apply``): the gated norm's sum of squares and the out
+projection's partial sums. The served and trained results are the same
+up to the order of those sums.
 
 The train state's layout (``state_specs``) follows from these:
 :func:`param_layout` names the model-sharded parameter leaves (the EP
@@ -29,12 +54,15 @@ slot rows of the experts at their native homes, or the ESP hidden-dim
 shards) with the dim and slice a rank keeps; every other leaf is
 replicated over the model group (the port has no tensor parallelism,
 ROADMAP Queue 1 item 5), and the AdamW moments take their parameter's
-layout. :func:`rank_params` cuts a full tree (parameters or a moment) to
-a rank's slices, so that every rank starting from the same full init
-trains the same model on any mesh.
+layout; zamba's Mamba leaves add theirs (above). :func:`rank_params`
+cuts a full tree (parameters or a moment) to a rank's slices, so that
+every rank starting from the same full init trains the same model on
+any mesh.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -96,6 +124,78 @@ def batch_rows(batch: int, n_batch: int, batch_rank: int) -> slice:
     return _block(batch, n_batch, batch_rank)
 
 
+def mamba_head_dims(d_model: int) -> tuple[int, int]:
+    """``(head, n_heads)`` of the Mamba2 blocks of a ``d_model``-wide model:
+    heads of 64 inner channels where they fit ``2 * d_model``, else one."""
+    d_inner = 2 * d_model
+    head = 64 if d_inner % 64 == 0 else d_inner
+    return head, d_inner // head
+
+
+def mamba_heads(n_heads: int, n_model: int, model_rank: int) -> slice:
+    """The Mamba2 heads a rank holds (all of them when they do not divide
+    the model axis)."""
+    return _block(n_heads, n_model, model_rank)
+
+
+def mamba_channels(head: int, n_heads: int, n_model: int, model_rank: int) -> slice:
+    """The ``head``-wide inner channels of the rank's Mamba2 heads."""
+    hs = mamba_heads(n_heads, n_model, model_rank)
+    return slice(hs.start * head, hs.stop * head)
+
+
+@dataclasses.dataclass(frozen=True)
+class Part:
+    """A rank's part of a dim whose last ``tail`` entries every rank reads:
+    ``block`` of the leading entries, then the whole tail (the x channels
+    of a Mamba2 rank's heads, then the ``2N`` B/C channels)."""
+    block: slice
+    tail: int
+
+    def index(self, n: int) -> list[int]:
+        """The entries of a dim of ``n`` the rank holds, in its order."""
+        return [*range(self.block.start, self.block.stop), *range(n - self.tail, n)]
+
+
+def take(t: torch.Tensor, dim: int, part) -> torch.Tensor:
+    """A contiguous copy of the rank's ``part`` (a block ``slice`` or a
+    :class:`Part`) of ``dim`` of the global ``t``."""
+    if isinstance(part, Part):
+        n = t.shape[dim]
+        return torch.cat([t.narrow(dim, part.block.start, part.block.stop - part.block.start),
+                          t.narrow(dim, n - part.tail, part.tail)], dim=dim)
+    return t.narrow(dim, part.start, part.stop - part.start).clone(
+        memory_format=torch.contiguous_format)
+
+
+def split_entries(t: torch.Tensor, dim: int, part) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """A rank's tensor cut into the entries split over the model group and
+    the entries every rank holds (None for a plain block)."""
+    if not isinstance(part, Part):
+        return t, None
+    n = t.shape[dim]
+    return t.narrow(dim, 0, n - part.tail), t.narrow(dim, n - part.tail, part.tail)
+
+
+def mamba_layout(cfg, ctx) -> dict[str, tuple[int, object]]:
+    """The model-sharded Mamba2 leaves of a zamba tree (``units`` stacked
+    ``(units, attn_every, ...)``, ``trailing`` ``(trailing, ...)``), by
+    path: ``(dim, slice or Part)``; empty when the heads do not split."""
+    if ctx.mesh is None or cfg.block_pattern != "zamba":
+        return {}
+    head, n_heads = mamba_head_dims(cfg.d_model)
+    if not is_split(n_heads, ctx.n_model):
+        return {}
+    cs = mamba_channels(head, n_heads, ctx.n_model, ctx.model_rank)
+    bc = Part(cs, 2 * cfg.ssm_state)
+    # (leaf, its dim counted from the layer's first, the rank's part)
+    leaves = (("w_z", 1, cs), ("norm_w", 0, cs), ("w_out", 0, cs),
+              ("w_xbc", 1, bc), ("conv_w", 1, bc), ("conv_b", 0, bc))
+    return {f"{stack}/mamba/{name}": (lead + dim, part)
+            for stack, lead in (("units", 2), ("trailing", 1))
+            for name, dim, part in leaves}
+
+
 def moe_layout(cfg, ctx) -> str | None:
     """How the expert weights lie under ``ctx``'s mesh: ``"ep"`` (slot
     rows over the model axis), ``"esp"`` (hidden-dim shards) or None
@@ -110,13 +210,16 @@ def moe_layout(cfg, ctx) -> str | None:
     return "ep" if cfg.n_experts % ctx.n_model == 0 else "esp"
 
 
-def param_layout(cfg, ctx) -> dict[str, tuple[int, slice]]:
-    """The model-sharded leaves of the stacked ``attn`` parameters, by
-    path (``"layers/moe/w_gate"``): ``(dim, the rank's slice)``. Under EP
-    the slot rows (dim 1 of ``(L, E, ...)``), under ESP the hidden dim
+def param_layout(cfg, ctx) -> dict[str, tuple[int, object]]:
+    """The model-sharded leaves of the stacked parameters, by path
+    (``"layers/moe/w_gate"``): ``(dim, the rank's slice)``. Under EP the
+    slot rows (dim 1 of ``(L, E, ...)``), under ESP the hidden dim
     (``w_gate``/``w_up`` dim 3, ``w_down`` dim 2), each only where it
-    splits; empty when every leaf is replicated."""
+    splits; zamba's Mamba2 leaves (:func:`mamba_layout`, whose mixed
+    leaves take a :class:`Part`); empty when every leaf is replicated."""
     m, r = ctx.n_model, ctx.model_rank
+    if cfg.block_pattern == "zamba":
+        return mamba_layout(cfg, ctx)
     impl = moe_layout(cfg, ctx)
     names = ("w_gate", "w_up", "w_down")
     if impl == "ep" and is_split(cfg.n_experts, m):
@@ -139,10 +242,8 @@ def rank_params(params: dict, cfg, ctx) -> dict:
         if isinstance(tree, dict):
             return {k: cut(v, f"{prefix}{k}/") for k, v in tree.items()}
         spec = layout.get(prefix.rstrip("/"))
-        if spec is None:
+        if spec is None or tree is None:
             return tree
-        dim, sl = spec
-        return tree.narrow(dim, sl.start, sl.stop - sl.start).clone(
-            memory_format=torch.contiguous_format)
+        return take(tree, *spec)
 
     return cut(params, "")

@@ -24,6 +24,8 @@ from typing import Callable
 import torch
 import torch.distributed as dist
 
+from repro_torch.parallel.sharding import split_entries
+
 
 @dataclasses.dataclass(frozen=True)
 class AdamWConfig:
@@ -90,15 +92,24 @@ def global_norm(tree, sharded=None, group=None) -> torch.Tensor:
     """sqrt of the sum over leaves of the sum of squares, each in fp32.
 
     Under a mesh the norm is the whole model's, the same on every rank:
-    ``sharded`` (one bool a leaf, in :func:`leaves` order) marks the leaves
-    split over ``group`` (the model group), whose sums of squares are
-    all-reduced there; a replicated leaf counts once."""
+    ``sharded`` (one entry a leaf, in :func:`leaves` order) gives the
+    ``(dim, part)`` of a leaf split over ``group`` (the model group;
+    ``parallel.sharding.param_layout``) or None. The split entries' sums
+    of squares are all-reduced there; a replicated leaf, and the entries
+    of a split leaf that every rank holds (a Mamba2 leaf's B/C columns,
+    ``sharding.Part``), count once."""
     xs = list(leaves(tree))
-    flags = [False] * len(xs) if sharded is None else sharded
+    flags = [None] * len(xs) if sharded is None else sharded
     parts = [torch.zeros((), dtype=torch.float32, device=xs[0].device) for _ in range(2)]
-    for x, split in zip(xs, flags, strict=True):
-        parts[split] += x.float().square().sum()
-    if any(flags):
+    for x, spec in zip(xs, flags, strict=True):
+        if spec is None:
+            parts[0] += x.float().square().sum()
+            continue
+        own, every = split_entries(x, *spec)
+        parts[1] += own.float().square().sum()
+        if every is not None:
+            parts[0] += every.float().square().sum()
+    if any(f is not None for f in flags):
         dist.all_reduce(parts[1], group=group)
     return torch.sqrt(parts[0] + parts[1])
 

@@ -36,11 +36,13 @@ all-gathered over the data group; slot numbers are global, and the
 every rank (each rank's device tables hold its rows). A batch-1 admission
 prefill and the prefill lane's chunk run on every rank (replicated, as the
 reference's ``chunk_specs``), so every rank's pool holds the admitted
-request's pages for its KV heads. Snapshots under a mesh are not ported
-yet, nor the ``zamba``, ``xlstm`` and ``encdec`` patterns under a mesh:
-without one they serve their dense and recurrent caches, the balancer
-idle (it runs for MoE only). Frontend-stub embeds ride ``prefill`` and
-``generate``.
+request's pages for its KV heads. The ``zamba``, ``xlstm`` and ``encdec``
+patterns serve their dense and recurrent caches, the balancer idle (it
+runs for MoE only); under a mesh a zamba rank keeps its part of the
+Mamba2 weights (``sharding.mamba_layout``) and every family its shard of
+the caches (``T.init_cache``). Frontend-stub embeds ride ``prefill`` and
+``generate``, cut to the rank's rows. Snapshots under a mesh are not
+ported yet.
 
 Device failures: ``mark_dead`` aborts or fast-forwards in-flight migration
 slices, evacuates orphaned experts (placement table and weight rows) and
@@ -220,7 +222,7 @@ class Server:
             )
         self.mesh = ctx.mesh
         if self.mesh is not None:
-            self._check_mesh(cfg, ctx, serve_cfg)
+            self._check_mesh()
         self.cfg = cfg
         if serve_cfg.ep_chunks != ctx.ep_chunks:
             ctx = dataclasses.replace(ctx, ep_chunks=serve_cfg.ep_chunks)
@@ -306,6 +308,8 @@ class Server:
             self.driver = None
             if esp_mesh and cfg.is_moe:
                 self._shard_expert_hidden()
+            if self.mesh is not None and cfg.block_pattern == "zamba":
+                self._shard_mamba()
 
         self._set_batch(serve_cfg.batch)
         if serve_cfg.paged:
@@ -355,10 +359,8 @@ class Server:
     # -- helpers -------------------------------------------------------------
 
     @staticmethod
-    def _check_mesh(cfg: ModelConfig, ctx: ParallelCtx, scfg: ServeConfig) -> None:
-        """What serving under a mesh needs: the ``attn`` pattern (the others'
-        layouts are still to port) and an initialised process group."""
-        T.check_mesh(cfg, ctx)
+    def _check_mesh() -> None:
+        """What serving under a mesh needs: an initialised process group."""
         if not dist.is_initialized():
             raise RuntimeError(
                 "Server under a mesh needs an initialised torch.distributed "
@@ -376,6 +378,16 @@ class Server:
             src = moe.pop(w)
             moe[w] = (src[..., fs] if w != "w_down" else src[:, :, fs]).contiguous()
             del src
+
+    def _shard_mamba(self) -> None:
+        """Keep the rank's part of every Mamba2 leaf (``sharding.
+        mamba_layout``: its heads' channels, the B/C columns whole), one
+        leaf at a time."""
+        for path, (dim, part) in sharding.mamba_layout(self.cfg, self.ctx).items():
+            stack, block, name = path.split("/")
+            leaves = (self.params.get(stack) or {}).get(block)
+            if leaves is not None:
+                leaves[name] = sharding.take(leaves.pop(name), dim, part)
 
     def _set_batch(self, batch: int) -> None:
         """This rank's requests of a ``batch``: every row with no mesh or a

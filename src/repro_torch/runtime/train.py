@@ -15,12 +15,13 @@ closure with:
 * remat over layers through ``ctx.remat``;
 * ``runtime.optimizer.adamw_update``, in place.
 
-Under a mesh (``ctx.mesh``; the ``attn`` pattern) each rank holds its
+Under a mesh (``ctx.mesh``; every block pattern) each rank holds its
 slices of the state (``parallel.sharding.rank_params``) and trains on its
 rows of the global batch (``sharding.batch_rows``). Autograd runs through
-the EP and ESP collectives (``parallel.collectives``' Functions), so a
-leaf replicated over the model group gets the same gradient on every
-rank of it; :func:`grads_of` then averages every gradient and the
+the EP and ESP collectives and the Mamba2 all-reduces
+(``parallel.collectives``' Functions), so a leaf replicated over the
+model group, or the B/C columns every rank holds of a Mamba2 leaf, gets
+the same gradient on every rank of it; :func:`grads_of` then averages every gradient and the
 ``loss``, ``ce`` and ``aux`` over the data group (``pod x data``, the
 reference's batch axes), and the clip norm is the whole model's
 (``optimizer.global_norm``): the reference's GSPMD step on the global
@@ -90,12 +91,13 @@ def grads_of(params, batch: dict, cfg: ModelConfig, ctx: ParallelCtx):
 
 
 def _sharded_flags(tree, layout: dict, prefix: str = ""):
-    """Is each leaf (in ``optimizer.leaves`` order) one of ``layout``'s?"""
+    """Each leaf's layout (in ``optimizer.leaves`` order): its ``(dim,
+    part)`` in ``layout``, or None for a replicated leaf."""
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _sharded_flags(tree[k], layout, f"{prefix}{k}/")
     elif tree is not None:
-        yield prefix.rstrip("/") in layout
+        yield layout.get(prefix.rstrip("/"))
 
 
 def make_train_step(cfg: ModelConfig, ctx: ParallelCtx, opt: AdamWConfig,
@@ -110,7 +112,6 @@ def make_train_step(cfg: ModelConfig, ctx: ParallelCtx, opt: AdamWConfig,
     ``grad_compress`` is taken and changes nothing, as in the reference:
     its cross-pod sync is the training loop's, every ``--pod-sync`` steps
     (``parallel.grad_compress.compressed_pod_mean``)."""
-    T.check_mesh(cfg, ctx)
     layout = sharding.param_layout(cfg, ctx)
     group = ctx.mesh.model_group if ctx.mesh is not None else None
 

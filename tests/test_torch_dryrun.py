@@ -17,8 +17,13 @@ reference's ``test_dryrun_machinery_small_mesh``
   its arguments are exactly rank 0's parameters, two fp32 moments, the
   step and its batch rows, and its FLOPs at least three times its
   forward's;
-* a recurrent pattern's cells (a train cell too) recorded as ``SKIP``
-  naming its ROADMAP item, never ``FAIL``; the CLI's file per cell.
+* the recurrent and enc-dec families' one-token cells at full width
+  traced ``OK`` (zamba2's two Mamba2 all-reduces a layer counted), the
+  full-attention ``long_500k`` cell still ``SKIP``; the CLI's file per
+  cell;
+* the time-loop probe: FLOPs, bytes accessed and collectives of a
+  prefill and a train step of zamba (a trailing Mamba2 layer, heads split
+  over the model axis) and xlstm equal to a trace of every step.
 
 The reference's dry run is not imported here: it sets ``XLA_FLAGS`` when
 imported. Its config helpers are held in ``test_torch_configs_shapes.py``.
@@ -155,30 +160,47 @@ def test_train_cell_arguments_and_flops(records):
 
 
 def test_skips_name_their_roadmap_item():
-    for arch, shape, item in (("zamba2-1.2b", "train_4k", "item 6"),
-                              ("zamba2-1.2b", "decode_32k", "item 6"),
-                              ("xlstm-350m", "long_500k", "item 6"),
-                              ("seamless-m4t-medium", "prefill_32k", "item 6")):
-        rec = D.run_cell(arch, shape, "single", "er")
-        assert rec["status"].startswith("SKIP") and item in rec["status"], rec
+    """The families' one-token cells trace at full width on the 16 x 16
+    mesh (no ``SKIP`` naming item 6 is left); zamba2's decode counts two
+    all-reduces a Mamba2 layer (its 64 heads split 4 a rank) beside the
+    shared block's three-all-reduce merge a unit; a full-attention model's
+    ``long_500k`` cell is still skipped."""
+    try:
+        recs = {arch: D.run_cell(arch, shape, "single", "er")
+                for arch, shape in (("zamba2-1.2b", "decode_32k"), ("xlstm-350m", "long_500k"),
+                                    ("seamless-m4t-medium", "decode_32k"))}
+        for rec in recs.values():
+            assert rec["status"] == "OK", rec
+            assert rec["flops"] > 0 and rec["argument_size_in_bytes"] > 0
+        cfg = get_config("zamba2-1.2b")
+        units, _ = T.zamba_layout(cfg)
+        want = 2 * cfg.n_layers + 3 * units
+        assert recs["zamba2-1.2b"]["collective_calls"] == {"all-reduce": want}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
     rec = D.run_cell("qwen2-72b", "long_500k", "multi", "er")
     assert rec["status"] == "SKIP (full attention cannot fit the 524k context)"
     assert not dist.is_initialized()
 
 
 def test_cli_writes_a_file_per_cell_and_skips_existing(tmp_path, capsys):
-    D.main(["--arch", "xlstm-350m", "--shape", "all", "--mesh", "both",
+    """A file per (arch, shape, mesh) cell, the cells the CLI is given
+    only (the full-attention ``long_500k`` skips, which trace nothing),
+    and an existing file is kept."""
+    archs = ("llama3.2-1b", "qwen2-72b")
+    D.main(["--arch", ",".join(archs), "--shape", "long_500k", "--mesh", "both",
             "--out", str(tmp_path)])
     files = sorted(p.name for p in tmp_path.iterdir())
-    assert files == sorted(f"xlstm-350m__{s}__{m}.json" for s in
-                           ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+    assert files == sorted(f"{a}__long_500k__{m}.json" for a in archs
                            for m in ("single", "multi"))
     rec = json.loads((tmp_path / files[0]).read_text())
     assert rec["status"].startswith("SKIP") and "t_total_s" in rec
-    D.main(["--arch", "xlstm-350m", "--shape", "decode_32k", "--mesh", "single",
+    D.main(["--arch", "qwen2-72b", "--shape", "long_500k", "--mesh", "single",
             "--out", str(tmp_path)])
     assert "[skip existing]" in capsys.readouterr().out
     assert SHAPES["long_500k"].global_batch == 1
+    assert not dist.is_initialized()
 
 
 @pytest.mark.parametrize("arch", ("llama3.2-1b", "zamba2-1.2b", "dbrx-132b", "xlstm-350m",
@@ -195,3 +217,36 @@ def test_layer_units_and_with_units(arch):
     assert D.layer_units(cfg) == {"zamba": cfg.n_layers / max(cfg.attn_every, 1),
                                   "xlstm": cfg.n_layers / 4}.get(cfg.block_pattern,
                                                                  float(cfg.n_layers))
+
+
+PROBED = {"zamba": lambda: dataclasses.replace(smoke(get_config("zamba2-1.2b")), d_model=128,
+                                                n_layers=5),
+          "xlstm": lambda: smoke(get_config("xlstm-350m"))}
+
+
+@pytest.fixture
+def fake_mesh():
+    D.fake_world(DATA * MODEL)
+    yield make_test_mesh(DATA, MODEL)
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("kind", ("prefill", "train"))
+@pytest.mark.parametrize("model", tuple(PROBED))
+def test_time_probe_counts_a_full_trace(fake_mesh, model, kind):
+    """Three steps of every time loop, the middle one counted ``t - 2``
+    times forward and backward (remat included), against a trace of all
+    ``t = 9`` steps: FLOPs, bytes accessed, collective bytes and calls,
+    arguments and outputs equal; the probe holds fewer temporaries live
+    (three steps' outputs, not nine) or as many."""
+    cfg = PROBED[model]()
+    shape = ShapeConfig("t", 9, 4, kind)
+    probed = D.trace_cell(cfg, shape, fake_mesh)
+    full = D.trace_cell(cfg, shape, fake_mesh, probe=False)
+    for k in ("flops", "bytes_accessed", "collectives", "collective_calls",
+              "argument_size_in_bytes", "output_size_in_bytes"):
+        assert probed[k] == full[k], k
+    assert probed["temp_size_in_bytes"] <= full["temp_size_in_bytes"]
+    if model == "zamba":
+        assert sharding.mamba_layout(cfg, D.make_ctx(fake_mesh, 4))
+        assert full["collective_calls"]["all-reduce"] >= 2 * cfg.n_layers
