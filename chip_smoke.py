@@ -26,7 +26,10 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    mesh over NCCL (a world of one): its greedy tokens with the kernels
    must equal those of the plain path and of the same model's no-mesh EP
    Server (it takes ``ep_moe_shardmap``'s all-to-all legs and the
-   sequence-parallel decode on ``flash_decode``'s partials mode);
+   sequence-parallel decode on ``flash_decode``'s partials mode), and
+   through the scheduler on the mesh it crashes at tick 3 and, restored
+   from its snapshot file on the mesh, serves every stream of its no-mesh
+   run;
    then the ``smoke()`` model of each of the seven other families
    (qwen2-72b, tinyllama-1.1b, deepseek-7b, zamba2-1.2b, xlstm-350m,
    seamless-m4t-medium, internvl2-76b) at head dim 32, fp32, with the
@@ -90,7 +93,11 @@ Phases (one line each; any failure raises and the exit code is non-zero):
       the plain path equal to its no-mesh run (streams and events, greedy
       tokens), launches as predicted; then 3e (ii)'s chunked run under 3d's
       chaos plan on 24 pages without the crash, with no mesh and on the
-      mesh (each server freed before the next): every request finishes,
+      mesh (each server freed before the next), then on the mesh with the
+      crash, restored on the mesh from the file (3e's checks: the streams
+      not recomputed equal the uninterrupted mesh run's, the restore peak
+      within the setup peak plus the cache; snapshot ms and bytes, restore
+      ms): every request finishes,
       every fault kind fires, no tick routes to the dead device before its
       first re-commit, a migration commits, each tick's launches as its
       kind predicts (on the mesh the gather/scatter pair of
@@ -173,7 +180,11 @@ Phases (one line each; any failure raises and the exit code is non-zero):
       layers at ``decode_32k`` on a 2 x 4 test mesh and of dbrx-132b and
       zamba2-1.2b at ``decode_32k`` on the ER 16 x 16 mesh at full depth
       (zamba2's calls held: two all-reduces a Mamba2 layer, three a
-      shared-block merge), each cell's
+      shared-block merge; llama's and dbrx's tensor-parallel parameter and
+      argument bytes and collective calls held to the layout's
+      prediction, ``tp_prediction``: the card's own world of one splits
+      nothing, so the splits show only here and on gloo ranks in the CPU
+      tests), each cell's
       status, FLOPs, argument, temp and collective GB and wall seconds
       (host only, fake tensors: no memory on the card); (e) the
       roofline's rows over those records (model output at the H100's
@@ -1702,6 +1713,65 @@ def small_mesh_parity(torch, mesh) -> dict:
     return {"flash_decode_partials": want[2], "migrations": want[1]}
 
 
+def small_mesh_snapshot(torch, mesh) -> dict:
+    """Phase 2's small mesh model (fp32, the kernels) through the
+    scheduler on the 1 x 1 NCCL mesh (paged, page 8, chunked admission of
+    8, the balancer live on virtual EP 4 x 3 slots), crashed at tick 3:
+    the world checks the snapshot, rank 0 writes the file, the crashed
+    scheduler is dropped and one restored from the file on the mesh
+    serves on. Every request finishes, and every stream equals the same
+    model's no-mesh EP run, uninterrupted."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.ctx import ParallelCtx
+    from repro_torch.runtime import faults as F
+    from repro_torch.runtime import snapshot as S
+    from repro_torch.runtime.scheduler import FINISHED, RequestScheduler
+    from repro_torch.runtime.serve import ServeConfig, Server
+
+    cfg = dataclasses.replace(smoke(get_config("dbrx-132b")), head_dim=32)
+    prompts = scheduled_prompts(cfg.vocab_size, 6, 8, 32)
+    scfg = ServeConfig(max_seq=64, batch=4, slots_per_device=3, virtual_ep=4, alpha=0.1,
+                       paged=True, page_size=8, prefill_chunk=8)
+    mctx = ParallelCtx(mesh=mesh, capacity_factor=8.0)
+
+    def params():
+        return T.init_params(cfg, seed=12, device="cuda")
+
+    def sched(ctx, plan=None):
+        s = RequestScheduler(Server(cfg, ctx, params(), scfg, device="cuda"), faults=plan)
+        for i, p in enumerate(prompts):
+            s.submit(p, 8, arrival=i)
+        return s
+
+    want = sched(ParallelCtx(moe_impl="ep", capacity_factor=8.0)).run()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "snap.npz")
+        plan = F.FaultPlan([F.Fault(step=3, kind=F.CRASH_RESTART, path=path)])
+        try:
+            sched(mctx, plan).run()
+            raise AssertionError("small mesh snapshot: the crash never fired")
+        except F.SimulatedCrash as exc:
+            tick = exc.step
+        gc.collect()
+        restored = S.restore_scheduler(path, cfg, mctx, params(), faults=plan, device="cuda")
+        got = restored.run()
+    bad = [rid for rid in want if not np.array_equal(got.get(rid), want[rid])]
+    if got.keys() != want.keys() or bad:
+        raise AssertionError(f"small mesh snapshot: streams {bad} restored on the mesh differ "
+                             f"from the no-mesh run's")
+    left = [r.rid for r in restored.requests if r.state != FINISHED]
+    if left:
+        raise AssertionError(f"small mesh snapshot: requests {left} did not finish")
+    return {"crash_tick": tick, "requests": len(want),
+            "migrations_after_restore": restored.server.migrations}
+
+
 def mesh_path(torch, mesh, card: str):
     """The third main path: dbrx-132b width on the 1 x 1 NCCL mesh, the
     dense cache of max_seq 1024 sliced over the model axis (all of it on
@@ -2910,6 +2980,97 @@ def mesh_chunk_path(torch, mesh, card: str, eos: int) -> dict:
     log(f"phase 3f: each mesh stream's bf16 prefix shared with the no-mesh run "
         f"{out['mesh_prefix_shared_with_no_mesh']} (of "
         f"{ {rid: len(v) for rid, v in runs['no-mesh']['results'].items()} } tokens) [{card}]")
+    out["crash"] = mesh_crash_run(torch, mesh, card, cfg, prompts, warm, eos,
+                                  runs["mesh"]["results"])
+    return out
+
+
+def mesh_crash_run(torch, mesh, card: str, cfg, prompts, warm, eos: int, free: dict) -> dict:
+    """Phase 3f's crash on the 1 x 1 NCCL mesh: the mesh run again, with a
+    ``crash_restart`` at the first tick from the death on that starts with
+    a request mid-prefill. The ranks' snapshots are checked equal and
+    rank 0 writes the file; the crashed server is freed and the run
+    restored on the mesh from the file. Every request finishes; every
+    stream neither preempted nor live at the crash equals the
+    uninterrupted mesh run's (``free``) bit for bit, the others log the
+    prefix they share (the determinism contract's bf16 scope); the
+    restore's peak stays within the server's setup peak plus the restored
+    cache (3e's bound); every tick's launches as ``mesh_ep_launches``
+    predicts. A world of one splits nothing: the tensor-parallel layouts
+    and a restore onto another layout are proved on gloo ranks
+    (``tests/test_torch_mesh_tp.py``, ``tests/test_torch_mesh_snapshot.py``)."""
+    import os
+    import tempfile
+
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.ctx import ParallelCtx
+    from repro_torch.runtime.serve import ServeConfig, Server
+
+    n_layers, n_new = cfg.n_layers, 32
+    ctx = ParallelCtx(mesh=mesh, capacity_factor=5.0)
+    kernels = mesh_ep_kernels()
+    plan = chaos_plan()
+    death = next(f.step for f in plan if f.kind == "device_death")
+
+    def params():
+        return T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+
+    torch.cuda.reset_peak_memory_stats()
+    srv = Server(cfg, ctx, params(),
+                 ServeConfig(max_seq=1024, batch=8, slots_per_device=8, virtual_ep=4,
+                             alpha=0.1, paged=True, page_size=128, pool_pages=24,
+                             prefill_chunk=CHUNK), device="cuda")
+    setup_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "snap.npz")
+        pre = run_scheduler(torch, srv, prompts, n_new, plan, eos, kernels, warm,
+                            crash_after=death, crash_path=path, predict=mesh_ep_launches)
+        del srv
+        gc.collect()
+        torch.cuda.empty_cache()
+        freed_gb = torch.cuda.memory_allocated() / 1e9
+        if freed_gb > 1.0:
+            raise AssertionError(f"phase 3f crash: {freed_gb:.2f} GB still allocated after the "
+                                 "crash: the crashed server was not freed")
+        snap_bytes = os.path.getsize(path) + os.path.getsize(path + ".meta")
+        torch.cuda.reset_peak_memory_stats()
+        restored, restore_ms = restore_run(torch, path, cfg, ctx, params, plan, kernels)
+    restore_peak = torch.cuda.max_memory_allocated() / 1e9
+    cache_gb = sum(t.numel() * t.element_size() for t in restored.cache["layers"].values()) / 1e9
+    if restore_peak > setup_peak_gb + cache_gb:
+        raise AssertionError(f"phase 3f crash: restore peak {restore_peak:.2f} GB > setup peak "
+                             f"{setup_peak_gb:.2f} GB + the cache {cache_gb:.3f} GB")
+    snap = pre["crash"]["snapshot"]
+    live_at_crash = {rid for rid in snap.live_rids if rid is not None}
+    post = drive(torch, restored, kernels, predict=mesh_ep_launches)
+    sched = post.pop("sched")
+    left = [(r.rid, r.state, r.error) for r in sched.requests if r.state != "FINISHED"]
+    if left:
+        raise AssertionError(f"phase 3f crash: requests {left} did not finish")
+    recomputed = live_at_crash | {r.rid for r in sched.requests if r.preemptions}
+    shared = held_streams(post["results"], free, skip=recomputed)
+    sched.server.table.check()
+    want = {k: v + mesh_ep_launches(n_layers, post)[k]
+            for k, v in mesh_ep_launches(n_layers, pre).items()}
+    if post["launches"] != want:
+        raise AssertionError(f"phase 3f crash launches {post['launches']} != {want}")
+    out = {"tick": pre["crash"]["step"], "snapshot_write_ms": pre["fault_ms"]["snapshot"],
+           "snapshot_bytes": snap_bytes, "restore_ms": restore_ms,
+           "restore_peak_gb": restore_peak, "restored_cache_gb": cache_gb,
+           "setup_peak_gb": setup_peak_gb,
+           "held_bit_for_bit": sorted(set(post["results"]) - recomputed),
+           "recomputed_shared_prefix": shared, "launches": post["launches"],
+           "ticks": pre["ticks"] + post["ticks"]}
+    log(f"phase 3f crash on the 1 x 1 NCCL mesh at tick {out['tick']} (live "
+        f"{sorted(live_at_crash)}): snapshot {out['snapshot_write_ms']:.2f} ms, {snap_bytes} "
+        f"bytes; restore {restore_ms:.1f} ms (server rebuild and slot rows), peak "
+        f"{restore_peak:.2f} GB through it (setup peak {setup_peak_gb:.2f} GB + cache "
+        f"{cache_gb:.3f} GB); streams held bit for bit {out['held_bit_for_bit']}, recomputed "
+        f"streams' prefix shared with the uninterrupted mesh run {shared}; launches "
+        f"{post['launches']} as predicted [{card}]")
+    del sched, restored
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3446,6 +3607,37 @@ def dryrun_cells(out_dir: str) -> None:
         (Path(out_dir) / f"{i}.json").write_text(json.dumps(rec))
 
 
+def tp_prediction(cfg, shape, data: int, model: int) -> dict:
+    """Rank 0's argument bytes and collective calls in a ``decode_*``
+    dry-run cell of an ``attn`` model under tensor parallelism, predicted
+    from the layout (``parallel.sharding.tp_layout``), bf16 with an fp32
+    router: its query heads (H / M) and their rows of ``wo``, its KV heads
+    (K / M, or a copy of one where M is a multiple of K), its block of a
+    dense MLP or its E / M experts (EP), its vocab rows of ``embed`` and
+    columns of ``lm_head``, the norms whole; the dense cache's slots split
+    over the model axis with every KV head; one int32 token a row. Calls:
+    a layer, the all-reduce after ``wo``, the LSE merge's three, and one
+    after the dense ``w_down`` or EP's decode ownership sum; the K/V rows
+    and ``q``'s heads all-gathered; EP's three all-to-alls; once, the
+    embedding's all-reduce and the logits' all-gather."""
+    d, hd, L, m = cfg.d_model, cfg.head_dim_, cfg.n_layers, model
+    h, k = cfg.n_heads // m, cfg.n_kv_heads // m or 1
+    layer = 2 * d + 2 * d * h * hd + 2 * d * k * hd
+    if cfg.is_moe:
+        layer += cfg.n_experts // m * 3 * d * cfg.moe_d_ff_ + 2 * d * cfg.n_experts
+    else:
+        layer += 3 * d * cfg.d_ff // m
+    vocab = cfg.vocab_size // m * d * (1 if cfg.tie_embeddings else 2)
+    params = 2 * (vocab + d + L * layer)
+    rows = shape.global_batch // data
+    cache = 2 * L * rows * (shape.seq_len // m) * cfg.n_kv_heads * hd * 2
+    calls = {"all-reduce": 5 * L + 1, "all-gather": 2 * L + 1}
+    if cfg.is_moe:
+        calls["all-to-all"] = 3 * L
+    return {"param_bytes": params, "argument_size_in_bytes": params + cache + rows * 4,
+            "collective_calls": calls}
+
+
 def kernel_bench_path(torch, card: str) -> dict:
     """Phase 3i: (a) the bench's smoke cells, (b) its full shape lists,
     (c) its ``--check``, (d) the dry run in a subprocess, (e) the
@@ -3488,6 +3680,24 @@ def kernel_bench_path(torch, card: str) -> dict:
         if rec["status"] != "OK" or not rec["collectives"]["total"] > 0:
             raise AssertionError(f"phase 3i (d) {rec.get('cell')}: {rec['status']} "
                                  f"{rec.get('error', '')[-1500:]}")
+        if rec["arch"] in ("llama3.2-1b", "dbrx-132b"):
+            # tensor parallelism: the rank's slices and their collectives
+            from repro_torch.configs import SHAPES, get_config
+
+            _, arch, layers, shape, kind = next(c for c in DRYRUN_CELLS if c[0] == rec["cell"])
+            cfg = get_config(arch)
+            if layers:
+                cfg = dataclasses.replace(cfg, n_layers=layers)
+            data, model = (2, 4) if kind == "test" else (16, 16)
+            want = tp_prediction(cfg, SHAPES[shape], data, model)
+            got = {k: rec[k] for k in want}
+            if got != want:
+                raise AssertionError(f"phase 3i (d) {rec['cell']}: {got} != the layout's "
+                                     f"prediction {want}")
+            log(f"phase 3i (d) tensor parallelism {rec['cell']} {rec['shape']}: rank 0's "
+                f"parameters {rec['param_bytes']} B, arguments "
+                f"{rec['argument_size_in_bytes']} B, collective calls "
+                f"{rec['collective_calls']}, as the layout predicts")
         if rec["arch"] == "zamba2-1.2b":
             # two all-reduces a Mamba2 layer (its 64 heads split 4 a rank),
             # the shared block's three-all-reduce LSE merge a unit
@@ -4326,6 +4536,10 @@ def main(argv=None) -> int:
     log(f"small fp32 model on the 1 x 1 NCCL mesh: greedy tokens with the kernels equal "
         f"the plain path's and the no-mesh EP Server's (partials launches "
         f"{small_mesh['flash_decode_partials']}, migrations {small_mesh['migrations']})")
+    small_mesh["snapshot"] = snap = small_mesh_snapshot(torch, mesh)
+    log(f"small fp32 model on the 1 x 1 NCCL mesh through the scheduler: crashed at tick "
+        f"{snap['crash_tick']}, restored on the mesh from the snapshot file, every one of "
+        f"{snap['requests']} streams equal to the no-mesh EP run's")
     small_families = {}
     for arch in FAMILIES:
         small_families[arch] = small_family_parity(torch, arch)

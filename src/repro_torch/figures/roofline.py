@@ -18,8 +18,8 @@ is model output at those constants. ``MODEL_FLOPS`` uses 6*N*D for
 training and 2*N_active*D for inference; the roofline fraction is the
 ideal time at the attainable rate over max(term). ``_useful_bytes`` and the
 suggestions are the reference's, unchanged (its parameter traffic assumes
-the reference's 16-way tensor parallelism, which the port does not have
-yet: ROADMAP Queue 1 item 5).
+the reference's 16-way tensor parallelism, which the port's ``attn``
+models take through ``parallel.sharding.tp_layout``).
 """
 
 from __future__ import annotations

@@ -128,7 +128,8 @@ def state_layout(cfg, ctx: ParallelCtx) -> dict:
 def gather_state(state: dict, layout: dict, ctx: ParallelCtx) -> dict:
     """The state with its model-sharded leaves gathered over the model
     group (global arrays; a Mamba2 leaf's B/C columns, which every rank
-    holds, once); a collective: every rank of the group calls it."""
+    holds, and a copied KV head, once); a collective: every rank of the
+    group calls it."""
     if not layout:
         return state
     mesh = ctx.mesh
@@ -136,10 +137,8 @@ def gather_state(state: dict, layout: dict, ctx: ParallelCtx) -> dict:
     def gather(p, t):
         if p not in layout:
             return t
-        dim, part = layout[p]
-        own, every = sharding.split_entries(t, dim, part)
-        whole = all_gather_dim(own, dim, mesh.model_group, mesh.model_order)
-        return whole if every is None else torch.cat([whole, every], dim=dim)
+        return sharding.whole(t, *layout[p], lambda own, dim: all_gather_dim(
+            own, dim, mesh.model_group, mesh.model_order))
 
     return _with_paths(gather, state)
 

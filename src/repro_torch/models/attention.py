@@ -8,9 +8,17 @@ fp32. The dense cache is ``(B, L, K, hd)`` per layer, a ring of
 page pool plus per-request block tables. The port writes K/V into either
 cache *in place* (JAX returns new arrays), which keeps one copy resident.
 
-Under a mesh (``ctx.mesh``) every rank computes attention's projections
-for all heads of its requests (no tensor parallelism yet) and holds its
-shard of the cache (``parallel.sharding``). The dense cache is split by
+Under a mesh (``ctx.mesh``) every rank serves its requests and holds its
+shard of the cache (``parallel.sharding``). With the rank's slices of the
+weights (``sharding.tp_layout``: its block of the query heads and their
+rows of ``wo``, its KV heads or a copy of the one its query heads read)
+the rank projects and attends its heads, and the row-parallel ``wo``
+ends in one ``reduce_sum`` over the model group; with the whole weights
+(no split, or zamba's shared block and the encoder-decoder) it projects
+every head. Where a cache holds more KV heads than the rank projects,
+the new K/V rows are all-gathered over the model group before the write
+(:func:`cache_kv`), so that every rank's cache shard stays the
+reference's. The dense cache is split by
 sequence when ``ctx.seq_parallel_kv`` and the slots divide the model axis
 (a rank holds slots ``[r*L/M, (r+1)*L/M)``, a decode write lands only on
 the rank that owns the slot, and decode attends through
@@ -20,8 +28,10 @@ they divide (every page, since pages are allocated by request), else all
 of them. Decode follows the reference's dispatch: ``flash_decode`` or
 ``flash_decode_paged`` on the rank's ``H/M`` query heads against its KV
 heads where the reference's eligibility tests pass, the plain math
-otherwise; a rank that attended a head shard all-gathers the heads over
-the model group.
+otherwise; a rank that attended a head shard with the whole ``wo``
+all-gathers the heads over the model group. The sequence split attends
+every head over the rank's slots (``q``'s heads all-gathered under
+tensor parallelism) and keeps the rank's heads for ``wo``.
 
 ``chunk_prefill_attention`` is the prefill lane of the decode step: one
 fixed-size chunk of an admitting request's context, written into the
@@ -41,7 +51,13 @@ from repro_torch.kernels import registry
 from repro_torch.kernels.flash_decode.ref import gather_pages
 from repro_torch.models.layers import apply_rope, mm, normal_init
 from repro_torch.parallel import sharding
-from repro_torch.parallel.collectives import all_gather_dim, seq_parallel_decode_attend
+from repro_torch.parallel.collectives import (
+    all_gather_dim,
+    copied,
+    enter,
+    reduce_sum,
+    seq_parallel_decode_attend,
+)
 from repro_torch.parallel.ctx import ParallelCtx
 
 NEG_INF = -1e30
@@ -65,22 +81,62 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
     return p
 
 
-def qkv_proj(p: dict, x: torch.Tensor, cfg: ModelConfig):
+def tp_group(p: dict, cfg: ModelConfig, ctx: ParallelCtx | None):
+    """The model group when ``p`` holds the rank's block of the query
+    heads (tensor parallelism, ``sharding.tp_layout``), else None."""
+    if ctx is None or ctx.mesh is None or p["wq"].shape[-1] == cfg.n_heads * cfg.head_dim_:
+        return None
+    return ctx.mesh.model_group
+
+
+def qkv_proj(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: ParallelCtx | None = None):
+    """q, k, v ``(B, S, heads, hd)`` of the heads ``p`` projects: all of
+    them, or under tensor parallelism the rank's, ``x`` entering the
+    rank's work (``collectives.enter``) and a copied KV head's leaves
+    summing their holders' gradients (``collectives.copied``)."""
     b, s, _ = x.shape
     h = cfg.head_dim_
-    q, k, v = mm(x, p["wq"]), mm(x, p["wk"]), mm(x, p["wv"])
+    w = {n: p[n] for n in ("wq", "wk", "wv", "bq", "bk", "bv") if n in p}
+    group = tp_group(p, cfg, ctx)
+    if group is not None:
+        x = enter(x, group)
+        part = sharding.kv_part(cfg.n_kv_heads, ctx.n_model, ctx.model_rank)
+        if isinstance(part, sharding.Copy):
+            for n in ("wk", "wv", "bk", "bv"):
+                if n in w:
+                    w[n] = copied(w[n], part.block.start, cfg.n_kv_heads, group)
+    q, k, v = mm(x, w["wq"]), mm(x, w["wk"]), mm(x, w["wv"])
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (
-        q.reshape(b, s, cfg.n_heads, h),
-        k.reshape(b, s, cfg.n_kv_heads, h),
-        v.reshape(b, s, cfg.n_kv_heads, h),
-    )
+        q, k, v = q + w["bq"], k + w["bk"], v + w["bv"]
+    return q.reshape(b, s, -1, h), k.reshape(b, s, -1, h), v.reshape(b, s, -1, h)
 
 
-def out_proj(p: dict, o: torch.Tensor) -> torch.Tensor:
+def out_proj(p: dict, o: torch.Tensor, group=None) -> torch.Tensor:
+    """``o``'s heads through ``wo``; with ``group`` (the rank's heads and
+    their rows of ``wo``) the partial products summed over it."""
     b, s = o.shape[:2]
-    return mm(o.reshape(b, s, -1), p["wo"])
+    y = mm(o.reshape(b, s, -1), p["wo"])
+    return y if group is None else reduce_sum(y, group)
+
+
+def cache_kv(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
+             ctx: ParallelCtx | None, heads: slice):
+    """The KV heads ``heads`` of new K/V rows ``(B, S, heads, hd)`` for a
+    cache write: cut from rows of every KV head, or under tensor
+    parallelism the rank's own rows where they are those heads, else
+    every rank's all-gathered over the model group (K and V in one call;
+    a copied head taken once)."""
+    n_kv = cfg.n_kv_heads
+    if k.shape[2] == n_kv:
+        return k[:, :, heads], v[:, :, heads]
+    part = sharding.kv_part(n_kv, ctx.n_model, ctx.model_rank)
+    if part == heads:
+        return k, v
+    kv = all_gather_dim(torch.stack([k, v]), 3, ctx.mesh.model_group, ctx.mesh.model_order)
+    if isinstance(part, sharding.Copy):
+        kv = kv[:, :, :, ::part.copies]
+    kv = kv[:, :, :, heads]
+    return kv[0], kv[1]
 
 
 # ---------------------------------------------------------------------------
@@ -165,7 +221,8 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: ParallelCtx,
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
-    q, k, v = qkv_proj(p, x, cfg)
+    group = tp_group(p, cfg, ctx)
+    q, k, v = qkv_proj(p, x, cfg, ctx)
     if cfg.rope_theta > 0:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -177,7 +234,7 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: ParallelCtx,
     else:
         mask = causal_mask(s, window=cfg.sliding_window, device=x.device) if causal else None
         o = gqa_attend(q, k, v, mask)
-    out = out_proj(p, o)
+    out = out_proj(p, o, group)
     if return_kv:
         return out, (k, v)
     return out
@@ -372,7 +429,8 @@ def decode_attention(p: dict, x: torch.Tensor, cache: dict, pos: int,
     if is_paged(cache):
         return _paged_decode_attention(p, x, cache, cfg, ctx)
     b = x.shape[0]
-    q, k_new, v_new = qkv_proj(p, x, cfg)
+    group = tp_group(p, cfg, ctx)
+    q, k_new, v_new = qkv_proj(p, x, cfg, ctx)
     if cfg.rope_theta > 0:
         posb = torch.full((b, 1), pos, device=x.device)
         q = apply_rope(q, posb, cfg.rope_theta)
@@ -389,6 +447,7 @@ def decode_attention(p: dict, x: torch.Tensor, cache: dict, pos: int,
         )
     lo = slots.start
     w = cfg.sliding_window or 0
+    k_new, v_new = cache_kv(k_new, v_new, cfg, ctx, heads)
     # Full attention at pos >= length: the cache is full. Freeze it (skip
     # the write that would clobber the last slot) and clamp the mask, so
     # slot j always holds position j; serving refuses such steps anyway.
@@ -396,8 +455,8 @@ def decode_attention(p: dict, x: torch.Tensor, cache: dict, pos: int,
     if w > 0 or pos < length:
         slot = pos % length if w > 0 else pos
         if lo <= slot < lo + local:
-            k_cache[:, slot - lo] = k_new[:, 0, heads].to(k_cache.dtype)
-            v_cache[:, slot - lo] = v_new[:, 0, heads].to(v_cache.dtype)
+            k_cache[:, slot - lo] = k_new[:, 0].to(k_cache.dtype)
+            v_cache[:, slot - lo] = v_new[:, 0].to(v_cache.dtype)
 
     j = lo + torch.arange(local, device=x.device)
     if w > 0:
@@ -411,17 +470,23 @@ def decode_attention(p: dict, x: torch.Tensor, cache: dict, pos: int,
             o = _flash_decode(q, k_cache, v_cache, mask)
         else:
             o = gqa_attend(q, k_cache, v_cache, mask[None, None, None, None, :])
-    elif _flash_decode_eligible(q, cfg.n_kv_heads, ctx):
-        o = _flash_decode_heads(q, k_cache, v_cache, mask, cfg.n_kv_heads, ctx)
+    elif _flash_decode_eligible(q, cfg.n_heads, cfg.n_kv_heads, ctx):
+        o = _flash_decode_heads(q, k_cache, v_cache, mask, cfg.n_kv_heads, ctx,
+                                group is not None)
     elif ctx.seq_parallel_kv and length % ctx.n_model == 0:
         # the sequence split (the reference's _seq_parallel_decode_eligible;
-        # a replicated batch takes its einsum body, the plain math)
+        # a replicated batch takes its einsum body, the plain math): every
+        # head over the rank's slots, the rank's heads kept for its wo
         sp_ctx = ctx if ctx.batch_split else dataclasses.replace(ctx, use_kernels=False)
+        if group is not None:
+            q = all_gather_dim(q, 2, group, ctx.mesh.model_order)
         o = seq_parallel_decode_attend(q, k_cache, v_cache, mask, sp_ctx)
+        if group is not None:
+            o = o[:, :, _q_heads(cfg.n_heads, ctx)]
     else:
         o = _attend_heads(q, k_cache, v_cache, mask[None, None, None, None, :],
-                          cfg.n_kv_heads, ctx)
-    return out_proj(p, o), cache
+                          cfg.n_kv_heads, ctx, group is not None)
+    return out_proj(p, o, group), cache
 
 
 def _flash_decode(q, k_cache, v_cache, mask):
@@ -440,7 +505,7 @@ def _q_heads(nh: int, ctx: ParallelCtx) -> slice:
     return slice(r * nh // m, (r + 1) * nh // m)
 
 
-def _flash_decode_eligible(q, n_kv: int, ctx: ParallelCtx) -> bool:
+def _flash_decode_eligible(q, n_heads: int, n_kv: int, ctx: ParallelCtx) -> bool:
     """The reference's ``_flash_decode_eligible`` under a mesh: the kernel
     on head shards, with the sequence split off, the query heads dividing
     the model axis, the batch split, and the KV heads dividing the axis or
@@ -449,17 +514,20 @@ def _flash_decode_eligible(q, n_kv: int, ctx: ParallelCtx) -> bool:
     tp = ctx.n_model
     if not ctx.kernels_on(q) or ctx.seq_parallel_kv:
         return False
-    if q.shape[2] % tp or not ctx.batch_split:
+    if n_heads % tp or not ctx.batch_split:
         return False
     return n_kv % tp == 0 or tp % n_kv == 0
 
 
-def _flash_decode_heads(q, k_cache, v_cache, mask, n_kv: int, ctx: ParallelCtx):
+def _flash_decode_heads(q, k_cache, v_cache, mask, n_kv: int, ctx: ParallelCtx,
+                        tp_heads: bool = False):
     """``flash_decode`` on the rank's ``H/M`` query heads (the reference's
     head-sharded ``_flash_decode``): against its KV heads when the cache
     is head-split, or against the one KV head of its GQA group when the
-    cache is replicated (``tp % nkv == 0``, a copy of that head's slice);
-    the heads are then all-gathered over the model group."""
+    cache is replicated (``tp % nkv == 0``, a copy of that head's slice).
+    With ``tp_heads`` ``q`` holds the rank's heads, and so does the
+    result (for the row-parallel ``wo``); else the heads are then
+    all-gathered over the model group."""
     tp = ctx.n_model
     if tp == 1:
         return _flash_decode(q, k_cache, v_cache, mask)
@@ -467,16 +535,26 @@ def _flash_decode_heads(q, k_cache, v_cache, mask, n_kv: int, ctx: ParallelCtx):
         i = ctx.model_rank // (tp // n_kv)
         k_cache = k_cache[:, :, i : i + 1].contiguous()
         v_cache = v_cache[:, :, i : i + 1].contiguous()
-    qh = q[:, :, _q_heads(q.shape[2], ctx)].contiguous()
-    o = _flash_decode(qh, k_cache, v_cache, mask)
+    qh = q if tp_heads else q[:, :, _q_heads(q.shape[2], ctx)]
+    o = _flash_decode(qh.contiguous(), k_cache, v_cache, mask)
+    if tp_heads:
+        return o
     return all_gather_dim(o, 2, ctx.mesh.model_group, ctx.mesh.model_order)
 
 
-def _attend_heads(q, k, v, mask, n_kv: int, ctx: ParallelCtx):
+def _attend_heads(q, k, v, mask, n_kv: int, ctx: ParallelCtx, tp_heads: bool = False):
     """Plain GQA attention of ``q`` (B, S, H, hd) over this rank's ``k``/``v``
     (B, T, K_loc, hd): all heads when it holds every KV head, else its
     ``H/M`` query heads against its KV heads, the heads then all-gathered
-    over the model group."""
+    over the model group. With ``tp_heads`` ``q`` holds the rank's heads,
+    which attend the KV heads they read (cut from a cache that holds them
+    all), and the result keeps them."""
+    if tp_heads:
+        if k.shape[2] == n_kv:
+            part = sharding.kv_part(n_kv, ctx.n_model, ctx.model_rank)
+            hs = part.block if isinstance(part, sharding.Copy) else part
+            k, v = k[:, :, hs], v[:, :, hs]
+        return gqa_attend(q, k, v, mask)
     if ctx.mesh is None or k.shape[2] == n_kv:
         return gqa_attend(q, k, v, mask)
     o = gqa_attend(q[:, :, _q_heads(q.shape[2], ctx)], k, v, mask)
@@ -499,7 +577,8 @@ def _paged_decode_attention(p: dict, x: torch.Tensor, cache: dict,
     cap = tables.shape[1] * bs
     w = cfg.sliding_window or 0
 
-    q, k_new, v_new = qkv_proj(p, x, cfg)
+    group = tp_group(p, cfg, ctx)
+    q, k_new, v_new = qkv_proj(p, x, cfg, ctx)
     posb = written[:, None]
     if cfg.rope_theta > 0:
         q = apply_rope(q, posb, cfg.rope_theta)
@@ -509,9 +588,9 @@ def _paged_decode_attention(p: dict, x: torch.Tensor, cache: dict,
     slot = torch.remainder(wl, cap) if w > 0 else wl.clamp(max=cap - 1)
     page = torch.gather(tables.long(), 1, (slot // bs)[:, None])[:, 0]
     row = slot % bs
-    hs = pool_heads(cfg, ctx)
-    k_new = k_new[:, 0, hs].to(pool_k.dtype)
-    v_new = v_new[:, 0, hs].to(pool_v.dtype)
+    k_new, v_new = cache_kv(k_new, v_new, cfg, ctx, pool_heads(cfg, ctx))
+    k_new = k_new[:, 0].to(pool_k.dtype)
+    v_new = v_new[:, 0].to(pool_v.dtype)
     if w == 0:
         overflow = (wl >= cap)[:, None, None]
         k_new = torch.where(overflow, pool_k[page, row], k_new)
@@ -523,19 +602,21 @@ def _paged_decode_attention(p: dict, x: torch.Tensor, cache: dict,
 
     tp, n_kv = ctx.n_model, cfg.n_kv_heads
     eligible = ctx.kernels_on(q) and (ctx.mesh is None or (
-        q.shape[2] % tp == 0 and n_kv % tp == 0 and ctx.batch_split))
+        cfg.n_heads % tp == 0 and n_kv % tp == 0 and ctx.batch_split))
     if eligible:
-        qh = q[:, 0] if tp == 1 else q[:, 0, _q_heads(q.shape[2], ctx)]
+        whole_q = tp == 1 or group is not None
+        qh = q[:, 0] if whole_q else q[:, 0, _q_heads(q.shape[2], ctx)]
         o = registry.decode_attend_paged(qh.contiguous(), pool_k, pool_v, tables,
                                          live)[:, None]
-        if tp > 1:
+        if not whole_q:
             o = all_gather_dim(o, 2, ctx.mesh.model_group, ctx.mesh.model_order)
     else:
         k_all = gather_pages(pool_k, tables)
         v_all = gather_pages(pool_v, tables)
         mask = torch.arange(cap, device=x.device)[None, :] < live[:, None]
-        o = _attend_heads(q, k_all, v_all, mask[:, None, None, None, :], n_kv, ctx)
-    out = out_proj(p, o)
+        o = _attend_heads(q, k_all, v_all, mask[:, None, None, None, :], n_kv, ctx,
+                          group is not None)
+    out = out_proj(p, o, group)
     new_cache = {"pool_k": pool_k, "pool_v": pool_v, "tables": tables,
                  "lengths": written}
     return out, new_cache
@@ -564,7 +645,8 @@ def chunk_prefill_attention(p: dict, x: torch.Tensor, cache: dict,
     bs = pool_k.shape[1]
     cap = table.shape[0] * bs
     c = x.shape[1]
-    q, k, v = qkv_proj(p, x, cfg)
+    group = tp_group(p, cfg, ctx)
+    q, k, v = qkv_proj(p, x, cfg, ctx)
     pos = start + torch.arange(c, device=x.device)                 # (C,)
     if cfg.rope_theta > 0:
         q = apply_rope(q, pos[None, :], cfg.rope_theta)
@@ -573,11 +655,11 @@ def chunk_prefill_attention(p: dict, x: torch.Tensor, cache: dict,
     valid = torch.arange(c, device=x.device) < length
     page = torch.where(valid, table.long()[slot // bs], pool_k.shape[0] - 1)
     row = slot % bs
-    hs = pool_heads(cfg, ctx)
-    pool_k[page, row] = k[0, :, hs].to(pool_k.dtype)
-    pool_v[page, row] = v[0, :, hs].to(pool_v.dtype)
+    k, v = cache_kv(k, v, cfg, ctx, pool_heads(cfg, ctx))
+    pool_k[page, row] = k[0].to(pool_k.dtype)
+    pool_v[page, row] = v[0].to(pool_v.dtype)
     k_all = gather_pages(pool_k, table[None, :])                   # (1, cap, K, hd)
     v_all = gather_pages(pool_v, table[None, :])
     mask = torch.arange(cap, device=x.device)[None, :] <= pos[:, None]   # (C, cap)
-    o = _attend_heads(q, k_all, v_all, mask, cfg.n_kv_heads, ctx)
-    return out_proj(p, o), cache
+    o = _attend_heads(q, k_all, v_all, mask, cfg.n_kv_heads, ctx, group is not None)
+    return out_proj(p, o, group), cache

@@ -10,6 +10,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.collectives import enter, reduce_sum
+
 
 def normal_init(gen: torch.Generator, shape, scale: float = 0.02,
                 dtype=torch.float32, device="cpu") -> torch.Tensor:
@@ -64,7 +66,14 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype=torch.float32,
     }
 
 
-def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
+def mlp_apply(p: dict, x: torch.Tensor, group=None) -> torch.Tensor:
+    """The SwiGLU MLP. With ``group`` ``p`` holds the rank's block of the
+    hidden dim (column-parallel ``w_gate``/``w_up``, row-parallel
+    ``w_down``): ``x`` enters the rank's work and the partial products are
+    summed over ``group``."""
+    if group is not None:
+        x = enter(x, group)
     h = mm(x, p["w_gate"])
     u = mm(x, p["w_up"])
-    return mm(F.silu(h) * u, p["w_down"])
+    y = mm(F.silu(h) * u, p["w_down"])
+    return y if group is None else reduce_sum(y, group)

@@ -24,7 +24,12 @@ data axis) with its shard of the caches (``parallel.sharding``):
 * ``attn``: the dense cache or the paged pool; the EP prefill splits the
   sequence over the model axis inside ``ep_moe_shardmap`` and gathers it
   back there. The prefill lane's chunk is the same on every rank (the
-  reference's ``chunk_specs`` replicate it);
+  reference's ``chunk_specs`` replicate it). With the rank's
+  tensor-parallel slices (``sharding.tp_layout``) attention and a dense
+  MLP run the rank's heads and hidden block (``attention.qkv_proj``,
+  ``layers.mlp_apply``), the embedding is a vocab-parallel lookup summed
+  over the model group, and the logits' vocab columns are all-gathered
+  there (:func:`_embed`, :func:`_logits`);
 * ``zamba``: each Mamba2 layer on the rank's heads and their states
   (``ssm.mamba_apply``: two all-reduces over the model group), the shared
   block's ``shared_kv`` on the dense-cache path of the ``attn`` pattern;
@@ -58,6 +63,7 @@ from repro_torch.models.attention import (
     attention,
     attn_init,
     cache_init,
+    cache_kv,
     cache_len,
     chunk_prefill_attention,
     cross_attention,
@@ -73,6 +79,7 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models.layers import mlp_apply, mlp_init, mm, normal_init, rms_norm
 from repro_torch.models.moe import moe_apply, moe_init, zero_aux
+from repro_torch.parallel.collectives import all_gather_dim, enter, reduce_sum
 from repro_torch.parallel.ctx import NO_MESH, ParallelCtx
 
 XLSTM_UNIT_M = 3  # mLSTM blocks per unit (then 1 sLSTM)
@@ -215,15 +222,34 @@ def layer_view(tree, l: int):
     return tree[l]
 
 
-def _embed(params, tokens):
-    return params["embed"][tokens.long()]
+def _embed(params, tokens, cfg: ModelConfig, ctx: ParallelCtx):
+    """The token embeddings. Under tensor parallelism (the rank's vocab
+    rows of ``embed``) a vocab-parallel lookup: ids outside the rank's
+    rows give zeros, and the ranks' rows are summed over the model
+    group."""
+    emb = params["embed"]
+    if emb.shape[0] == cfg.vocab_size:
+        return emb[tokens.long()]
+    n = emb.shape[0]
+    ids = tokens.long() - ctx.model_rank * n
+    hit = (ids >= 0) & (ids < n)
+    zero = torch.zeros((), dtype=emb.dtype, device=emb.device)
+    x = torch.where(hit[..., None], emb[ids.clamp(0, n - 1)], zero)
+    return reduce_sum(x, ctx.mesh.model_group)
 
 
-def _logits(params, x, cfg: ModelConfig):
+def _logits(params, x, cfg: ModelConfig, ctx: ParallelCtx):
+    """The final norm and the logits over the whole vocab. Under tensor
+    parallelism (the rank's vocab columns of ``lm_head``, or rows of a
+    tied ``embed``) each rank computes its columns, all-gathered over the
+    model group."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    if cfg.tie_embeddings:
-        return mm(x, params["embed"].T)
-    return mm(x, params["lm_head"])
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if w.shape[1] == cfg.vocab_size:
+        return mm(x, w)
+    mesh = ctx.mesh
+    return all_gather_dim(mm(enter(x, mesh.model_group), w), -1, mesh.model_group,
+                          mesh.model_order)
 
 
 # ---------------------------------------------------------------------------
@@ -306,7 +332,10 @@ def _block_ffn(p_l, z2, cfg, ctx, placement, token_mask):
     if cfg.is_moe:
         return moe_apply(p_l["moe"], z2, cfg, ctx, placement=placement,
                          token_mask=token_mask)
-    return mlp_apply(p_l["mlp"], z2), zero_aux(cfg, z2.device)
+    mlp = p_l["mlp"]
+    split = ctx.mesh is not None and mlp["w_gate"].shape[-1] != cfg.d_ff
+    return (mlp_apply(mlp, z2, ctx.mesh.model_group if split else None),
+            zero_aux(cfg, z2.device))
 
 
 # ---------------------------------------------------------------------------
@@ -491,7 +520,7 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, ctx: ParallelCtx = N
     pat = cfg.block_pattern
     if pat not in PATTERNS:
         raise ValueError(pat)
-    x = _embed(params, tokens)
+    x = _embed(params, tokens, cfg, ctx)
     b, s, _ = x.shape
     aux = zero_aux(cfg, x.device)
     if pat == "encdec":
@@ -502,7 +531,7 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, ctx: ParallelCtx = N
         for l in range(cfg.n_layers):
             x = _layer(_dec_block, ctx, layer_view(params["layers"], l), x, mem, cfg, ctx,
                        positions)
-        return _logits(params, x, cfg), aux
+        return _logits(params, x, cfg, ctx), aux
     n_front = 0
     if cfg.frontend_stub and embeds is not None:
         n_front = embeds.shape[1]
@@ -526,7 +555,7 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, ctx: ParallelCtx = N
             x = _layer(_xlstm_unit, ctx, layer_view(params["units"], i), x, cfg, ctx)
     if n_front:
         x = x[:, n_front:]
-    return _logits(params, x, cfg), aux
+    return _logits(params, x, cfg, ctx), aux
 
 
 # ---------------------------------------------------------------------------
@@ -573,7 +602,7 @@ def decode_step(
         raise ValueError(f"chunked prefill requires block_pattern='attn', got {pat}")
     if chunk is not None and not chunk["length"]:
         chunk = None
-    x = _embed(params, token)
+    x = _embed(params, token, cfg, ctx)
     pos = cache["pos"]
     aux = zero_aux(cfg, x.device)
     if pat != "attn":
@@ -584,12 +613,12 @@ def decode_step(
         else:
             x = _decoder(params, x, cache, cfg, ctx, pos=pos)
         cache["pos"] = pos + 1
-        return _logits(params, x, cfg), cache, {"expert_counts": aux["counts"]}
+        return _logits(params, x, cfg, ctx), cache, {"expert_counts": aux["counts"]}
     token_mask = None if slot_mask is None else slot_mask[:, None]
     if chunk is not None:
         if not is_paged(cache["layers"]):
             raise ValueError("the prefill lane (chunk=...) needs a paged cache")
-        xc = _embed(params, chunk["tokens"])                         # (1, C, d)
+        xc = _embed(params, chunk["tokens"], cfg, ctx)                         # (1, C, d)
         n_chunk = xc.shape[1]
         cvalid = (torch.arange(n_chunk, device=x.device) < chunk["length"])[None, :]
         cctx = ctx if ctx.mesh is None else dataclasses.replace(ctx, batch_replicated=True)
@@ -621,8 +650,8 @@ def decode_step(
     stats = {"expert_counts": aux["counts"]}
     if chunk is not None:
         last = min(max(int(chunk["length"]) - 1, 0), n_chunk - 1)
-        stats["chunk_logits"] = _logits(params, xc[:, last : last + 1], cfg)
-    return _logits(params, x, cfg), cache, stats
+        stats["chunk_logits"] = _logits(params, xc[:, last : last + 1], cfg, ctx)
+    return _logits(params, x, cfg, ctx), cache, stats
 
 
 # ---------------------------------------------------------------------------
@@ -661,7 +690,7 @@ def prefill(
     encodes them (required)."""
     b, s = tokens.shape
     pat = cfg.block_pattern
-    x = _embed(params, tokens)
+    x = _embed(params, tokens, cfg, ctx)
     if cfg.frontend_stub and embeds is not None and pat != "encdec":
         x = torch.cat([embeds.to(x.dtype), x], dim=1)
         s = x.shape[1]
@@ -693,7 +722,7 @@ def prefill(
             z = rms_norm(x, p_l["ln1"], cfg.norm_eps)
             o, (k, v) = attention(p_l["attn"], z, cfg, ctx, positions, return_kv=True)
             x = x + o
-            k, v = k[:, :, heads], v[:, :, heads]
+            k, v = cache_kv(k, v, cfg, ctx, heads)
             if paged:
                 c_new = paged_prefill_fill(c_l, k, v, s, lengths)
                 cache["layers"]["lengths"][l].copy_(c_new["lengths"])
@@ -708,4 +737,4 @@ def prefill(
         x = x[torch.arange(b, device=x.device), last][:, None]
     else:
         x = x[:, -1:]
-    return _logits(params, x, cfg), cache
+    return _logits(params, x, cfg, ctx), cache

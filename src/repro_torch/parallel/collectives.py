@@ -24,7 +24,8 @@ replicated passes its cotangent through (:func:`reduce_sum`); a gather
 whose result is replicated gives each rank its own block back
 (:func:`all_gather_dim`); a replicated tensor entering rank-local work
 sums the ranks' cotangents (:func:`enter`), as does a slice of it
-(:func:`split`). :func:`psum` is the sum whose every rank feeds a loss of
+(:func:`split`), and a block several ranks hold copies of sums the
+cotangents of its holders (:func:`copied`). :func:`psum` is the sum whose every rank feeds a loss of
 its own (the data group's, whose gradients are averaged): its adjoint is
 the sum. Without a gradient to take, each is the plain ``dist`` call.
 
@@ -410,6 +411,21 @@ class _Split(torch.autograd.Function):
         return _all_gather_dim(ct, *fctx.args), None, None, None
 
 
+class _Copied(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, t, index, n, group):
+        fctx.args = (index, n, group)
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(fctx, ct):
+        index, n, group = fctx.args
+        blocks = ct.new_zeros((n, *ct.shape))
+        blocks[index] = ct
+        dist.all_reduce(blocks, group=group)
+        return blocks[index], None, None, None
+
+
 class _PSum(torch.autograd.Function):
     @staticmethod
     def forward(fctx, t, group):
@@ -457,6 +473,17 @@ def reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
     if _wants_grad(t):
         return _ReduceSum.apply(t, group)
     return _all_reduce(t, group)
+
+
+def copied(t: torch.Tensor, index: int, n: int, group) -> torch.Tensor:
+    """``t``, block ``index`` of ``n`` blocks of a leaf, of which every rank
+    of ``group`` holds one and several hold each (a copied KV head,
+    ``sharding.Copy``): the identity, whose backward sums the cotangents
+    of the ranks that hold the same block (an all-reduce of the ``n``
+    blocks, each rank's at its index), the same on each of them."""
+    if _wants_grad(t):
+        return _Copied.apply(t, index, n, group)
+    return t
 
 
 def psum(t: torch.Tensor, group) -> torch.Tensor:

@@ -10,9 +10,12 @@ ownership sum; ESP's hidden-dim shards and their reduce-scatter
 (``collectives.esp_expert_ffn``); decode attention over a KV cache
 split over the model axis, by sequence (partials LSE-merged across the
 model group) or by KV heads (each rank attends its heads, then the heads
-are gathered), the encoder-decoder's cross K/V cache too; and the Mamba2
-heads (``models.ssm.mamba_apply``, two all-reduces a layer). The layouts
-are ``parallel.sharding``'s.
+are gathered), the encoder-decoder's cross K/V cache too; the Mamba2
+heads (``models.ssm.mamba_apply``, two all-reduces a layer); and an
+``attn`` model's tensor-parallel slices (its query and KV heads, its
+block of a dense MLP, its vocab rows and columns, each product's partial
+sums all-reduced and the logits all-gathered over the model group). The
+layouts are ``parallel.sharding``'s.
 
 ``seq_parallel_kv`` is the reference's switch: the dense cache's sequence
 over the model axis when it divides (default), else its KV heads.

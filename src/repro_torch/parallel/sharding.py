@@ -48,16 +48,39 @@ channels. What is left to communicate is two all-reduces per Mamba layer
 projection's partial sums. The served and trained results are the same
 up to the order of those sums.
 
+Tensor parallelism of the ``attn`` pattern (:func:`tp_layout`, the
+reference's ``param_spec`` for the dense and MoE decoders): a rank keeps
+its block of the query heads of ``wq``/``bq`` (the last dim) and the
+same heads' rows of ``wo``; its KV heads of ``wk``/``wv``/``bk``/``bv``;
+its block of the dense SwiGLU's hidden dim (``w_gate``/``w_up`` last,
+``w_down`` inner); ``embed``'s vocab rows and ``lm_head``'s vocab
+columns. Each splits only where it divides the model axis; the router,
+the norms and the expert layouts are unchanged. The heads split only
+where ``H`` divides the axis and the KV heads either divide it or are
+divided by it; otherwise every attention leaf stays replicated.
+
+**The KV head split departs from the reference's too.** The reference
+splits the ``K * hd`` columns of ``wk``/``wv`` evenly; at qwen2-72b and
+dbrx-132b on 16 ranks that is 64 columns, half a head of 128. The port
+splits by heads, so that every kernel sees whole GQA groups: where ``K``
+divides the axis a rank keeps its ``K / M`` heads; where ``M`` is a
+multiple of ``K`` it keeps the one head its query heads read, head ``r //
+(M / K)``, copied over the ``M / K`` ranks of its group (:class:`Copy`).
+The copies' gradient is the sum over their holders
+(``collectives.copied``), so they stay equal; the clip norm counts each
+head once, and a checkpoint gathers one copy a head.
+
 The train state's layout (``state_specs``) follows from these:
 :func:`param_layout` names the model-sharded parameter leaves (the EP
 slot rows of the experts at their native homes, or the ESP hidden-dim
-shards) with the dim and slice a rank keeps; every other leaf is
-replicated over the model group (the port has no tensor parallelism,
-ROADMAP Queue 1 item 5), and the AdamW moments take their parameter's
-layout; zamba's Mamba leaves add theirs (above). :func:`rank_params`
-cuts a full tree (parameters or a moment) to a rank's slices, so that
-every rank starting from the same full init trains the same model on
-any mesh.
+shards, and the tensor-parallel leaves) with the dim and part a rank
+keeps; every other leaf is replicated over the model group, and the
+AdamW moments take their parameter's layout; zamba's Mamba leaves add
+theirs (above). zamba's shared block and the encoder-decoder stay
+replicated (ROADMAP Queue 1 item 5b), and so does xLSTM, as in the
+reference. :func:`rank_params` cuts a full tree (parameters or a moment)
+to a rank's slices, so that every rank starting from the same full init
+trains the same model on any mesh.
 """
 
 from __future__ import annotations
@@ -157,24 +180,49 @@ class Part:
         return [*range(self.block.start, self.block.stop), *range(n - self.tail, n)]
 
 
+@dataclasses.dataclass(frozen=True)
+class Copy:
+    """A rank's copy of ``block`` of a dim, which ``copies`` ranks of the
+    model group hold alike (a GQA KV head read by the query heads of
+    ``copies`` ranks). ``lead`` marks the first of them, which alone
+    counts it in the clip norm."""
+    block: slice
+    copies: int
+    lead: bool
+
+
 def take(t: torch.Tensor, dim: int, part) -> torch.Tensor:
-    """A contiguous copy of the rank's ``part`` (a block ``slice`` or a
-    :class:`Part`) of ``dim`` of the global ``t``."""
+    """A contiguous copy of the rank's ``part`` (a block ``slice``, a
+    :class:`Part` or a :class:`Copy`) of ``dim`` of the global ``t``."""
     if isinstance(part, Part):
         n = t.shape[dim]
         return torch.cat([t.narrow(dim, part.block.start, part.block.stop - part.block.start),
                           t.narrow(dim, n - part.tail, part.tail)], dim=dim)
+    if isinstance(part, Copy):
+        part = part.block
     return t.narrow(dim, part.start, part.stop - part.start).clone(
         memory_format=torch.contiguous_format)
 
 
 def split_entries(t: torch.Tensor, dim: int, part) -> tuple[torch.Tensor, torch.Tensor | None]:
     """A rank's tensor cut into the entries split over the model group and
-    the entries every rank holds (None for a plain block)."""
+    the entries every rank holds (None for a block or a copy)."""
     if not isinstance(part, Part):
         return t, None
     n = t.shape[dim]
     return t.narrow(dim, 0, n - part.tail), t.narrow(dim, n - part.tail, part.tail)
+
+
+def whole(t: torch.Tensor, dim: int, part, gather) -> torch.Tensor:
+    """The global tensor from every rank's ``part`` of it: ``gather(own,
+    dim)`` concatenates the ranks' split entries in logical order (a
+    collective over the model group); a copied block is taken once, and
+    the entries every rank holds are appended once."""
+    own, every = split_entries(t, dim, part)
+    out = gather(own, dim)
+    if isinstance(part, Copy):
+        out = torch.cat(out.chunk(out.shape[dim] // own.shape[dim], dim)[::part.copies], dim)
+    return out if every is None else torch.cat([out, every], dim=dim)
 
 
 def mamba_layout(cfg, ctx) -> dict[str, tuple[int, object]]:
@@ -210,25 +258,87 @@ def moe_layout(cfg, ctx) -> str | None:
     return "ep" if cfg.n_experts % ctx.n_model == 0 else "esp"
 
 
+def heads_split(n_heads: int, n_kv: int, n_model: int) -> bool:
+    """Does attention split its heads over an axis of ``n_model`` ranks:
+    the query heads dividing it, and the KV heads dividing it or divided
+    by it (each rank's query heads then read whole KV heads)?"""
+    return _ok(n_heads, n_model) and (n_kv % n_model == 0 or n_model % n_kv == 0)
+
+
+def q_heads(n_heads: int, n_model: int, model_rank: int) -> slice:
+    """The query heads a rank projects under tensor parallelism."""
+    return _block(n_heads, n_model, model_rank)
+
+
+def kv_part(n_kv: int, n_model: int, model_rank: int):
+    """The KV heads a rank projects under tensor parallelism: its block
+    where they divide the axis, else a :class:`Copy` of the one head its
+    query heads read (the axis a multiple of ``n_kv``)."""
+    if _ok(n_kv, n_model):
+        return _block(n_kv, n_model, model_rank)
+    copies = n_model // n_kv
+    i = model_rank // copies
+    return Copy(slice(i, i + 1), copies, model_rank % copies == 0)
+
+
+def _columns(part, width: int):
+    """A part of heads as a part of their ``width``-wide columns."""
+    if isinstance(part, Copy):
+        return dataclasses.replace(part, block=_columns(part.block, width))
+    return slice(part.start * width, part.stop * width)
+
+
+def tp_layout(cfg, ctx) -> dict[str, tuple[int, object]]:
+    """The tensor-parallel leaves of an ``attn`` model's stacked tree, by
+    path: ``(dim, part)``, each only where it splits (empty without a
+    mesh, on other patterns, or where nothing divides)."""
+    m, r = ctx.n_model, ctx.model_rank
+    if ctx.mesh is None or cfg.block_pattern != "attn" or m < 2:
+        return {}
+    out: dict[str, tuple[int, object]] = {}
+    hd = cfg.head_dim_
+    if heads_split(cfg.n_heads, cfg.n_kv_heads, m):
+        qs = _columns(q_heads(cfg.n_heads, m, r), hd)
+        ks = _columns(kv_part(cfg.n_kv_heads, m, r), hd)
+        out.update({"layers/attn/wq": (2, qs), "layers/attn/wo": (1, qs),
+                    "layers/attn/wk": (2, ks), "layers/attn/wv": (2, ks)})
+        if cfg.qkv_bias:
+            out.update({"layers/attn/bq": (1, qs), "layers/attn/bk": (1, ks),
+                        "layers/attn/bv": (1, ks)})
+    if not cfg.is_moe and _ok(cfg.d_ff, m):
+        fs = _block(cfg.d_ff, m, r)
+        out.update({"layers/mlp/w_gate": (2, fs), "layers/mlp/w_up": (2, fs),
+                    "layers/mlp/w_down": (1, fs)})
+    if _ok(cfg.vocab_size, m):
+        vs = _block(cfg.vocab_size, m, r)
+        out["embed"] = (0, vs)
+        if not cfg.tie_embeddings:
+            out["lm_head"] = (1, vs)
+    return out
+
+
 def param_layout(cfg, ctx) -> dict[str, tuple[int, object]]:
     """The model-sharded leaves of the stacked parameters, by path
-    (``"layers/moe/w_gate"``): ``(dim, the rank's slice)``. Under EP the
+    (``"layers/moe/w_gate"``): ``(dim, the rank's part)``. Under EP the
     slot rows (dim 1 of ``(L, E, ...)``), under ESP the hidden dim
     (``w_gate``/``w_up`` dim 3, ``w_down`` dim 2), each only where it
-    splits; zamba's Mamba2 leaves (:func:`mamba_layout`, whose mixed
-    leaves take a :class:`Part`); empty when every leaf is replicated."""
+    splits; the tensor-parallel leaves (:func:`tp_layout`, a copied KV
+    head as a :class:`Copy`); zamba's Mamba2 leaves (:func:`mamba_layout`,
+    whose mixed leaves take a :class:`Part`); empty when every leaf is
+    replicated."""
     m, r = ctx.n_model, ctx.model_rank
     if cfg.block_pattern == "zamba":
         return mamba_layout(cfg, ctx)
+    out = tp_layout(cfg, ctx)
     impl = moe_layout(cfg, ctx)
     names = ("w_gate", "w_up", "w_down")
     if impl == "ep" and is_split(cfg.n_experts, m):
         rows = slot_rows(cfg.n_experts, m, r)
-        return {f"layers/moe/{w}": (1, rows) for w in names}
-    if impl == "esp" and is_split(cfg.moe_d_ff_, m):
+        out.update({f"layers/moe/{w}": (1, rows) for w in names})
+    elif impl == "esp" and is_split(cfg.moe_d_ff_, m):
         fs = expert_hidden(cfg.moe_d_ff_, m, r)
-        return {f"layers/moe/{w}": (2 if w == "w_down" else 3, fs) for w in names}
-    return {}
+        out.update({f"layers/moe/{w}": (2 if w == "w_down" else 3, fs) for w in names})
+    return out
 
 
 def rank_params(params: dict, cfg, ctx) -> dict:

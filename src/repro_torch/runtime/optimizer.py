@@ -24,7 +24,7 @@ from typing import Callable
 import torch
 import torch.distributed as dist
 
-from repro_torch.parallel.sharding import split_entries
+from repro_torch.parallel.sharding import Copy, split_entries
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,13 +97,16 @@ def global_norm(tree, sharded=None, group=None) -> torch.Tensor:
     ``parallel.sharding.param_layout``) or None. The split entries' sums
     of squares are all-reduced there; a replicated leaf, and the entries
     of a split leaf that every rank holds (a Mamba2 leaf's B/C columns,
-    ``sharding.Part``), count once."""
+    ``sharding.Part``), count once, and so does a block several ranks
+    hold copies of (``sharding.Copy``: its first holder counts it)."""
     xs = list(leaves(tree))
     flags = [None] * len(xs) if sharded is None else sharded
     parts = [torch.zeros((), dtype=torch.float32, device=xs[0].device) for _ in range(2)]
     for x, spec in zip(xs, flags, strict=True):
         if spec is None:
             parts[0] += x.float().square().sum()
+            continue
+        if isinstance(spec[1], Copy) and not spec[1].lead:
             continue
         own, every = split_entries(x, *spec)
         parts[1] += own.float().square().sum()

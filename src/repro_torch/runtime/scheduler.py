@@ -43,7 +43,10 @@ Crash safety: ``snapshot_every`` ticks, and when a ``crash_restart`` fault
 fires, the scheduler snapshots the end of the previous tick
 (:mod:`repro_torch.runtime.snapshot`); a crash then raises
 :class:`~repro_torch.runtime.faults.SimulatedCrash`, and
-``snapshot.restore_scheduler`` rebuilds a scheduler that serves on.
+``snapshot.restore_scheduler`` rebuilds a scheduler that serves on. Under
+a mesh the fault fires on every rank at the same tick, every rank checks
+that it holds the same snapshot, rank 0 writes the file, and every rank
+restores from it.
 
 Determinism contract: per-request outputs are a pure function of (params,
 prompt, max_new_tokens, eos), independent of batch composition, arrival
@@ -414,12 +417,13 @@ class RequestScheduler:
     def save_snapshot(self, path: str | None = None):
         """Capture the end of the previous tick as a ``ServerSnapshot``
         (kept on ``last_snapshot``); with ``path``, also write it through the
-        atomic checkpoint writer."""
+        atomic checkpoint writer. Under a mesh every rank captures it (the
+        ranks' snapshots checked equal) and rank 0 writes the one file."""
         from repro_torch.runtime import snapshot as S
 
         snap = S.snapshot_scheduler(self)
         if path:
-            S.save_snapshot(path, snap)
+            S.save_snapshot(path, snap, self.server.mesh)
         self.last_snapshot = snap
         return snap
 

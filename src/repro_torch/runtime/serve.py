@@ -41,8 +41,11 @@ patterns serve their dense and recurrent caches, the balancer idle (it
 runs for MoE only); under a mesh a zamba rank keeps its part of the
 Mamba2 weights (``sharding.mamba_layout``) and every family its shard of
 the caches (``T.init_cache``). Frontend-stub embeds ride ``prefill`` and
-``generate``, cut to the rank's rows. Snapshots under a mesh are not
-ported yet.
+``generate``, cut to the rank's rows. Under a mesh an ``attn`` rank also
+keeps its tensor-parallel slices of the attention, the dense MLP,
+``embed`` and ``lm_head`` (``sharding.tp_layout``), cut once at setup.
+Snapshots hold host state only, the same on every rank, so a rank
+restores under its own mesh (``restore_snapshot``).
 
 Device failures: ``mark_dead`` aborts or fast-forwards in-flight migration
 slices, evacuates orphaned experts (placement table and weight rows) and
@@ -308,8 +311,8 @@ class Server:
             self.driver = None
             if esp_mesh and cfg.is_moe:
                 self._shard_expert_hidden()
-            if self.mesh is not None and cfg.block_pattern == "zamba":
-                self._shard_mamba()
+        if self.mesh is not None:
+            self._shard_leaves()
 
         self._set_batch(serve_cfg.batch)
         if serve_cfg.paged:
@@ -379,13 +382,19 @@ class Server:
             moe[w] = (src[..., fs] if w != "w_down" else src[:, :, fs]).contiguous()
             del src
 
-    def _shard_mamba(self) -> None:
-        """Keep the rank's part of every Mamba2 leaf (``sharding.
-        mamba_layout``: its heads' channels, the B/C columns whole), one
-        leaf at a time."""
-        for path, (dim, part) in sharding.mamba_layout(self.cfg, self.ctx).items():
-            stack, block, name = path.split("/")
-            leaves = (self.params.get(stack) or {}).get(block)
+    def _shard_leaves(self) -> None:
+        """Keep the rank's part of every tensor-parallel leaf (``sharding.
+        tp_layout``: its heads, its block of the dense MLP, its vocab rows
+        and columns) and of every Mamba2 leaf (``sharding.mamba_layout``:
+        its heads' channels, the B/C columns whole), one leaf at a time,
+        each whole tensor freed as its part is cut."""
+        layout = {**sharding.tp_layout(self.cfg, self.ctx),
+                  **sharding.mamba_layout(self.cfg, self.ctx)}
+        for path, (dim, part) in layout.items():
+            *nodes, name = path.split("/")
+            leaves = self.params
+            for node in nodes:
+                leaves = (leaves or {}).get(node)
             if leaves is not None:
                 leaves[name] = sharding.take(leaves.pop(name), dim, part)
 
@@ -986,16 +995,28 @@ class Server:
         committed table; the balancer's load EMA, dead set and slowdowns and
         the counters are restored; pending migrations are re-submitted from
         slice zero (their partial slices died with the crashed process, and
-        nothing routes to a reservation before it commits). Not under a mesh
-        yet (ROADMAP Queue 1 item 5)."""
-        if ctx.mesh is not None:
-            raise NotImplementedError(
-                "restoring a snapshot under a mesh is not ported yet "
-                "(ROADMAP Queue 1 item 5)"
-            )
+        nothing routes to a reservation before it commits).
+
+        Under a mesh every rank restores from the same snapshot (it holds
+        no per-rank state) under its own ``ctx``: it keeps its slot rows of
+        the saved table and its slices of the other leaves, and its
+        re-submitted migrations move rows between ranks as before. The
+        table may come from another layout where its EP devices are this
+        one's: a mesh with another data axis, or one process with
+        ``virtual_ep`` equal to the writer's model axis (``serve_cfg``
+        carries it), and the reverse; a model axis that is not the table's
+        device count raises ``ValueError``."""
         scfg = ServeConfig(**snap.serve_cfg)
         table = None
         if snap.table is not None:
+            devices = int(snap.table["n_slots"]) // int(snap.table["slots_per_device"])
+            ep = ctx.n_model if ctx.n_model > 1 else (scfg.virtual_ep or 1)
+            if devices != ep:
+                raise ValueError(
+                    f"the snapshot's placement table spans {devices} EP devices; "
+                    f"this server has {ep} (model axis {ctx.n_model}, virtual_ep "
+                    f"{scfg.virtual_ep})"
+                )
             table = PlacementTable(
                 n_experts=cfg.n_experts,
                 n_slots=int(snap.table["n_slots"]),

@@ -34,13 +34,24 @@ Persistence rides :func:`repro_torch.runtime.checkpoint.save`: numeric
 leaves in the atomic ``.npz``, the JSON-able structure in the atomic
 ``.meta`` sidecar, so a crash while snapshotting leaves the previous
 snapshot intact.
+
+Under a mesh every rank's scheduler takes the same decisions, so every
+rank holds the same snapshot: :func:`snapshot_scheduler` checks that over
+the world (a digest of its arrays and structure, all-gathered; a rank
+that differs raises), :func:`save_snapshot` has rank 0 write the one file
+while the others wait at a barrier, and every rank restores from it under
+its own mesh (``Server.restore_snapshot``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from repro_torch.runtime import faults as F
 from repro_torch.runtime.checkpoint import load_meta, save
@@ -78,14 +89,45 @@ class ServerSnapshot:
 
 
 def snapshot_scheduler(sched) -> ServerSnapshot:
-    """Capture a scheduler (and its server) at a tick boundary. Not under a
-    mesh yet."""
+    """Capture a scheduler (and its server) at a tick boundary. Under a
+    mesh every rank captures its own and the world checks that they are
+    one (:func:`check_agreement`)."""
     srv = sched.server
+    snap = _capture(sched, srv)
     if srv.mesh is not None:
-        raise NotImplementedError(
-            "snapshots of a Server under a mesh are not ported yet (ROADMAP "
-            "Queue 1 item 5)"
+        check_agreement(snap, srv.device)
+    return snap
+
+
+def digest(snap: ServerSnapshot) -> bytes:
+    """SHA-256 of everything :func:`save_snapshot` writes: each array's
+    name, dtype, shape and bytes, then the structure as sorted JSON."""
+    tree, meta = _records(snap)
+    h = hashlib.sha256()
+    for key in sorted(tree):
+        a = np.ascontiguousarray(tree[key])
+        h.update(f"{key} {a.dtype.str} {a.shape}".encode())
+        h.update(a.tobytes())
+    h.update(json.dumps(meta, sort_keys=True).encode())
+    return h.digest()
+
+
+def check_agreement(snap: ServerSnapshot, device) -> None:
+    """All-gather every rank's :func:`digest` over the world (a tensor on
+    ``device``, the backend's); raises ``RuntimeError`` naming the ranks
+    whose snapshot differs from rank 0's."""
+    mine = torch.tensor(list(digest(snap)), dtype=torch.uint8, device=device)
+    every = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(every, mine)
+    odd = [r for r, d in enumerate(every) if not torch.equal(d, every[0])]
+    if odd:
+        raise RuntimeError(
+            f"the ranks' snapshots differ: ranks {odd} hold another snapshot than "
+            f"rank 0 at step {snap.step_no}"
         )
+
+
+def _capture(sched, srv) -> ServerSnapshot:
     table = None
     load_ema = slowdown = None
     dead: list[int] = []
@@ -146,8 +188,20 @@ def snapshot_scheduler(sched) -> ServerSnapshot:
     )
 
 
-def save_snapshot(path: str, snap: ServerSnapshot) -> None:
-    """Persist atomically: arrays in the ``.npz``, structure in ``.meta``."""
+def save_snapshot(path: str, snap: ServerSnapshot, mesh=None) -> None:
+    """Persist atomically: arrays in the ``.npz``, structure in ``.meta``.
+    Under ``mesh`` (every rank holding the same snapshot) rank 0 writes
+    the one file and every rank returns after it is written (a
+    barrier)."""
+    if mesh is None or mesh.rank == 0:
+        tree, meta = _records(snap)
+        save(path, tree, step=snap.step_no, extra={"snapshot": meta})
+    if mesh is not None:
+        dist.barrier()
+
+
+def _records(snap: ServerSnapshot) -> tuple[dict[str, np.ndarray], dict]:
+    """The ``.npz`` arrays and the ``.meta`` structure of a snapshot."""
     tree: dict[str, np.ndarray] = {}
     if snap.table is not None:
         tree["table/slot_of"] = snap.table["slot_of"]
@@ -180,7 +234,7 @@ def save_snapshot(path: str, snap: ServerSnapshot) -> None:
         "queue_rids": snap.queue_rids,
         "live_rids": snap.live_rids,
     }
-    save(path, tree, step=snap.step_no, extra={"snapshot": meta})
+    return tree, meta
 
 
 def load_snapshot(path: str) -> ServerSnapshot:

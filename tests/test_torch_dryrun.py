@@ -4,12 +4,18 @@ reference's ``test_dryrun_machinery_small_mesh``
 (``tests/test_multidevice.py``): llama3.2-1b at 2 layers and dbrx-132b's
 ``smoke()``, decode and prefill, traced on fake tensors.
 
-* the cost record: FLOPs, temp and collective bytes above 0 where the
-  port has collectives (a dense model computes every prefill layer whole
-  on each rank, so its prefill has none);
+* the cost record: FLOPs, temp and collective bytes above 0 (tensor
+  parallelism gives every cell collectives);
 * ``argument_size_in_bytes`` equal to the analytic bytes of rank 0's
-  slices: its parameters (the expert slot rows of EP), its dense cache
-  shard and its batch rows;
+  slices: its parameters (the expert slot rows of EP and the
+  tensor-parallel slices: its query heads, its KV heads or a copy of
+  one, its block of the dense MLP, its vocab rows and columns), its dense
+  cache shard and its batch rows;
+* llama's tensor parallelism: rank 0's parameter bytes equal to the sum
+  of its slices of the full leaves, and each cell's collective calls and
+  bytes as the layout predicts (per layer the all-reduce after ``wo``
+  and after ``w_down``, the K/V rows all-gathered for the cache; the
+  embedding's all-reduce and the logits' all-gather);
 * the EP all-to-all's operand bytes equal to ``ep_moe_shardmap``'s static
   buffers, and the call counts;
 * FLOPs of the dense model's decode against its matmuls;
@@ -71,16 +77,31 @@ def records():
     return out
 
 
+def _tp_dims(cfg, m: int) -> tuple[int, int, int, int]:
+    """``(query heads, KV heads, dense hidden dim, vocab)`` rank 0 holds:
+    each split m ways where it divides (the KV heads: a copy of one when m
+    is a multiple of them)."""
+    h, k = cfg.n_heads, cfg.n_kv_heads
+    if h % m == 0 and (k % m == 0 or m % k == 0):
+        h, k = h // m, (k // m if k % m == 0 else 1)
+    f = cfg.d_ff // m if cfg.d_ff % m == 0 else cfg.d_ff
+    v = cfg.vocab_size // m if cfg.vocab_size % m == 0 else cfg.vocab_size
+    return h, k, f, v
+
+
 def _param_bytes(cfg, m: int) -> int:
-    """Rank 0's parameters: everything whole but the experts, of which it
-    keeps E / m (bf16; the router fp32)."""
-    d, h, k, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    """Rank 0's parameters (bf16; the router fp32): its query heads and
+    their rows of ``wo``, its KV heads, its block of a dense MLP, E / m
+    experts, its vocab rows of ``embed`` and columns of ``lm_head``; the
+    norms and the router whole."""
+    d, hd = cfg.d_model, cfg.head_dim_
+    h, k, f, v = _tp_dims(cfg, m)
     layer = 2 * d + d * h * hd + 2 * d * k * hd + h * hd * d
     if cfg.is_moe:
         layer += cfg.n_experts // m * 3 * d * cfg.moe_d_ff_ + 2 * d * cfg.n_experts
     else:
-        layer += 3 * d * cfg.d_ff
-    emb = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+        layer += 3 * d * f
+    emb = v * d * (1 if cfg.tie_embeddings else 2)
     return 2 * (emb + d + cfg.n_layers * layer)
 
 
@@ -105,16 +126,16 @@ def test_cost_record(records, model, cell):
         assert rec["argument_size_in_bytes"] == params + b * shape.seq_len * 4
     coll = rec["collectives"]
     assert coll["total"] == sum(v for k, v in coll.items() if k != "total")
-    if model == "llama3.2-1b" and cell == "prefill":
-        assert coll["total"] == 0
-    else:
-        assert coll["total"] > 0
+    assert coll["total"] > 0
 
 
 @pytest.mark.parametrize("cell", tuple(CELLS))
 def test_ep_all_to_all_bytes_are_the_static_buffers(records, cell):
     """Per layer the padded branch ships the (ep, spd, cap, d) buckets out
-    and back and the (ep, spd) int32 fills once: three all-to-alls."""
+    and back and the (ep, spd) int32 fills once: three all-to-alls. The
+    prefill's all-gathers: per layer the sequence gathered back over the
+    model group and the K/V rows of every KV head for the cache (each rank
+    projects a copy of one of the 2), then the logits' vocab columns."""
     cfg, shape = MODELS["dbrx-smoke"](), CELLS[cell]
     rec = records[("dbrx-smoke", cell)]
     b = shape.global_batch // DATA
@@ -124,20 +145,82 @@ def test_ep_all_to_all_bytes_are_the_static_buffers(records, cell):
     want = cfg.n_layers * (2 * buckets + cfg.n_experts * 4)
     assert rec["collectives"]["all-to-all"] == want
     assert rec["collective_calls"]["all-to-all"] == 3 * cfg.n_layers
-    if cell == "prefill":   # the sequence gathered back over the model group
-        assert rec["collective_calls"]["all-gather"] == cfg.n_layers
+    if cell == "prefill":
+        assert rec["collective_calls"]["all-gather"] == 2 * cfg.n_layers + 1
 
 
 def test_dense_decode_flops(records):
-    """llama's decode: the matmuls of 4 rows a rank (projections, the MLP,
-    the logits) plus the attention scores and values over the rank's 64
-    cache slots, 2 flops a multiply-add."""
+    """llama's decode: the matmuls of 4 rows a rank on its tensor-parallel
+    slices (its 8 query heads and 2 KV heads, its quarter of the MLP and
+    of the logits' columns) plus the attention scores and values of all
+    32 heads over the rank's 64 cache slots, 2 flops a multiply-add."""
     cfg, shape = MODELS["llama3.2-1b"](), CELLS["decode"]
     b, t = shape.global_batch // DATA, shape.seq_len // MODEL
-    d, h, k, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    per_layer = d * h * hd + 2 * d * k * hd + h * hd * d + 3 * d * cfg.d_ff + 2 * h * t * hd
-    want = 2 * b * (cfg.n_layers * per_layer + d * cfg.vocab_size)
+    d, hd = cfg.d_model, cfg.head_dim_
+    h, k, f, v = _tp_dims(cfg, MODEL)
+    assert (h, k, f, v) == (8, 2, cfg.d_ff // 4, cfg.vocab_size // 4)
+    per_layer = d * h * hd + 2 * d * k * hd + h * hd * d + 3 * d * f \
+        + 2 * cfg.n_heads * t * hd
+    want = 2 * b * (cfg.n_layers * per_layer + d * v)
     assert records[("llama3.2-1b", "decode")]["flops"] == want
+
+
+def _leaf_bytes(tree, prefix=""):
+    """``{path: bytes}`` of a tree's tensors."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_leaf_bytes(v, f"{prefix}{k}/"))
+        return out
+    return {prefix.rstrip("/"): tree.numel() * tree.element_size()}
+
+
+@pytest.mark.parametrize("cell", tuple(CELLS))
+def test_llama_tensor_parallel_slices_and_collectives(records, cell):
+    """llama3.2-1b at 2 layers on the 2 x 4 mesh (H = 32, K = 8 split 4
+    ways): rank 0's parameter bytes are the sum of its tensor-parallel
+    slices (``tp_layout``) and of the whole other leaves, a quarter of the
+    attention, the MLP and the vocab; its collectives are the layout's.
+    Per layer: one all-reduce after ``wo``, one after ``w_down``, and the
+    K/V rows of all 8 KV heads all-gathered for the cache (the rank
+    projects 2), in one call; decode also all-gathers ``q``'s heads for
+    the sequence split and LSE-merges with three all-reduces (the max,
+    the weighted values, the weights). Once: the embedding's all-reduce
+    and the logits' all-gather. The operand bytes follow (bf16; the
+    merge's max and weights fp32; an all-reduce counts twice)."""
+    cfg, shape = MODELS["llama3.2-1b"](), CELLS[cell]
+    rec = records[("llama3.2-1b", cell)]
+    D.fake_world(DATA * MODEL)
+    try:
+        ctx = D.make_ctx(make_test_mesh(DATA, MODEL), shape.global_batch)
+        layout = sharding.tp_layout(cfg, ctx)
+        with FakeTensorMode():
+            full = _leaf_bytes(T.init_params(cfg, dtype=D.PARAM_DTYPE, device="cpu"))
+    finally:
+        dist.destroy_process_group()
+    assert set(layout) == {"embed", *(f"layers/attn/w{n}" for n in "qkvo"),
+                           *(f"layers/mlp/w_{n}" for n in ("gate", "up", "down"))}
+    assert all(isinstance(part, slice) for _, part in layout.values())
+    mine = sum(b // MODEL if path in layout else b for path, b in full.items())
+    assert rec["param_bytes"] == mine == _param_bytes(cfg, MODEL)
+    assert mine * MODEL < 2 * sum(full.values())
+    d, hd, L, b = cfg.d_model, cfg.head_dim_, cfg.n_layers, shape.global_batch // DATA
+    h, k, _, v = _tp_dims(cfg, MODEL)
+    s = 1 if cell == "decode" else shape.seq_len
+    act = b * s * d * 2                                # one (b, s, d) bf16 activation
+    kv = 2 * b * s * k * hd * 2                        # the rank's K and V rows
+    reduce = (2 * L + 1) * 2 * act
+    gather = L * kv + b * v * 2                        # the logits at the last position
+    calls = {"all-reduce": 2 * L + 1, "all-gather": L + 1}
+    if cell == "decode":
+        g = cfg.n_heads // cfg.n_kv_heads
+        calls = {"all-reduce": 5 * L + 1, "all-gather": 2 * L + 1}
+        gather += L * b * h * hd * 2                   # q's heads
+        reduce += L * 2 * b * cfg.n_heads * (4 + hd * 2 + 4)
+        assert g == 4
+    assert rec["collective_calls"] == calls
+    assert rec["collectives"]["all-reduce"] == reduce
+    assert rec["collectives"]["all-gather"] == gather
 
 
 def test_train_cell_arguments_and_flops(records):

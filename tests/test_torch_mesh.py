@@ -131,17 +131,37 @@ def test_unported_mesh_layouts_raise(jparams, mesh):
             np.testing.assert_allclose(log.numpy(), np.asarray(jlog), **TOL)
 
 
-def test_snapshot_under_mesh_raises(jparams, mesh):
-    """What the mesh path still does not serve raises, naming the ROADMAP
-    item: a scheduler snapshot and a restore under a mesh."""
-    from repro_torch.runtime.scheduler import RequestScheduler
-    from repro_torch.runtime.snapshot import snapshot_scheduler
+def test_snapshot_under_mesh_round_trip(jparams, mesh, tmp_path):
+    """A scheduler on the 1 x 1 mesh (chunked admission) crashes mid-stream
+    at tick 3: the world checks its snapshot, rank 0 writes the file, and
+    the scheduler restored from it on the mesh serves on. Every stream
+    equals the uninterrupted mesh run's, fp32 bit for bit."""
+    from repro_torch.runtime import faults as F
+    from repro_torch.runtime import snapshot as S
+    from repro_torch.runtime.scheduler import FINISHED, RequestScheduler
 
     ctx = ParallelCtx(mesh=mesh, capacity_factor=8.0)
-    srv = Server(CFG, ctx, _bridge(jparams),
-                 ServeConfig(max_seq=32, batch=2, paged=True, page_size=8), device="cpu")
-    sched = RequestScheduler(srv)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        snapshot_scheduler(sched)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        Server.restore_snapshot(None, CFG, ctx, _bridge(jparams), device="cpu")
+    scfg = ServeConfig(max_seq=32, batch=2, paged=True, page_size=8, prefill_chunk=8)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, CFG.vocab_size, n).astype(np.int32) for n in (5, 11, 4)]
+
+    def run(plan=None):
+        sched = RequestScheduler(Server(CFG, ctx, _bridge(jparams), scfg, device="cpu"),
+                                 faults=plan)
+        for i, p in enumerate(prompts):
+            sched.submit(p, max_new_tokens=5, arrival=i)
+        return sched
+
+    want = run().run()
+    path = str(tmp_path / "snap.npz")
+    plan = F.FaultPlan([F.Fault(step=3, kind=F.CRASH_RESTART, path=path)])
+    with pytest.raises(F.SimulatedCrash) as ei:
+        run(plan).run()
+    assert ei.value.step == 3 and (tmp_path / "snap.npz").exists()
+    restored = S.restore_scheduler(path, CFG, ctx, _bridge(jparams), faults=plan,
+                                   device="cpu")
+    got = restored.run()
+    assert got.keys() == want.keys()
+    for rid in want:
+        np.testing.assert_array_equal(got[rid], want[rid])
+    assert all(r.state == FINISHED for r in restored.requests)

@@ -356,8 +356,7 @@ def _hold_state(got: dict, ref: dict, prefix: str, layout: dict, what: str):
         spec = layout.get(path.split("/", 1)[1] if path.startswith("params/") else
                           path.split("/", 2)[-1] if path.startswith("opt/") else None)
         if spec is not None and path != "opt/step":
-            dim, sl = spec
-            want = np.take(want, range(sl.start, sl.stop), axis=dim)
+            want = sharding.take(torch.from_numpy(want), *spec).numpy()
         have = got[f"{what}/{path}"]
         if path.startswith("opt/nu/"):
             have, want = np.sqrt(have), np.sqrt(want)
@@ -372,13 +371,18 @@ def _hold_state(got: dict, ref: dict, prefix: str, layout: dict, what: str):
 def test_state_slices_match_reference(runs, tag, case):
     """Each rank's slices of the parameters and the moments after 2 steps
     against the reference's global arrays; the sharded leaves are the
-    rank's own (EP slot rows, ESP hidden shards)."""
+    rank's own (EP slot rows, ESP hidden shards, the tensor-parallel
+    leaves: its query heads, its KV heads or a copy of one, its vocab
+    rows and columns)."""
     ref, port = runs
     for rank in range(4):
         ctx = _ctx(tag, rank, case)
         impl, _, f = CASES[case]
         layout = sharding.param_layout(_cfg(f), ctx)
-        assert bool(layout) == sharding.is_split(4 if impl == "ep" else f, ctx.n_model)
+        moe = [k for k in layout if "/moe/" in k]
+        assert bool(moe) == sharding.is_split(4 if impl == "ep" else f, ctx.n_model)
+        tp = sharding.tp_layout(_cfg(f), ctx)
+        assert len(tp) == 6 and set(tp) <= set(layout)
         _hold_state(port[rank], ref, f"{_ref_key(tag, case)}/state/", layout,
                     f"{tag}/{case}/1/False/state")
 
@@ -387,15 +391,18 @@ def test_state_slices_match_reference(runs, tag, case):
 @pytest.mark.parametrize("tag", tuple(MESHES))
 def test_replicated_gradients_bitwise_equal_in_model_group(runs, tag, case):
     """The step-0 gradient of every leaf replicated over the model group
-    (all but the sharded expert weights) is the same, bit for bit, on
-    every rank of the group: replicated parameters cannot drift apart."""
+    (all but the sharded expert weights and the tensor-parallel leaves)
+    is the same, bit for bit, on every rank of the group: replicated
+    parameters cannot drift apart."""
     _, port = runs
     prefix = f"{tag}/{case}/1/False/grad/"
     for group in _model_groups(tag):
-        layout = sharding.param_layout(_cfg(CASES[case][2]), _ctx(tag, group[0], case))
+        ctx = _ctx(tag, group[0], case)
+        layout = sharding.param_layout(_cfg(CASES[case][2]), ctx)
         keys = [k for k in port[group[0]] if k.startswith(prefix)]
         rep = [k for k in keys if k[len(prefix):] not in layout]
-        assert len(rep) >= len(keys) - 3 and rep
+        assert len(rep) >= len(keys) - 3 - len(sharding.tp_layout(_cfg(CASES[case][2]), ctx))
+        assert rep
         for rank in group[1:]:
             for k in rep:
                 np.testing.assert_array_equal(port[rank][k], port[group[0]][k], err_msg=k)
