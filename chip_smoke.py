@@ -177,11 +177,10 @@ Phases (one line each; any failure raises and the exit code is non-zero):
       committed ``BENCH_kernels.json`` (read only), 0 mismatches; (d) in
       a subprocess (the dry run's fake world of ranks cannot share this
       process with the NCCL group), the dry run of llama3.2-1b cut to 2
-      layers at ``decode_32k`` on a 2 x 4 test mesh and of dbrx-132b and
-      zamba2-1.2b at ``decode_32k`` on the ER 16 x 16 mesh at full depth
-      (zamba2's calls held: two all-reduces a Mamba2 layer, three a
-      shared-block merge; llama's and dbrx's tensor-parallel parameter and
-      argument bytes and collective calls held to the layout's
+      layers at ``decode_32k`` on a 2 x 4 test mesh and of dbrx-132b,
+      zamba2-1.2b and seamless-m4t-medium at ``decode_32k`` on the ER 16
+      x 16 mesh at full depth (each cell's tensor-parallel parameter and
+      argument bytes and collective calls and bytes held to the layout's
       prediction, ``tp_prediction``: the card's own world of one splits
       nothing, so the splits show only here and on gloo ranks in the CPU
       tests), each cell's
@@ -3491,7 +3490,9 @@ BENCH_FFN_KERNELS = {
 DRYRUN_CELLS = (("llama3.2-1b 2 layers, 2 x 4 test mesh", "llama3.2-1b", 2, "decode_32k",
                  "test"),
                 ("dbrx-132b, ER 16 x 16", "dbrx-132b", None, "decode_32k", "single"),
-                ("zamba2-1.2b, ER 16 x 16", "zamba2-1.2b", None, "decode_32k", "single"))
+                ("zamba2-1.2b, ER 16 x 16", "zamba2-1.2b", None, "decode_32k", "single"),
+                ("seamless-m4t-medium, ER 16 x 16", "seamless-m4t-medium", None, "decode_32k",
+                 "single"))
 
 
 def bench_families(iters: int, smoke: bool) -> dict:
@@ -3608,34 +3609,98 @@ def dryrun_cells(out_dir: str) -> None:
 
 
 def tp_prediction(cfg, shape, data: int, model: int) -> dict:
-    """Rank 0's argument bytes and collective calls in a ``decode_*``
-    dry-run cell of an ``attn`` model under tensor parallelism, predicted
-    from the layout (``parallel.sharding.tp_layout``), bf16 with an fp32
-    router: its query heads (H / M) and their rows of ``wo``, its KV heads
-    (K / M, or a copy of one where M is a multiple of K), its block of a
-    dense MLP or its E / M experts (EP), its vocab rows of ``embed`` and
-    columns of ``lm_head``, the norms whole; the dense cache's slots split
-    over the model axis with every KV head; one int32 token a row. Calls:
-    a layer, the all-reduce after ``wo``, the LSE merge's three, and one
-    after the dense ``w_down`` or EP's decode ownership sum; the K/V rows
-    and ``q``'s heads all-gathered; EP's three all-to-alls; once, the
-    embedding's all-reduce and the logits' all-gather."""
-    d, hd, L, m = cfg.d_model, cfg.head_dim_, cfg.n_layers, model
-    h, k = cfg.n_heads // m, cfg.n_kv_heads // m or 1
-    layer = 2 * d + 2 * d * h * hd + 2 * d * k * hd
-    if cfg.is_moe:
-        layer += cfg.n_experts // m * 3 * d * cfg.moe_d_ff_ + 2 * d * cfg.n_experts
-    else:
-        layer += 3 * d * cfg.d_ff // m
-    vocab = cfg.vocab_size // m * d * (1 if cfg.tie_embeddings else 2)
-    params = 2 * (vocab + d + L * layer)
+    """Rank 0's parameter and argument bytes and collective calls and
+    bytes in a ``decode_*`` dry-run cell under tensor parallelism, of the
+    ``attn``, ``zamba`` and ``encdec`` patterns, predicted from the layout
+    (``parallel.sharding.tp_layout`` and ``mamba_layout``); bf16, the
+    router and the Mamba2 ``a_log``, ``dt_bias`` and ``d_skip`` fp32.
+
+    A rank holds every attention's query heads (H / M) and their rows of
+    ``wo`` and its KV heads (K / M, or a copy of one where M is a multiple
+    of K) where the heads split, every dense MLP's hidden block where
+    ``d_ff`` splits, E / M experts (EP), the vocab rows of ``embed`` and
+    columns of ``lm_head`` where the vocab splits, zamba's Mamba2 heads (64
+    channels each) with the 2N B/C columns whole, and the norms whole. The
+    other arguments: the dense K/V cache (a self-attention layer, zamba's
+    ``shared_kv`` a unit, ``cross_kv`` a decoder layer) split over the
+    model axis by slots with every KV head, the Mamba2 states of the rank's
+    heads (fp32), one int32 token a row and the rank's rows of the
+    frontend embeds (bf16).
+
+    Calls: an attention LSE-merges with three all-reduces (the max and the
+    weights fp32, the weighted values), all-reduces after a split ``wo``,
+    and all-gathers ``q``'s split heads and, where the rank projects fewer
+    than all KV heads, the new K/V rows (the cross-attention's were cached
+    at prefill); one all-reduce after a split ``w_down`` or EP's decode
+    ownership sum, and EP's three all-to-alls; two all-reduces a split
+    Mamba2 layer (the gated norm's fp32 sum of squares, the out
+    projection); a split vocab one all-reduce for the embedding and one
+    all-gather for the logits. Bytes are the operands' (an all-reduce
+    counts twice); EP's all-to-all bytes are left out (``tests/
+    test_torch_dryrun.py`` holds them to the static buffers)."""
+    d, hd, m, n_kv = cfg.d_model, cfg.head_dim_, model, cfg.n_kv_heads
+    assert shape.kind == "decode" and shape.seq_len % m == 0
+    split_heads = cfg.n_heads % m == 0 and (n_kv % m == 0 or m % n_kv == 0)
+    h = cfg.n_heads // m if split_heads else cfg.n_heads
+    k = (n_kv // m or 1) if split_heads else n_kv
+    split_ff, split_vocab = cfg.d_ff % m == 0, cfg.vocab_size % m == 0
+    f = cfg.d_ff // m if split_ff else cfg.d_ff
+    v = cfg.vocab_size // m if split_vocab else cfg.vocab_size
     rows = shape.global_batch // data
-    cache = 2 * L * rows * (shape.seq_len // m) * cfg.n_kv_heads * hd * 2
-    calls = {"all-reduce": 5 * L + 1, "all-gather": 2 * L + 1}
-    if cfg.is_moe:
-        calls["all-to-all"] = 3 * L
-    return {"param_bytes": params, "argument_size_in_bytes": params + cache + rows * 4,
-            "collective_calls": calls}
+    act = rows * d * 2                                  # one token's activations
+    kv = 2 * rows * (shape.seq_len // m) * n_kv * hd * 2   # one layer's cache shard
+    calls, moved = {}, {}
+
+    def add(kind, n, nbytes=0):
+        calls[kind] = calls.get(kind, 0) + n
+        moved[kind] = moved.get(kind, 0) + nbytes
+
+    def attention(n, cross=False):
+        """One attention block's parameter bytes; its collectives n times."""
+        add("all-reduce", n * (3 + split_heads),
+            n * 2 * (rows * cfg.n_heads * (4 + 2 * hd + 4) + split_heads * act))
+        add("all-gather", n * split_heads, n * split_heads * rows * h * hd * 2)
+        if split_heads and k < n_kv and not cross:
+            add("all-gather", n, n * 2 * rows * k * hd * 2)
+        return 2 * (2 * d * h * hd + 2 * d * k * hd)
+
+    def mlp(n):
+        add("all-reduce", n * split_ff, n * split_ff * 2 * act)
+        return 2 * 3 * d * f
+
+    def experts(n):
+        add("all-reduce", n, n * 2 * act)
+        add("all-to-all", 3 * n)
+        return 2 * cfg.n_experts // m * 3 * d * cfg.moe_d_ff_ + 4 * d * cfg.n_experts
+
+    add("all-reduce", split_vocab, split_vocab * 2 * act)
+    add("all-gather", split_vocab, split_vocab * rows * v * 2)
+    params = 2 * (v * d * (1 if cfg.tie_embeddings else 2) + d)
+    inputs = rows * 4
+    L = cfg.n_layers
+    if cfg.block_pattern == "attn":
+        params += L * (4 * d + attention(L) + (experts(L) if cfg.is_moe else mlp(L)))
+        cache = L * kv
+    elif cfg.block_pattern == "zamba":
+        units = cfg.n_layers // cfg.attn_every
+        n, nh = cfg.ssm_state, 2 * d // 64
+        split_mamba = nh % m == 0
+        hm = nh // m if split_mamba else nh
+        c, bc = hm * 64, hm * 64 + 2 * n
+        add("all-reduce", 2 * L * split_mamba, L * split_mamba * 2 * (rows * 4 + act))
+        params += L * (2 * (d + d * c + d * bc + d * nh + 4 * bc + bc + c * d + c) + 4 * 3 * nh)
+        params += 4 * d + attention(units) + mlp(units)        # the shared block, once
+        cache = L * 4 * rows * (3 * bc + hm * 64 * n) + units * kv
+    else:
+        assert cfg.block_pattern == "encdec" and cfg.frontend_tokens % m == 0
+        params += 2 * d + cfg.n_encoder_layers * (4 * d + attention(0) + mlp(0)) \
+            + L * (6 * d + attention(L) + attention(L, cross=True) + mlp(L))
+        cache = L * (kv + 2 * rows * (cfg.frontend_tokens // m) * n_kv * hd * 2)
+        inputs += rows * cfg.frontend_tokens * d * 2
+    return {"param_bytes": params, "argument_size_in_bytes": params + cache + inputs,
+            "collective_calls": {kind: c for kind, c in calls.items() if c},
+            "collectives": {kind: b for kind, b in moved.items()
+                            if calls[kind] and kind != "all-to-all"}}
 
 
 def kernel_bench_path(torch, card: str) -> dict:
@@ -3680,35 +3745,25 @@ def kernel_bench_path(torch, card: str) -> dict:
         if rec["status"] != "OK" or not rec["collectives"]["total"] > 0:
             raise AssertionError(f"phase 3i (d) {rec.get('cell')}: {rec['status']} "
                                  f"{rec.get('error', '')[-1500:]}")
-        if rec["arch"] in ("llama3.2-1b", "dbrx-132b"):
-            # tensor parallelism: the rank's slices and their collectives
-            from repro_torch.configs import SHAPES, get_config
+        # tensor parallelism: the rank's slices and their collectives, as
+        # the layout predicts
+        from repro_torch.configs import SHAPES, get_config
 
-            _, arch, layers, shape, kind = next(c for c in DRYRUN_CELLS if c[0] == rec["cell"])
-            cfg = get_config(arch)
-            if layers:
-                cfg = dataclasses.replace(cfg, n_layers=layers)
-            data, model = (2, 4) if kind == "test" else (16, 16)
-            want = tp_prediction(cfg, SHAPES[shape], data, model)
-            got = {k: rec[k] for k in want}
-            if got != want:
-                raise AssertionError(f"phase 3i (d) {rec['cell']}: {got} != the layout's "
-                                     f"prediction {want}")
-            log(f"phase 3i (d) tensor parallelism {rec['cell']} {rec['shape']}: rank 0's "
-                f"parameters {rec['param_bytes']} B, arguments "
-                f"{rec['argument_size_in_bytes']} B, collective calls "
-                f"{rec['collective_calls']}, as the layout predicts")
-        if rec["arch"] == "zamba2-1.2b":
-            # two all-reduces a Mamba2 layer (its 64 heads split 4 a rank),
-            # the shared block's three-all-reduce LSE merge a unit
-            from repro_torch.configs import get_config
-            from repro_torch.models.transformer import zamba_layout
-
-            cfg = get_config("zamba2-1.2b")
-            want = {"all-reduce": 2 * cfg.n_layers + 3 * zamba_layout(cfg)[0]}
-            if rec["collective_calls"] != want:
-                raise AssertionError(f"phase 3i (d) {rec['cell']}: collective calls "
-                                     f"{rec['collective_calls']} != {want}")
+        _, arch, layers, shape, kind = next(c for c in DRYRUN_CELLS if c[0] == rec["cell"])
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        data, model = (2, 4) if kind == "test" else (16, 16)
+        want = tp_prediction(cfg, SHAPES[shape], data, model)
+        got = {k: rec[k] for k in ("param_bytes", "argument_size_in_bytes", "collective_calls")}
+        got["collectives"] = {k: rec["collectives"].get(k) for k in want["collectives"]}
+        if got != want:
+            raise AssertionError(f"phase 3i (d) {rec['cell']}: {got} != the layout's "
+                                 f"prediction {want}")
+        log(f"phase 3i (d) tensor parallelism {rec['cell']} {rec['shape']}: rank 0's "
+            f"parameters {rec['param_bytes']} B, arguments "
+            f"{rec['argument_size_in_bytes']} B, collective calls "
+            f"{rec['collective_calls']}, bytes {got['collectives']}, as the layout predicts")
         log(f"phase 3i (d) dry run {rec['cell']} {rec['shape']}: {rec['status']}, "
             f"{rec['flops']:.4g} FLOP, arguments {rec['argument_size_in_bytes'] / 1e9:.3f} GB, "
             f"temp {rec['temp_size_in_bytes'] / 1e9:.3f} GB, collectives "

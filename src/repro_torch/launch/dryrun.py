@@ -11,10 +11,11 @@ world with ``launch.mesh`` (the ER placement by default). Then, under
 storage, on ``"cpu"``), rank 0's parameters come from ``T.init_params``,
 cut to rank 0's slices by ``parallel.sharding.rank_params`` (EP: the slot
 rows of the experts at their native homes; ESP: every expert's
-hidden-dim shard; an ``attn`` model's tensor-parallel slices: its query
-heads and their ``wo`` rows, its KV heads or a copy of one, its block of
-a dense MLP, its vocab rows of ``embed`` and columns of ``lm_head``,
-whose all-reduces and all-gathers the records count), its cache from
+hidden-dim shard; the tensor-parallel slices of every pattern but
+``xlstm``: each attention's query heads and their ``wo`` rows, its KV
+heads or a copy of one, its block of each dense MLP, its vocab rows of
+``embed`` and columns of ``lm_head``, whose all-reduces and all-gathers
+the records count; zamba's Mamba2 heads), its cache from
 ``T.init_cache(ctx=)``, and one
 ``T.prefill``, ``T.decode_step`` or train step runs on rank 0's batch
 rows (one new token against a ``seq_len`` cache):

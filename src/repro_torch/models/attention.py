@@ -14,8 +14,11 @@ weights (``sharding.tp_layout``: its block of the query heads and their
 rows of ``wo``, its KV heads or a copy of the one its query heads read)
 the rank projects and attends its heads, and the row-parallel ``wo``
 ends in one ``reduce_sum`` over the model group; with the whole weights
-(no split, or zamba's shared block and the encoder-decoder) it projects
-every head. Where a cache holds more KV heads than the rank projects,
+(the heads do not split the model axis) it projects every head. The same
+holds for every attention of every pattern: the ``attn`` decoders',
+zamba's shared block, the encoder's, and the decoder's self- and
+cross-attention, whose :func:`cross_kv` projects the rank's KV heads of
+the encoder memory. Where a cache holds more KV heads than the rank projects,
 the new K/V rows are all-gathered over the model group before the write
 (:func:`cache_kv`), so that every rank's cache shard stays the
 reference's. The dense cache is split by
@@ -89,22 +92,30 @@ def tp_group(p: dict, cfg: ModelConfig, ctx: ParallelCtx | None):
     return ctx.mesh.model_group
 
 
+def _rank_inputs(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: ParallelCtx | None,
+                 names: tuple[str, ...]):
+    """``x`` and the leaves ``names`` of ``p`` as a projection takes them:
+    unchanged, or under tensor parallelism ``x`` entering the rank's work
+    (``collectives.enter``) and a copied KV head's leaves summing their
+    holders' gradients (``collectives.copied``)."""
+    w = {n: p[n] for n in names if n in p}
+    group = tp_group(p, cfg, ctx)
+    if group is None:
+        return x, w
+    part = sharding.kv_part(cfg.n_kv_heads, ctx.n_model, ctx.model_rank)
+    if isinstance(part, sharding.Copy):
+        for n in ("wk", "wv", "bk", "bv"):
+            if n in w:
+                w[n] = copied(w[n], part.block.start, cfg.n_kv_heads, group)
+    return enter(x, group), w
+
+
 def qkv_proj(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: ParallelCtx | None = None):
     """q, k, v ``(B, S, heads, hd)`` of the heads ``p`` projects: all of
-    them, or under tensor parallelism the rank's, ``x`` entering the
-    rank's work (``collectives.enter``) and a copied KV head's leaves
-    summing their holders' gradients (``collectives.copied``)."""
+    them, or under tensor parallelism the rank's (:func:`_rank_inputs`)."""
     b, s, _ = x.shape
     h = cfg.head_dim_
-    w = {n: p[n] for n in ("wq", "wk", "wv", "bq", "bk", "bv") if n in p}
-    group = tp_group(p, cfg, ctx)
-    if group is not None:
-        x = enter(x, group)
-        part = sharding.kv_part(cfg.n_kv_heads, ctx.n_model, ctx.model_rank)
-        if isinstance(part, sharding.Copy):
-            for n in ("wk", "wv", "bk", "bv"):
-                if n in w:
-                    w[n] = copied(w[n], part.block.start, cfg.n_kv_heads, group)
+    x, w = _rank_inputs(p, x, cfg, ctx, ("wq", "wk", "wv", "bq", "bk", "bv"))
     q, k, v = mm(x, w["wq"]), mm(x, w["wk"]), mm(x, w["wv"])
     if cfg.qkv_bias:
         q, k, v = q + w["bq"], k + w["bk"], v + w["bv"]
@@ -241,45 +252,61 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: ParallelCtx,
 
 
 def cross_attention(p: dict, x: torch.Tensor, kv: tuple, cfg: ModelConfig,
-                    ctx: ParallelCtx | None = None) -> torch.Tensor:
-    """Decoder cross-attention of ``x`` (B, S, d) over precomputed encoder
-    k/v (no mask, no RoPE). Plain math on every device, as the reference
-    computes it outside any kernel.
+                    ctx: ParallelCtx | None = None, cached: bool = False) -> torch.Tensor:
+    """Decoder cross-attention of ``x`` (B, S, d) over encoder k/v (no
+    mask, no RoPE). Plain math on every device, as the reference computes
+    it outside any kernel. Under tensor parallelism (the rank's query
+    heads of ``p``, ``sharding.tp_layout``) the rank attends its heads
+    and ``wo``'s partial products are summed over the model group.
 
-    With ``ctx``, ``kv`` is this rank's shard of the cached cross K/V
-    (:func:`cross_shard`): over a sequence shard each rank's plain
-    ``(acc, m, l)`` partials LSE-merge across the model group
-    (``collectives.merge_partials``); over a head shard the rank attends
-    its query heads and the heads are all-gathered; a whole cache takes
-    the plain math."""
+    ``kv`` is the whole K/V of the heads ``p`` projects (:func:`cross_kv`;
+    prefill, training), or with ``cached`` this rank's shard of the
+    cached cross K/V (:func:`cross_shard`; decode): over a sequence shard
+    each rank's plain ``(acc, m, l)`` partials of every head LSE-merge
+    across the model group (``collectives.merge_partials``; under tensor
+    parallelism ``q``'s heads are all-gathered first and the rank's kept
+    after); over a head shard the rank attends its query heads (then
+    all-gathered, unless they are the rank's tensor-parallel heads)."""
     b, s, _ = x.shape
-    q = mm(x, p["wq"])
+    group = tp_group(p, cfg, ctx)
+    x, w = _rank_inputs(p, x, cfg, ctx, ("wq", "bq"))
+    q = mm(x, w["wq"])
     if cfg.qkv_bias:
-        q = q + p["bq"]
-    q = q.reshape(b, s, cfg.n_heads, cfg.head_dim_)
+        q = q + w["bq"]
+    q = q.reshape(b, s, -1, cfg.head_dim_)
     k, v = kv
-    if ctx is None or ctx.mesh is None:
-        return out_proj(p, gqa_attend(q, k, v, None))
+    if not cached or ctx.mesh is None:
+        return out_proj(p, gqa_attend(q, k, v, None), group)
     slots, _ = cross_shard(cfg, ctx)
     if slots.stop - slots.start < cfg.frontend_tokens:
         if q.dtype != k.dtype:
             dt = torch.promote_types(q.dtype, k.dtype)
             q, k = q.to(dt), k.to(dt)
+        if group is not None:
+            q = all_gather_dim(q, 2, group, ctx.mesh.model_order)
         mask = torch.ones(k.shape[1], dtype=torch.bool, device=x.device)
         o = seq_parallel_decode_attend(q, k, v, mask,
                                        dataclasses.replace(ctx, use_kernels=False))
+        if group is not None:
+            o = o[:, :, _q_heads(cfg.n_heads, ctx)]
     else:
-        o = _attend_heads(q, k, v, None, cfg.n_kv_heads, ctx)
-    return out_proj(p, o)
+        o = _attend_heads(q, k, v, None, cfg.n_kv_heads, ctx, group is not None)
+    return out_proj(p, o, group)
 
 
-def cross_kv(p: dict, memory: torch.Tensor, cfg: ModelConfig) -> tuple:
-    """The encoder memory's k/v ``(B, T, K, hd)`` for one decoder layer."""
+def cross_kv(p: dict, memory: torch.Tensor, cfg: ModelConfig,
+             ctx: ParallelCtx | None = None) -> tuple:
+    """The encoder memory's k/v ``(B, T, heads, hd)`` for one decoder
+    layer: of every KV head, or under tensor parallelism of the rank's
+    (its block, or a copy of the one its query heads read), as many as
+    ``p``'s leaves hold. An fp32 memory against bf16 weights projects in
+    fp32 (``layers.mm``), as the reference's einsum promotes it."""
     b, t, _ = memory.shape
-    k, v = mm(memory, p["wk"]), mm(memory, p["wv"])
+    memory, w = _rank_inputs(p, memory, cfg, ctx, ("wk", "wv", "bk", "bv"))
+    k, v = mm(memory, w["wk"]), mm(memory, w["wv"])
     if cfg.qkv_bias:
-        k, v = k + p["bk"], v + p["bv"]
-    shape = (b, t, cfg.n_kv_heads, cfg.head_dim_)
+        k, v = k + w["bk"], v + w["bv"]
+    shape = (b, t, w["wk"].shape[-1] // cfg.head_dim_, cfg.head_dim_)
     return k.reshape(shape), v.reshape(shape)
 
 

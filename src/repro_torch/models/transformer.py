@@ -24,12 +24,7 @@ data axis) with its shard of the caches (``parallel.sharding``):
 * ``attn``: the dense cache or the paged pool; the EP prefill splits the
   sequence over the model axis inside ``ep_moe_shardmap`` and gathers it
   back there. The prefill lane's chunk is the same on every rank (the
-  reference's ``chunk_specs`` replicate it). With the rank's
-  tensor-parallel slices (``sharding.tp_layout``) attention and a dense
-  MLP run the rank's heads and hidden block (``attention.qkv_proj``,
-  ``layers.mlp_apply``), the embedding is a vocab-parallel lookup summed
-  over the model group, and the logits' vocab columns are all-gathered
-  there (:func:`_embed`, :func:`_logits`);
+  reference's ``chunk_specs`` replicate it);
 * ``zamba``: each Mamba2 layer on the rank's heads and their states
   (``ssm.mamba_apply``: two all-reduces over the model group), the shared
   block's ``shared_kv`` on the dense-cache path of the ``attn`` pattern;
@@ -38,6 +33,16 @@ data axis) with its shard of the caches (``parallel.sharding``):
   self-attention takes the dense-cache path and whose cross-attention
   attends the rank's shard of ``cross_kv`` at decode
   (``attention.cross_attention``).
+
+Tensor parallelism holds in every pattern but ``xlstm``: with the rank's
+slices (``sharding.tp_layout``) every attention (the ``attn`` layers',
+zamba's shared block, the encoder's, the decoder's self- and
+cross-attention) and every dense MLP run the rank's heads and hidden
+block (``attention.qkv_proj``, ``attention.cross_kv``, :func:`_mlp`),
+the embedding is a vocab-parallel lookup summed over the model group,
+and the logits' vocab columns are all-gathered there (:func:`_embed`,
+:func:`_logits`). The forward decides by the leaves' shapes, so whole
+weights under a mesh run as before.
 
 ``forward`` is the training pass over the whole causal sequence, for
 every block pattern on one process or under a mesh, where autograd runs
@@ -328,14 +333,19 @@ def _layer_cache(cache_layers: dict, *idx: int) -> dict:
     return {k: v[idx] for k, v in cache_layers.items()}
 
 
+def _mlp(p, x, cfg, ctx):
+    """The dense SwiGLU MLP ``p``; where its leaves hold the rank's block
+    of the hidden dim (``sharding.tp_layout``) its partial products are
+    summed over the model group."""
+    split = ctx.mesh is not None and p["w_gate"].shape[-1] != cfg.d_ff
+    return mlp_apply(p, x, ctx.mesh.model_group if split else None)
+
+
 def _block_ffn(p_l, z2, cfg, ctx, placement, token_mask):
     if cfg.is_moe:
         return moe_apply(p_l["moe"], z2, cfg, ctx, placement=placement,
                          token_mask=token_mask)
-    mlp = p_l["mlp"]
-    split = ctx.mesh is not None and mlp["w_gate"].shape[-1] != cfg.d_ff
-    return (mlp_apply(mlp, z2, ctx.mesh.model_group if split else None),
-            zero_aux(cfg, z2.device))
+    return _mlp(p_l["mlp"], z2, cfg, ctx), zero_aux(cfg, z2.device)
 
 
 # ---------------------------------------------------------------------------
@@ -351,7 +361,7 @@ def _self_attention(p, z, kv: dict, cfg, ctx, length: int, pos: int, positions):
         return decode_attention(p, z, kv, pos, cfg, ctx, length)[0]
     o, (k, v) = attention(p, z, cfg, ctx, positions, return_kv=True)
     slots, heads = dense_shard(cfg, length, ctx)
-    dense_prefill_fill(kv, k[:, :, heads], v[:, :, heads], cfg, length, slots.start)
+    dense_prefill_fill(kv, *cache_kv(k, v, cfg, ctx, heads), cfg, length, slots.start)
     return o
 
 
@@ -380,7 +390,7 @@ def _zamba(params, x, cache, cfg, ctx, pos=None, positions=None):
         z = rms_norm(x, shared["ln1"], cfg.norm_eps)
         x = x + _self_attention(shared["attn"], z, _layer_cache(cache["shared_kv"], i),
                                 cfg, ctx, cache["len"], pos, positions)
-        x = x + mlp_apply(shared["mlp"], rms_norm(x, shared["ln2"], cfg.norm_eps))
+        x = x + _mlp(shared["mlp"], rms_norm(x, shared["ln2"], cfg.norm_eps), cfg, ctx)
     for j in range(r):
         pl = layer_view(params["trailing"], j)
         x = _recur(mamba, pl["mamba"], pl["ln"], x,
@@ -414,7 +424,7 @@ def _layer(body, ctx: ParallelCtx, *args):
 def _enc_block(p, x, cfg, ctx):
     h = x + attention(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg, ctx,
                       causal=False)
-    return h + mlp_apply(p["mlp"], rms_norm(h, p["ln2"], cfg.norm_eps))
+    return h + _mlp(p["mlp"], rms_norm(h, p["ln2"], cfg.norm_eps), cfg, ctx)
 
 
 def _encode(params, embeds, cfg, ctx):
@@ -431,9 +441,11 @@ def _encode(params, embeds, cfg, ctx):
 
 def _decoder(params, x, cache, cfg, ctx, pos=None, positions=None, mem=None):
     """The enc-dec decoder over ``x``: a prefill (``positions``; the cross
-    K/V of ``mem`` computed whole, attended, and the rank's shard of them
-    cached per layer) or one decode step at ``pos`` over the cached cross
-    K/V (under a mesh the rank's shard, ``attention.cross_attention``)."""
+    K/V of ``mem`` computed for the heads the rank projects, attended, and
+    the rank's shard of them cached per layer, K/V rows all-gathered where
+    the shard holds more heads, ``attention.cache_kv``) or one decode step
+    at ``pos`` over the cached cross K/V (under a mesh the rank's shard,
+    ``attention.cross_attention``)."""
     ks, vs = [], []
     slots, heads = cross_shard(cfg, ctx)
     for l in range(cfg.n_layers):
@@ -444,13 +456,14 @@ def _decoder(params, x, cache, cfg, ctx, pos=None, positions=None, mem=None):
         zx = rms_norm(x, p_l["ln_x"], cfg.norm_eps)
         if mem is None:
             kv = (cache["cross_kv"][0][l], cache["cross_kv"][1][l])
-            x = x + cross_attention(p_l["xattn"], zx, kv, cfg, ctx)
+            x = x + cross_attention(p_l["xattn"], zx, kv, cfg, ctx, cached=True)
         else:
-            kv = cross_kv(p_l["xattn"], mem, cfg)
-            ks.append(kv[0][:, slots, heads])
-            vs.append(kv[1][:, slots, heads])
-            x = x + cross_attention(p_l["xattn"], zx, kv, cfg)
-        x = x + mlp_apply(p_l["mlp"], rms_norm(x, p_l["ln2"], cfg.norm_eps))
+            kv = cross_kv(p_l["xattn"], mem, cfg, ctx)
+            x = x + cross_attention(p_l["xattn"], zx, kv, cfg, ctx)
+            k, v = cache_kv(*kv, cfg, ctx, heads)
+            ks.append(k[:, slots])
+            vs.append(v[:, slots])
+        x = x + _mlp(p_l["mlp"], rms_norm(x, p_l["ln2"], cfg.norm_eps), cfg, ctx)
     if mem is not None:
         # the reference's scan output: the memory's dtype, whatever the cache's
         cache["cross_kv"] = (torch.stack(ks), torch.stack(vs))
@@ -468,10 +481,10 @@ def _attn_block(p, x, cfg, ctx, positions):
 
 
 def _dec_block(p, x, mem, cfg, ctx, positions):
-    kv = cross_kv(p["xattn"], mem, cfg)
+    kv = cross_kv(p["xattn"], mem, cfg, ctx)
     h = x + attention(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg, ctx, positions)
-    h = h + cross_attention(p["xattn"], rms_norm(h, p["ln_x"], cfg.norm_eps), kv, cfg)
-    return h + mlp_apply(p["mlp"], rms_norm(h, p["ln2"], cfg.norm_eps))
+    h = h + cross_attention(p["xattn"], rms_norm(h, p["ln_x"], cfg.norm_eps), kv, cfg, ctx)
+    return h + _mlp(p["mlp"], rms_norm(h, p["ln2"], cfg.norm_eps), cfg, ctx)
 
 
 def _residual(apply, key: str):
@@ -498,7 +511,7 @@ def _zamba_unit(p_unit, h, shared, cfg, ctx, positions):
         h = _layer(_mamba_layer, ctx, layer_view(p_unit, j), h, cfg, ctx)
     h = h + attention(shared["attn"], rms_norm(h, shared["ln1"], cfg.norm_eps), cfg, ctx,
                       positions)
-    return h + mlp_apply(shared["mlp"], rms_norm(h, shared["ln2"], cfg.norm_eps))
+    return h + _mlp(shared["mlp"], rms_norm(h, shared["ln2"], cfg.norm_eps), cfg, ctx)
 
 
 def _xlstm_unit(p_unit, h, cfg, ctx):

@@ -48,16 +48,20 @@ channels. What is left to communicate is two all-reduces per Mamba layer
 projection's partial sums. The served and trained results are the same
 up to the order of those sums.
 
-Tensor parallelism of the ``attn`` pattern (:func:`tp_layout`, the
-reference's ``param_spec`` for the dense and MoE decoders): a rank keeps
-its block of the query heads of ``wq``/``bq`` (the last dim) and the
-same heads' rows of ``wo``; its KV heads of ``wk``/``wv``/``bk``/``bv``;
-its block of the dense SwiGLU's hidden dim (``w_gate``/``w_up`` last,
-``w_down`` inner); ``embed``'s vocab rows and ``lm_head``'s vocab
-columns. Each splits only where it divides the model axis; the router,
-the norms and the expert layouts are unchanged. The heads split only
-where ``H`` divides the axis and the KV heads either divide it or are
-divided by it; otherwise every attention leaf stays replicated.
+Tensor parallelism (:func:`tp_layout`, the reference's ``param_spec``
+under every block pattern but ``xlstm``): in each attention block a rank
+keeps its block of the query heads of ``wq``/``bq`` (the last dim) and
+the same heads' rows of ``wo``; its KV heads of ``wk``/``wv``/``bk``/
+``bv``; in each dense SwiGLU its block of the hidden dim (``w_gate``/
+``w_up`` last, ``w_down`` inner); ``embed``'s vocab rows and
+``lm_head``'s vocab columns. The blocks are the ``attn`` decoders'
+layers, zamba's shared attention and MLP (one block, not stacked), and
+the encoder-decoder's encoder attention and MLP and its decoder's
+self-attention, cross-attention and MLP. Each leaf splits only where it
+divides the model axis; the router, the norms and the expert layouts
+are unchanged. The heads split only where ``H`` divides the axis and
+the KV heads either divide it or are divided by it; otherwise every
+attention leaf stays replicated.
 
 **The KV head split departs from the reference's too.** The reference
 splits the ``K * hd`` columns of ``wk``/``wv`` evenly; at qwen2-72b and
@@ -76,9 +80,8 @@ slot rows of the experts at their native homes, or the ESP hidden-dim
 shards, and the tensor-parallel leaves) with the dim and part a rank
 keeps; every other leaf is replicated over the model group, and the
 AdamW moments take their parameter's layout; zamba's Mamba leaves add
-theirs (above). zamba's shared block and the encoder-decoder stay
-replicated (ROADMAP Queue 1 item 5b), and so does xLSTM, as in the
-reference. :func:`rank_params` cuts a full tree (parameters or a moment)
+theirs (above). xLSTM stays replicated, as in the reference.
+:func:`rank_params` cuts a full tree (parameters or a moment)
 to a rank's slices, so that every rank starting from the same full init
 trains the same model on any mesh.
 """
@@ -288,27 +291,39 @@ def _columns(part, width: int):
     return slice(part.start * width, part.stop * width)
 
 
+# block pattern -> (attention subtrees, dense MLP subtrees, their stacked dims)
+TP_BLOCKS = {"attn": (("layers/attn",), ("layers/mlp",), 1),
+             "zamba": (("shared/attn",), ("shared/mlp",), 0),
+             "encdec": (("encoder/attn", "layers/attn", "layers/xattn"),
+                        ("encoder/mlp", "layers/mlp"), 1)}
+
+
 def tp_layout(cfg, ctx) -> dict[str, tuple[int, object]]:
-    """The tensor-parallel leaves of an ``attn`` model's stacked tree, by
-    path: ``(dim, part)``, each only where it splits (empty without a
-    mesh, on other patterns, or where nothing divides)."""
+    """The tensor-parallel leaves of a model's tree, by path: ``(dim,
+    part)``, each only where it splits (empty without a mesh, for
+    ``xlstm``, or where nothing divides). Each pattern's blocks are in
+    :data:`TP_BLOCKS`; a leaf's dim counts its stacked dims."""
     m, r = ctx.n_model, ctx.model_rank
-    if ctx.mesh is None or cfg.block_pattern != "attn" or m < 2:
+    blocks = TP_BLOCKS.get(cfg.block_pattern)
+    if ctx.mesh is None or blocks is None or m < 2:
         return {}
+    attns, mlps, lead = blocks
     out: dict[str, tuple[int, object]] = {}
     hd = cfg.head_dim_
     if heads_split(cfg.n_heads, cfg.n_kv_heads, m):
         qs = _columns(q_heads(cfg.n_heads, m, r), hd)
         ks = _columns(kv_part(cfg.n_kv_heads, m, r), hd)
-        out.update({"layers/attn/wq": (2, qs), "layers/attn/wo": (1, qs),
-                    "layers/attn/wk": (2, ks), "layers/attn/wv": (2, ks)})
-        if cfg.qkv_bias:
-            out.update({"layers/attn/bq": (1, qs), "layers/attn/bk": (1, ks),
-                        "layers/attn/bv": (1, ks)})
+        for a in attns:
+            out.update({f"{a}/wq": (lead + 1, qs), f"{a}/wo": (lead, qs),
+                        f"{a}/wk": (lead + 1, ks), f"{a}/wv": (lead + 1, ks)})
+            if cfg.qkv_bias:
+                out.update({f"{a}/bq": (lead, qs), f"{a}/bk": (lead, ks),
+                            f"{a}/bv": (lead, ks)})
     if not cfg.is_moe and _ok(cfg.d_ff, m):
         fs = _block(cfg.d_ff, m, r)
-        out.update({"layers/mlp/w_gate": (2, fs), "layers/mlp/w_up": (2, fs),
-                    "layers/mlp/w_down": (1, fs)})
+        for f in mlps:
+            out.update({f"{f}/w_gate": (lead + 1, fs), f"{f}/w_up": (lead + 1, fs),
+                        f"{f}/w_down": (lead, fs)})
     if _ok(cfg.vocab_size, m):
         vs = _block(cfg.vocab_size, m, r)
         out["embed"] = (0, vs)
@@ -327,9 +342,7 @@ def param_layout(cfg, ctx) -> dict[str, tuple[int, object]]:
     whose mixed leaves take a :class:`Part`); empty when every leaf is
     replicated."""
     m, r = ctx.n_model, ctx.model_rank
-    if cfg.block_pattern == "zamba":
-        return mamba_layout(cfg, ctx)
-    out = tp_layout(cfg, ctx)
+    out = {**mamba_layout(cfg, ctx), **tp_layout(cfg, ctx)}
     impl = moe_layout(cfg, ctx)
     names = ("w_gate", "w_up", "w_down")
     if impl == "ep" and is_split(cfg.n_experts, m):

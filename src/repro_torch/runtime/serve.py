@@ -41,9 +41,11 @@ patterns serve their dense and recurrent caches, the balancer idle (it
 runs for MoE only); under a mesh a zamba rank keeps its part of the
 Mamba2 weights (``sharding.mamba_layout``) and every family its shard of
 the caches (``T.init_cache``). Frontend-stub embeds ride ``prefill`` and
-``generate``, cut to the rank's rows. Under a mesh an ``attn`` rank also
-keeps its tensor-parallel slices of the attention, the dense MLP,
-``embed`` and ``lm_head`` (``sharding.tp_layout``), cut once at setup.
+``generate``, cut to the rank's rows. Under a mesh a rank of every
+pattern but ``xlstm`` also keeps its tensor-parallel slices of the
+attention and the dense MLPs (the ``attn`` layers', zamba's shared
+block, the encoder-decoder's encoder and decoder), ``embed`` and
+``lm_head`` (``sharding.tp_layout``), cut once at setup.
 Snapshots hold host state only, the same on every rank, so a rank
 restores under its own mesh (``restore_snapshot``).
 
@@ -384,7 +386,7 @@ class Server:
 
     def _shard_leaves(self) -> None:
         """Keep the rank's part of every tensor-parallel leaf (``sharding.
-        tp_layout``: its heads, its block of the dense MLP, its vocab rows
+        tp_layout``: its heads, its block of each dense MLP, its vocab rows
         and columns) and of every Mamba2 leaf (``sharding.mamba_layout``:
         its heads' channels, the B/C columns whole), one leaf at a time,
         each whole tensor freed as its part is cut."""

@@ -24,7 +24,9 @@ reference's ``test_dryrun_machinery_small_mesh``
   step and its batch rows, and its FLOPs at least three times its
   forward's;
 * the recurrent and enc-dec families' one-token cells at full width
-  traced ``OK`` (zamba2's two Mamba2 all-reduces a layer counted), the
+  traced ``OK``, zamba2's and seamless's ``decode_32k`` with the bytes
+  and collectives their layout predicts (the Mamba2 heads, the shared
+  block, the encoder and the decoder split over the model axis), the
   full-attention ``long_500k`` cell still ``SKIP``; the CLI's file per
   cell;
 * the time-loop probe: FLOPs, bytes accessed and collectives of a
@@ -37,6 +39,8 @@ imported. Its config helpers are held in ``test_torch_configs_shapes.py``.
 
 import dataclasses
 import json
+import sys
+from pathlib import Path
 
 import pytest
 import torch
@@ -49,6 +53,9 @@ from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models import transformer as T
 from repro_torch.parallel import sharding
 from repro_torch.parallel.collectives import bucket_capacity
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (the layout's tensor-parallel prediction)
 
 torch.set_num_threads(1)
 DATA, MODEL = 2, 4
@@ -244,10 +251,14 @@ def test_train_cell_arguments_and_flops(records):
 
 def test_skips_name_their_roadmap_item():
     """The families' one-token cells trace at full width on the 16 x 16
-    mesh (no ``SKIP`` naming item 6 is left); zamba2's decode counts two
-    all-reduces a Mamba2 layer (its 64 heads split 4 a rank) beside the
-    shared block's three-all-reduce merge a unit; a full-attention model's
-    ``long_500k`` cell is still skipped."""
+    mesh (no ``SKIP`` naming item 6 is left). zamba2's and seamless's
+    ``decode_32k`` rank 0 holds the layout's tensor-parallel slices of
+    the shared block, the encoder and the decoder, and counts exactly the
+    layout's collectives and bytes (``chip_smoke.tp_prediction``, which
+    phase 3i (d) holds the card's dry run to):
+    zamba2 two all-reduces a Mamba2 layer, five a unit and one for the
+    embedding, two all-gathers a unit and one for the logits. A
+    full-attention model's ``long_500k`` cell is still skipped."""
     try:
         recs = {arch: D.run_cell(arch, shape, "single", "er")
                 for arch, shape in (("zamba2-1.2b", "decode_32k"), ("xlstm-350m", "long_500k"),
@@ -255,10 +266,14 @@ def test_skips_name_their_roadmap_item():
         for rec in recs.values():
             assert rec["status"] == "OK", rec
             assert rec["flops"] > 0 and rec["argument_size_in_bytes"] > 0
-        cfg = get_config("zamba2-1.2b")
-        units, _ = T.zamba_layout(cfg)
-        want = 2 * cfg.n_layers + 3 * units
-        assert recs["zamba2-1.2b"]["collective_calls"] == {"all-reduce": want}
+        for arch in ("zamba2-1.2b", "seamless-m4t-medium"):
+            want = chip_smoke.tp_prediction(get_config(arch), SHAPES["decode_32k"], 16, 16)
+            got = {k: recs[arch][k] for k in want}
+            got["collectives"] = {k: v for k, v in got["collectives"].items() if k != "total"}
+            assert got == want, arch
+        assert recs["zamba2-1.2b"]["collective_calls"] == {"all-reduce": 107, "all-gather": 13}
+        assert recs["seamless-m4t-medium"]["collective_calls"] == {"all-reduce": 108,
+                                                                   "all-gather": 36}
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()

@@ -17,6 +17,15 @@ Models (``smoke()`` reductions):
   meshes; ``seamless6``: 6 tokens, split by sequence on 2 x 2 and by KV
   heads on 1 x 4.
 
+Tensor parallelism (``sharding.tp_layout``): zamba's shared attention and
+MLP and the encoder-decoder's encoder, decoder self-attention,
+cross-attention and MLPs split their 4 query and KV heads (2 a rank on
+2 x 2, 1 on 1 x 4) and their hidden dim, and both models their vocab;
+each rank's slice is the reference's ``param_spec`` shard. xLSTM stays
+replicated, as in the reference. A config with 6 query heads on 1 x 4
+keeps its attention whole (the MLPs and the vocab split), with tokens
+and logits as with no mesh.
+
 Serving (the ``Server``): the greedy tokens equal, the prefill and every
 decode step's logits within 1e-5, and each rank's shard of every cache
 leaf after prefill and ``N_NEW`` decode steps (the Mamba2 SSM heads and
@@ -33,9 +42,11 @@ sum(lr)``), and the first step's gradients of every leaf replicated over
 the model group (the B/C columns of the mixed Mamba2 leaves too) equal
 bit for bit on every rank of it.
 
-The train CLI: a checkpoint of the smoke zamba written on 1 x 4 and
-resumed on 2 x 2, where its Mamba2 leaves split, against an uninterrupted
-run. Plus the layout functions of ``parallel.sharding`` on one process.
+The train CLI: a checkpoint of the smoke zamba written on 1 x 4 (the
+shared block split 4 ways) and resumed on 2 x 2, where its Mamba2 leaves
+split and the shared block 2 ways, and with no mesh, against an
+uninterrupted run. Plus the layout functions of ``parallel.sharding`` on
+one process.
 
 The ranks meet through a file in the test's temporary directory and
 every group has a 120 s timeout, so that a collective one rank skips
@@ -45,9 +56,12 @@ fails instead of hanging.
 import dataclasses
 import datetime
 import os
+import shutil
 import subprocess
 import sys
 import textwrap
+import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -77,9 +91,13 @@ MODELS = {"zamba128": ("zamba2-1.2b", {"d_model": 128, "n_layers": 5}),
 TRAINED = ("zamba128", "zamba", "xlstm", "seamless")
 SERVE = dict(max_seq=16, batch=4)
 PROMPT, N_NEW = 6, 4
+SIX = ("zamba", "seamless")       # served again with 6 query heads and 2 KV heads
 SEQ = 8
 OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)
 METRICS = ("loss", "ce", "aux", "grad_norm")
+# the reference's parameters after its first train step, which its
+# subprocess writing ``out`` leaves for the port's ranks
+P1_FILE = "{out}.{name}.p1.npz"
 # leaves the reference initialises to constants: ones get 1 + noise, the
 # rest noise (a_log small, so that the Mamba2 decay stays in (0, 1))
 CONSTANT_LEAVES = {"ln1": 1, "ln2": 1, "ln_x": 1, "ln": 1, "final_norm": 1, "enc_norm": 1,
@@ -145,18 +163,19 @@ def _inputs(path: Path) -> dict:
 
 
 JAX_SCRIPT = """
-import dataclasses, sys
+import dataclasses, os, sys
 import numpy as np
 import jax, jax.numpy as jnp
+from jax.sharding import NamedSharding
 from repro.configs import get_config, smoke
 from repro.launch.mesh import make_mesh_compat
 from repro.parallel.ctx import ParallelCtx
-from repro.parallel.sharding import state_specs, to_shardings
+from repro.parallel.sharding import param_spec, state_specs, to_shardings
 from repro.runtime.optimizer import AdamWConfig, adamw_init
 from repro.runtime.serve import ServeConfig, Server
 from repro.runtime.train import loss_fn, make_train_step
 
-SHAPE, MODELS, TRAINED, SERVE, N_NEW, OPT, METRICS = {consts}
+SHAPE, MODELS, TRAINED, SERVE, N_NEW, OPT, METRICS, P1_FILE = {consts}
 inp = dict(np.load(sys.argv[1]))
 out = {{}}
 mesh = make_mesh_compat(SHAPE, ("data", "model"))
@@ -177,14 +196,27 @@ def tree(prefix):
     return t
 
 
-def flat(t, prefix):
+def paths(t):
     for path, leaf in jax.tree_util.tree_flatten_with_path(t)[0]:
-        name = "/".join(str(getattr(p, "key", getattr(p, "idx", p))) for p in path)
+        yield "/".join(str(getattr(p, "key", getattr(p, "idx", p))) for p in path), leaf
+
+
+def flat(t, prefix):
+    for name, leaf in paths(t):
         out[f"{{prefix}}/{{name}}"] = np.asarray(leaf)
+
+
+def shards(shape, spec):
+    idx = NamedSharding(mesh, spec).devices_indices_map(shape)
+    return np.array([[[s.start or 0, shape[i] if s.stop is None else s.stop]
+                      for i, s in enumerate(idx[d])] for d in mesh.devices.reshape(-1)])
 
 
 for name, (arch, kw) in MODELS.items():
     cfg = dataclasses.replace(smoke(get_config(arch)), **kw)
+    for path, leaf in paths(tree(f"{{name}}/params/")):
+        out[f"{{name}}/shards/{{path}}"] = shards(leaf.shape,
+                                                  param_spec(path, leaf.shape, cfg, SHAPE[1]))
     embeds = jnp.asarray(inp[f"{{name}}/embeds"]) if cfg.frontend_stub else None
     with mesh:
         srv = Server(cfg, ctx, tree(f"{{name}}/params/"), ServeConfig(**SERVE))
@@ -215,19 +247,49 @@ for name, (arch, kw) in MODELS.items():
             state, met = fn(state, batch)
             for k in METRICS:
                 out[f"{{name}}/met/{{i}}/{{k}}"] = np.asarray(met[k])
+            if i == 0:
+                # the parameters of the second gradient, for the port's ranks
+                tmp = f"{{sys.argv[2]}}.{{name}}.tmp.npz"
+                np.savez(tmp, **{{p: np.asarray(leaf) for p, leaf in paths(state["params"])}})
+                os.replace(tmp, P1_FILE.format(out=sys.argv[2], name=name))
     flat(state, f"{{name}}/state")
 np.savez(sys.argv[2], **out)
 """
 
 
+def _wait_for(path: str, failed: str, timeout: float = 600.0) -> dict:
+    """The arrays of ``path`` once the reference's subprocess has written
+    it (it renames a finished file into place); raises at once with the
+    reference's log tail if it exited with an error first (``failed``,
+    :func:`_mark_failure`)."""
+    t0 = time.monotonic()
+    while not os.path.exists(path):
+        if os.path.exists(failed):
+            raise RuntimeError(f"the reference exited before writing {path}:\n"
+                               + Path(failed).read_text())
+        if time.monotonic() - t0 > timeout:
+            raise TimeoutError(f"the reference did not write {path} in {timeout} s")
+        time.sleep(0.2)
+    return dict(np.load(path))
+
+
+def _mark_failure(proc: subprocess.Popen, out: Path) -> None:
+    """Once ``proc`` exits with an error, writes ``{out}.failed`` with its
+    log's tail, for the ranks that wait on its files."""
+    if proc.wait() != 0:
+        Path(f"{out}.failed").write_text(Path(f"{out}.log").read_text()[-4000:])
+
+
 def _start_jax(inputs: Path, out: Path, shape) -> subprocess.Popen:
-    consts = repr((shape, MODELS, TRAINED, SERVE, N_NEW, OPT, METRICS))
+    consts = repr((shape, MODELS, TRAINED, SERVE, N_NEW, OPT, METRICS, P1_FILE))
+    script = textwrap.dedent(JAX_SCRIPT.format(consts=consts))
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
-    return subprocess.Popen(
-        [sys.executable, "-c", textwrap.dedent(JAX_SCRIPT.format(consts=consts)),
-         str(inputs), str(out)],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    # its output goes to a file: the port's ranks wait on it mid-run, so a
+    # full pipe nobody reads yet must not stall it
+    with open(f"{out}.log", "w") as log:
+        return subprocess.Popen([sys.executable, "-c", script, str(inputs), str(out)],
+                                stdout=log, stderr=subprocess.STDOUT, env=env)
 
 
 def _rank_main(rank, shape, init_file, inputs, out_dir):
@@ -251,24 +313,31 @@ def _rank_main(rank, shape, init_file, inputs, out_dir):
     inp = dict(np.load(inputs))
     rows = sharding.batch_rows(SERVE["batch"], data, mesh.data_rank)
     out = {}
+
+    def serve(cfg, ctx, params, name, key):
+        """Prefill and ``N_NEW`` greedy steps of ``name``'s prompt (and
+        embeds); the logits and tokens under ``key``; the cache."""
+        embeds = torch.tensor(inp[f"{name}/embeds"]) if cfg.frontend_stub else None
+        srv = Server(cfg, ctx, params, ServeConfig(**SERVE), device="cpu")
+        logits, cache = srv.prefill(torch.tensor(inp[f"{name}/prompt"]).long(), embeds=embeds)
+        out[f"{key}/logits/0"] = logits.numpy()
+        toks = []
+        tok = torch.argmax(logits[:, -1:], dim=-1)
+        for i in range(N_NEW):
+            toks.append(tok)
+            logits, cache = srv.decode(tok, cache)
+            out[f"{key}/logits/{i + 1}"] = logits.numpy()
+            tok = torch.argmax(logits[:, -1:], dim=-1)
+        out[f"{key}/tokens"] = torch.cat(toks, 1).numpy()
+        return cache
+
     for name in MODELS:
         cfg = _cfg(name)
         np_params = _unflatten(inp, f"{name}/params/")
         if cfg.block_pattern == "zamba":
             np_params.setdefault("trailing", None)
         embeds = torch.tensor(inp[f"{name}/embeds"]) if cfg.frontend_stub else None
-        srv = Server(cfg, ctx, params_from_numpy(np_params, device="cpu"),
-                     ServeConfig(**SERVE), device="cpu")
-        logits, cache = srv.prefill(torch.tensor(inp[f"{name}/prompt"]).long(), embeds=embeds)
-        out[f"{name}/logits/0"] = logits.numpy()
-        toks = []
-        tok = torch.argmax(logits[:, -1:], dim=-1)
-        for i in range(N_NEW):
-            toks.append(tok)
-            logits, cache = srv.decode(tok, cache)
-            out[f"{name}/logits/{i + 1}"] = logits.numpy()
-            tok = torch.argmax(logits[:, -1:], dim=-1)
-        out[f"{name}/tokens"] = torch.cat(toks, 1).numpy()
+        cache = serve(cfg, ctx, params_from_numpy(np_params, device="cpu"), name, name)
         out.update({f"{name}/cache/{k}": v for k, v in _flatten(
             {k: v for k, v in cache.items() if k not in ("pos", "len")}).items()})
         if name not in TRAINED:
@@ -280,23 +349,45 @@ def _rank_main(rank, shape, init_file, inputs, out_dir):
         state = {"params": params, "opt": adamw_init(params)}
         step = make_train_step(cfg, ctx, AdamWConfig(**OPT))
         for i in range(2):
-            g, _ = grads_of(state["params"], batch, cfg, ctx)
+            at = state["params"]
+            if i == 1:
+                # the second gradient at the reference's parameters after
+                # its first step, cut to the rank's slices
+                ref = Path(inputs).parent / f"jax{_tag(shape)}.npz"
+                ref_p1 = _unflatten(_wait_for(P1_FILE.format(out=ref, name=name),
+                                              f"{ref}.failed"), "")
+                if cfg.block_pattern == "zamba":
+                    ref_p1.setdefault("trailing", None)
+                at = sharding.rank_params(params_from_numpy(ref_p1, device="cpu"), cfg, ctx)
+            g, _ = grads_of(at, batch, cfg, ctx)
             out.update({f"{name}/grad/{i}/{k}": v for k, v in _flatten(g).items()})
             state, met = step(state, batch)
             for k in METRICS:
                 out[f"{name}/met/{i}/{k}"] = met[k].numpy()
         out.update({f"{name}/state/{k}": v for k, v in _flatten(state).items()})
     if shape == (1, 4):
-        # the train CLI: 2 steps of the smoke zamba on 1 x 4 (its 2 heads
-        # whole on every rank), resumed on 2 x 2 (split: the checkpoint's
-        # global Mamba2 leaves cut to each rank's part) for 2 more, against
-        # 4 steps on 2 x 2 (its checkpoint gathered from the parts)
+        # 6 query heads do not divide the model axis: attention replicated
+        for name in SIX:
+            cfg = dataclasses.replace(_cfg(name), n_heads=6, n_kv_heads=2)
+            out[f"six/{name}/layout"] = np.asarray(sorted(sharding.tp_layout(cfg, ctx)))
+            for key, c in (("mesh", ctx), ("none", ParallelCtx())):
+                serve(cfg, c, T.init_params(cfg, seed=1, device="cpu"), name,
+                      f"six/{name}/{key}")
+        # the train CLI: 2 steps of the smoke zamba on 1 x 4 (its 2 Mamba2
+        # heads whole on every rank, the shared block split 4 ways), resumed
+        # on 2 x 2 (split: the checkpoint's global Mamba2 leaves and shared
+        # block cut to each rank's part) and, in the test, with no mesh for
+        # 2 more, against 4 steps on 2 x 2 (its checkpoint gathered from the
+        # parts)
         from repro_torch.launch import train as cli
 
         base = ["--arch", "zamba2-1.2b", "--smoke", "--device", "cpu", "--batch",
                 str(SERVE["batch"]), "--seq", str(SEQ), "--log-every", "100"]
         part, whole = Path(out_dir) / "ckpt_part", Path(out_dir) / "ckpt_whole"
         cli.main([*base, "--mesh", "1x4", "--steps", "2", "--ckpt-dir", str(part)])
+        if rank == 0:
+            shutil.copytree(part, Path(out_dir) / "ckpt_nomesh")
+        dist.barrier()
         for tag, d in (("resumed", part), ("whole", whole)):
             state, hist = cli.main([*base, "--mesh", "2x2", "--steps", "4",
                                     "--ckpt-dir", str(d)])
@@ -311,12 +402,16 @@ def _rank_main(rank, shape, init_file, inputs, out_dir):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """The reference's results (one subprocess a mesh shape, run beside
-    the port's ranks) and the port's, one spawn of four ranks a shape."""
+    the port's ranks), the port's, one spawn of four ranks a shape, and
+    their directory."""
     base = tmp_path_factory.mktemp("mesh_families")
     inputs = base / "inputs.npz"
     _inputs(inputs)
     procs = {shape: _start_jax(inputs, base / f"jax{_tag(shape)}.npz", shape)
              for shape in SHAPES}
+    for shape, proc in procs.items():
+        threading.Thread(target=_mark_failure, args=(proc, base / f"jax{_tag(shape)}.npz"),
+                         daemon=True).start()
     try:
         port = {}
         for shape in SHAPES:
@@ -327,13 +422,14 @@ def runs(tmp_path_factory):
             port[shape] = [dict(np.load(out_dir / f"rank{r}.npz")) for r in range(4)]
         ref = {}
         for shape, proc in procs.items():
-            _, err = proc.communicate(timeout=600)
-            assert proc.returncode == 0, err[-4000:]
-            ref[shape] = dict(np.load(base / f"jax{_tag(shape)}.npz"))
+            out = base / f"jax{_tag(shape)}.npz"
+            proc.wait(timeout=600)
+            assert proc.returncode == 0, Path(f"{out}.log").read_text()[-4000:]
+            ref[shape] = dict(np.load(out))
     finally:
         for proc in procs.values():
             proc.kill()
-    return ref, port
+    return ref, port, base
 
 
 def _ctx(shape, rank: int) -> ParallelCtx:
@@ -370,7 +466,7 @@ def _cache_slice(key: str, want: np.ndarray, cfg, ctx) -> np.ndarray:
 def test_serving_matches_reference(runs, shape, name):
     """Greedy tokens equal; prefill and decode logits within 1e-5 on
     every rank (every request's, gathered over the data group)."""
-    ref, port = runs
+    ref, port, _ = runs
     for rank in range(4):
         got = port[shape][rank]
         np.testing.assert_array_equal(got[f"{name}/tokens"], ref[shape][f"{name}/tokens"],
@@ -386,7 +482,7 @@ def test_serving_matches_reference(runs, shape, name):
 def test_cache_shards_match_reference(runs, shape, name):
     """Each rank's shard of every cache leaf after prefill and the decode
     steps against the reference's global cache at the rank's slice."""
-    ref, port = runs
+    ref, port, _ = runs
     cfg = _cfg(name)
     prefix = f"{name}/cache/"
     keys = sorted(k[len(prefix):] for k in ref[shape] if k.startswith(prefix))
@@ -411,9 +507,18 @@ def _rank_part(path: str, want: np.ndarray, layout: dict) -> np.ndarray:
 def test_train_steps_match_reference(runs, shape, name):
     """Two steps. Before each, the gradients (each rank's slices) within
     1e-5 of the reference's ``jax.grad`` of its ``loss_fn`` on the same
-    mesh; the metrics within 1e-5; then each rank's slices of the
-    parameters and moments (``nu`` through its square root) within 1e-5,
-    the step equal.
+    mesh, at the same parameters: the initial ones, then the reference's
+    after its first step (cut to the rank's slices); the metrics within
+    1e-5; then each rank's slices of the parameters and moments (``nu``
+    through its square root) within 1e-5, the step equal.
+
+    Why the second gradient is taken at the reference's parameters: after
+    one step the two trajectories' parameters differ where Adam turned a
+    gradient's last-bit rounding into part of a step (below), and the
+    second gradients inherit that: the reference's own 1 x 4 and 2 x 2
+    runs of seamless part by 8.4e-6 at step 1, and the port's 1 x 4 tensor
+    parallelism (its sums in gloo's order) by 1.4e-5 against the
+    reference's, where both agree within 4e-8 at step 0.
 
     Which elements loosen, as in ``test_torch_train.py``: Adam moves an
     element by ``lr * m / (sqrt(v) + eps)``, near +-1 whatever the
@@ -423,7 +528,7 @@ def test_train_steps_match_reference(runs, shape, name):
     than ``APART`` of their value at either step (1.1% of seamless's on
     1 x 4, the most; the test requires fewer than 2%) are held at ``2 *
     sum(lr)``, the most two steps can part."""
-    ref, port = runs
+    ref, port, _ = runs
     cfg = _cfg(name)
     prefix = f"{name}/state/"
     moved = 2 * (OPT["lr"] / OPT["warmup_steps"] + OPT["lr"])
@@ -480,7 +585,7 @@ def test_replicated_gradients_bitwise_equal_in_model_group(runs, shape, name):
     """The first step's gradient of every leaf replicated over the model
     group, and the B/C columns of the mixed Mamba2 leaves, bit for bit on
     every rank of the group."""
-    _, port = runs
+    _, port, _ = runs
     cfg = _cfg(name)
     data, model = shape
     prefix = f"{name}/grad/0/"
@@ -504,12 +609,19 @@ def test_replicated_gradients_bitwise_equal_in_model_group(runs, shape, name):
 
 def test_checkpoint_resumes_on_another_mesh(runs):
     """The train CLI's checkpoint of the smoke zamba after 2 steps on
-    1 x 4, restored on 2 x 2 (each rank's Mamba2 parts cut from the global
-    leaves) for 2 more steps, against 4 uninterrupted steps on 2 x 2: the
-    logged metrics of steps 2 and 3 within 1e-5 and each rank's final
-    slices within 2e-5 (the tolerance of ``test_torch_mesh_train.py``'s
-    same check)."""
-    _, port = runs
+    1 x 4 (the shared block split 4 ways), restored on 2 x 2 (each rank's
+    Mamba2 parts and shared-block slices cut from the global leaves) and
+    with no mesh for 2 more steps, against 4 uninterrupted steps on 2 x 2:
+    the logged metrics of steps 2 and 3 within 1e-5 on the mesh and 2e-5
+    with none, and each rank's final slices within 2e-5 (the tolerance of
+    ``test_torch_mesh_train.py``'s same check)."""
+    from repro_torch.launch import train as cli
+
+    _, port, base = runs
+    cfg = _cfg("zamba")
+    for shape in ((1, 4), (2, 2)):
+        layout = sharding.tp_layout(cfg, _ctx(shape, 0))
+        assert layout["shared/attn/wq"][1] == slice(0, cfg.n_heads * cfg.head_dim_ // shape[1])
     for rank in range(4):
         r = port[(1, 4)][rank]
         assert list(r["cli/resumed/steps"]) == [2, 3]
@@ -519,9 +631,74 @@ def test_checkpoint_resumes_on_another_mesh(runs):
                                        err_msg=k, **TOL)
         keys = [k for k in r if k.startswith("cli/resumed/state/")]
         assert any("mamba/w_xbc" in k for k in keys) and len(keys) > 20
+        assert r["cli/resumed/state/params/shared/attn/wq"].shape == (
+            cfg.d_model, cfg.n_heads * cfg.head_dim_ // 2)
         for k in keys:
             np.testing.assert_allclose(r[k], r[k.replace("/resumed/", "/whole/")],
                                        err_msg=k, rtol=2e-5, atol=2e-5)
+    _, hist = cli.main(["--arch", "zamba2-1.2b", "--smoke", "--device", "cpu", "--batch",
+                        str(SERVE["batch"]), "--seq", str(SEQ), "--log-every", "100",
+                        "--steps", "4", "--ckpt-dir", str(base / "1x4" / "ckpt_nomesh")])
+    assert [h["step"] for h in hist] == [2, 3]
+    for k in METRICS:
+        np.testing.assert_allclose([h[k] for h in hist], port[(1, 4)][0][f"cli/whole/{k}"][2:],
+                                   err_msg=k, rtol=2e-5, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism of the shared block and the encoder-decoder
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", tuple(MODELS))
+@pytest.mark.parametrize("shape", SHAPES, ids=_tag)
+def test_tp_slices_are_reference_shards(runs, shape, name):
+    """Each tensor-parallel leaf a rank holds (``tp_layout``: zamba's 9,
+    the encoder-decoder's 20, xLSTM's none) is the reference's
+    ``param_spec`` shard of its device, the same range of the same dim,
+    and every other leaf the reference splits is a Mamba2 leaf (the
+    port's head-aligned layout, ``mamba_layout``)."""
+    ref, _, _ = runs
+    cfg = _cfg(name)
+    prefix = f"{name}/shards/"
+    paths = [k[len(prefix):] for k in ref[shape] if k.startswith(prefix)]
+    assert len(paths) > 10
+    n_split = {"zamba": 9, "encdec": 20, "xlstm": 0}[cfg.block_pattern]
+    for rank in range(4):
+        layout = sharding.tp_layout(cfg, _ctx(shape, rank))
+        assert len(layout) == n_split
+        assert set(layout) <= set(paths)
+        for path in paths:
+            ranges = ref[shape][prefix + path]
+            split = [i for i in range(ranges.shape[1])
+                     if any((ranges[q][i] != ranges[rank][i]).any() for q in range(4))]
+            if path not in layout:
+                assert not split or "/mamba/" in path, path
+                continue
+            dim, part = layout[path]
+            assert split == [dim], path
+            assert not isinstance(part, sharding.Copy)
+            assert tuple(ranges[rank][dim]) == (part.start, part.stop), path
+
+
+@pytest.mark.parametrize("name", SIX)
+def test_tp_falls_back_where_heads_do_not_divide(runs, name):
+    """6 query heads (2 KV heads) on 1 x 4: no attention leaf splits (the
+    MLPs and the vocab do), and every rank's tokens and logits are the
+    no-mesh run's."""
+    _, port, _ = runs
+    want = {"zamba": ["embed", "lm_head", "shared/mlp/w_down", "shared/mlp/w_gate",
+                      "shared/mlp/w_up"],
+            "seamless": ["embed", *(f"{s}/mlp/{w}" for s in ("encoder", "layers")
+                                    for w in ("w_down", "w_gate", "w_up")), "lm_head"]}[name]
+    for rank in range(4):
+        got = port[(1, 4)][rank]
+        assert list(got[f"six/{name}/layout"]) == want
+        np.testing.assert_array_equal(got[f"six/{name}/mesh/tokens"],
+                                      got[f"six/{name}/none/tokens"])
+        for i in range(N_NEW + 1):
+            np.testing.assert_allclose(got[f"six/{name}/mesh/logits/{i}"],
+                                       got[f"six/{name}/none/logits/{i}"],
+                                       err_msg=f"rank {rank} step {i}", **TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -610,3 +787,52 @@ def test_cross_kv_shard(frontend, n_kv, n_model, want):
         shape = T.init_cache(cfg, 2, 16, device="cpu", ctx=ctx)["cross_kv"][0].shape
         assert shape == (cfg.n_layers, 2, slots.stop - slots.start,
                          heads.stop - heads.start, cfg.head_dim_)
+
+
+@pytest.mark.parametrize("name", ("zamba", "seamless", "xlstm"))
+@pytest.mark.parametrize("shape", ((1, 1), (1, 2), (2, 2), (1, 4)), ids=_tag)
+def test_tp_layout_of_the_families(shape, name):
+    """``tp_layout`` of zamba (the unstacked shared block) and the
+    encoder-decoder (stacked encoder and decoder layers), at 4 and at 2 KV
+    heads: empty on a model axis of 1 and for xLSTM; else the attention,
+    the MLPs, ``embed`` and ``lm_head``, each at its dim. The ranks'
+    slices (``rank_params``) rebuild every leaf, a copied KV head (2 KV
+    heads on 1 x 4) taken once; ``param_layout`` adds zamba's Mamba2
+    leaves where their 2 heads split."""
+    data, model = shape
+    for n_kv in (4, 2):
+        cfg = dataclasses.replace(_cfg(name), n_kv_heads=n_kv)
+        full = _flatten(T.init_params(cfg, seed=2, device="cpu"))
+        attns, mlps, lead = {"zamba": (("shared/attn",), ("shared/mlp",), 0),
+                             "seamless": (("encoder/attn", "layers/attn", "layers/xattn"),
+                                          ("encoder/mlp", "layers/mlp"), 1),
+                             "xlstm": ((), (), 0)}[name]
+        want = {"embed": 0, "lm_head": 1} if attns and model > 1 else {}
+        for a in attns:
+            want.update({f"{a}/wq": lead + 1, f"{a}/wk": lead + 1, f"{a}/wv": lead + 1,
+                         f"{a}/wo": lead} if model > 1 else {})
+        for f in mlps:
+            want.update({f"{f}/w_gate": lead + 1, f"{f}/w_up": lead + 1,
+                         f"{f}/w_down": lead} if model > 1 else {})
+        parts = {}
+        for rank in range(data * model):
+            ctx = _ctx(shape, rank)
+            layout = sharding.tp_layout(cfg, ctx)
+            assert {p: dim for p, (dim, _) in layout.items()} == want
+            mamba = sharding.mamba_layout(cfg, ctx)
+            assert sharding.param_layout(cfg, ctx) == {**mamba, **layout}
+            assert bool(mamba) == (name == "zamba" and model == 2)
+            copy = n_kv == 2 and model == 4
+            for path, (dim, part) in layout.items():
+                assert isinstance(part, sharding.Copy) == (copy and path[-2:] in ("wk", "wv"))
+                if isinstance(part, sharding.Copy):
+                    assert part.copies == 2 and part.lead == (ctx.model_rank % 2 == 0)
+            mine = _flatten(sharding.rank_params(
+                params=T.init_params(cfg, seed=2, device="cpu"), cfg=cfg, ctx=ctx))
+            if ctx.batch_rank == 0:
+                for path in layout:
+                    parts.setdefault(path, []).append(torch.from_numpy(mine[path]))
+        for path, (dim, part) in sharding.tp_layout(cfg, _ctx(shape, 0)).items():
+            got = sharding.whole(parts[path][0], dim, part,
+                                 lambda own, d, p=path: torch.cat(parts[p], d))
+            np.testing.assert_array_equal(got.numpy(), full[path], err_msg=path)
