@@ -188,6 +188,21 @@ Phases (one line each; any failure raises and the exit code is non-zero):
       (host only, fake tensors: no memory on the card); (e) the
       roofline's rows over those records (model output at the H100's
       datasheet constants, not measurements).
+   j. the examples (``repro_torch.examples``), each ``main`` on the card
+      with its own seeded parameters: ``balancer_demo`` (numpy on the
+      host: its figures finite, its wall seconds); ``quickstart``,
+      ``serve_moe`` (the no-mesh fallback: the card's world of one) and
+      ``continuous_serving`` with the kernels and on the plain path, their
+      smoke() models at head dim 32 (the smallest head dim the attention
+      kernels instantiate): fp32 greedy tokens equal, ``PARITY HELD`` in
+      both runs, the kernel runs' launches as the layer count predicts from
+      the model passes their servers ran (``ServerPasses``);
+      ``train_tiny_lm`` for ``EXAMPLE_TRAIN_STEPS`` steps at its defaults
+      (62.9M parameters, fp32, 8 x 256 tokens) in a temporary ``--ckpt``:
+      every loss finite, the first three within the fp32 limit of a plain
+      run's, ``flash_attention`` 8 launches a step, s/step, tokens/s and
+      peak memory, then ``EXAMPLE_RESUME_STEPS`` more steps resumed from
+      its own checkpoint.
    The expert groups' row counts (and offsets) of layer 0 in one prefill
    and one decode tick of 3a-3c and of 3f's ESP run are kept for phases
    4-5 (the EP path's dispatched buckets too);
@@ -229,7 +244,11 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    likewise: ``flash_attention`` at seamless's encoder (B 8, S = T 1024,
    16 heads of 64, K = H, non-causal; a dropped key tile of 64 must fail)
    and at zamba2's shared block (B 8, S 256, 32 heads of 64, K = H,
-   causal), ``flash_decode`` at zamba2's decode (32 heads of 64, K = H). Then each kernel is timed beside its
+   causal), ``flash_decode`` at zamba2's decode (32 heads of 64, K = H);
+   ``flash_attention``'s fp32 body at the training shapes that run it
+   (train_tiny_lm's B 8, S 256, 12 heads over 4 of 64; the train CLI's
+   B 8, S 512, 32 over 8 of 64; causal), timed beside SDPA in fp32 with
+   TF32 off. Then each kernel is timed beside its
    plain version and a PyTorch library call the port never makes, with its
    roofline bound; the four decode attention modes (split-KV bodies) also
    by their device time under ``torch.profiler`` beside SDPA's, with the
@@ -241,7 +260,7 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    same run, and their share of the bound);
 6. an ``{"analytic_figures": ...}`` line (phase 1's rows), a
    ``{"kernels": [...]}`` line (thirteen entries, each partials mode
-   apart), the card line, and the final ``{"ok": true, "device": {...}}``
+   apart, each with its launches in phase 3j's examples), the card line, and the final ``{"ok": true, "device": {...}}``
    line.
 
 Without a CUDA device, or without the repository beside it, it exits
@@ -3787,6 +3806,236 @@ def kernel_bench_path(torch, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3j: the examples
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ("balancer_demo", "quickstart", "serve_moe", "continuous_serving", "train_tiny_lm")
+EXAMPLE_TRAIN_STEPS = 40
+EXAMPLE_RESUME_STEPS = 4
+
+
+class ServerPasses:
+    """Records each model pass of every ``Server`` while it is entered: a
+    prefill, or a decode step with or without a prefill-lane chunk, each
+    with its server's depth, cache kind and whether the balancer routes
+    through the ragged expert FFN. The example builds its own servers,
+    so the record sits on the class."""
+
+    def __enter__(self):
+        from repro_torch.runtime.serve import Server
+
+        self.passes, self._saved = [], (Server._prefill, Server.decode)
+        prefill, decode = self._saved
+
+        def counted_prefill(srv, *a, **kw):
+            self.passes.append(("prefill", srv.cfg.n_layers, srv.scfg.paged,
+                                srv.use_balancer, False))
+            return prefill(srv, *a, **kw)
+
+        def counted_decode(srv, token, cache, chunk=None):
+            self.passes.append(("decode", srv.cfg.n_layers, srv.scfg.paged,
+                                srv.use_balancer, chunk is not None))
+            return decode(srv, token, cache, chunk=chunk)
+
+        Server._prefill, Server.decode = counted_prefill, counted_decode
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.runtime.serve import Server
+
+        Server._prefill, Server.decode = self._saved
+        return False
+
+    def launches(self, forward_layers: int = 0) -> dict:
+        """What the layer count predicts of the passes (and of
+        ``forward_layers`` layers of ``T.forward``): ``flash_attention``
+        once a layer of a prefill or the forward; the paged or the dense
+        decode kernel once a layer of a decode step; the ragged pair once a
+        layer of every pass of a balanced server, a chunk's pass apart (a
+        server without the balancer serves ``moe_dense``: plain)."""
+        want = {k.__name__: 0 for k in all_kernels()}
+        want["flash_attention"] = forward_layers
+        for kind, layers, paged, balanced, chunk in self.passes:
+            if kind == "prefill":
+                want["flash_attention"] += layers
+            else:
+                want["flash_decode_paged" if paged else "flash_decode"] += layers
+            if balanced:
+                for name in ("gmm_dual_act_ragged", "gmm_ragged"):
+                    want[name] += layers * (2 if chunk else 1)
+        return want
+
+
+def run_example(torch, module, argv, what: str, use_kernels: bool = True):
+    """One example's ``main`` on the card, its lines logged: its result,
+    its printed text, the launches it made and its wall seconds, and the
+    model passes its servers ran."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    zero_launches()
+    t0 = time.perf_counter()
+    with ServerPasses() as passes, contextlib.redirect_stdout(buf):
+        res = module.main(argv, use_kernels=use_kernels)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        log(f"  {what}{'' if use_kernels else ' (plain)'}: {line}")
+    return {"result": res, "text": buf.getvalue(), "launches": read_launches(),
+            "seconds": seconds, "passes": passes}
+
+
+def check_example_launches(run: dict, want: dict, what: str) -> dict:
+    if run["launches"] != want:
+        raise AssertionError(f"phase 3j {what}: launches {run['launches']} != {want}")
+    return {k: v for k, v in want.items() if v}
+
+
+def examples_path(torch, card: str) -> dict:
+    """Phase 3j: the five examples' ``main`` on the card with their own
+    seeded parameters. ``balancer_demo`` (numpy on the host) runs and its
+    figures are finite. ``quickstart``, ``serve_moe`` (the no-mesh
+    fallback: the card's world of one) and ``continuous_serving`` run with
+    the kernels, then on the plain path: fp32 greedy tokens equal,
+    ``PARITY HELD`` in both runs, the kernel runs' launches as the layer
+    count predicts. ``train_tiny_lm``: ``EXAMPLE_TRAIN_STEPS`` steps at its
+    defaults (8 x 256) in a temporary ``--ckpt``, every loss finite, the
+    first three within the fp32 limit of a plain 3-step run's (1e-5
+    relative at step 0, 1e-4 after), ``flash_attention`` 8 launches a
+    step; s/step, tokens/s and peak memory; then a resume from its own
+    checkpoint for ``EXAMPLE_RESUME_STEPS`` more steps."""
+    import tempfile
+
+    from repro_torch.examples import (balancer_demo, continuous_serving, quickstart,
+                                      serve_moe, smoke_model, train_tiny_lm)
+
+    t_phase = time.perf_counter()
+    cuda = ["--device", "cuda"]
+    out = {}
+    demo = run_example(torch, balancer_demo, cuda, "balancer_demo")
+    r = demo["result"]
+    figures = [v for p in r["policies"].values() for v in p.values()]
+    if not all(math.isfinite(v) for v in figures) or r["idle_links"] <= 0:
+        raise AssertionError(f"phase 3j balancer_demo: {r}")
+    check_example_launches(demo, {k.__name__: 0 for k in all_kernels()}, "balancer_demo")
+    out["balancer_demo"] = {"seconds": demo["seconds"], "launches": demo["launches"],
+                            "policies": r["policies"]}
+    log(f"phase 3j balancer_demo: {demo['seconds']:.2f} s wall, figures finite, no launch "
+        f"(modelled times of the paper's wafer, not of this card) [{card}]")
+
+    def served(module, what, tokens, forward_layers=lambda res: 0):
+        k = run_example(torch, module, cuda, what)
+        p = run_example(torch, module, cuda, what, use_kernels=False)
+        got, want = tokens(k["result"]), tokens(p["result"])
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"phase 3j {what}: kernel tokens {[a.tolist() for a in got]} "
+                                 f"!= plain {[b.tolist() for b in want]}")
+        if any(x.numel() == 0 for x in got):
+            raise AssertionError(f"phase 3j {what}: no tokens")
+        layers = forward_layers(k["result"])
+        predicted = check_example_launches(k, k["passes"].launches(layers), what)
+        if sum(p["launches"].values()):
+            raise AssertionError(f"phase 3j {what}: the plain run launched {p['launches']}")
+        return k, p, predicted
+
+    qs_layers = smoke_model("mixtral-8x22b", torch.device("cuda")).n_layers
+    k, p, launched = served(quickstart, "quickstart", lambda r: [r["tokens"]],
+                           lambda r: qs_layers)
+    logit_err = float((k["result"]["logits"] - p["result"]["logits"]).abs().max())
+    out["quickstart"] = {"seconds": k["seconds"], "plain_seconds": p["seconds"],
+                         "launches": k["launches"], "forward_max_abs_err": logit_err,
+                         "aux": k["result"]["aux"], "plain_aux": p["result"]["aux"]}
+    log(f"phase 3j quickstart: greedy tokens with the kernels equal the plain run's "
+        f"{k['result']['tokens'][0].tolist()}, forward logits {logit_err:.3g} apart, aux "
+        f"{k['result']['aux']:.6f} / {p['result']['aux']:.6f}; launches {launched} as "
+        f"predicted; {k['seconds']:.2f} s wall ({p['seconds']:.2f} plain) [{card}]")
+
+    k, p, launched = served(serve_moe, "serve_moe", lambda r: r["outs"])
+    if k["result"]["mesh"] is not None or k["result"]["drill"] is not None:
+        raise AssertionError(f"phase 3j serve_moe: not the fallback: {k['result']['mesh']}")
+    out["serve_moe"] = {"seconds": k["seconds"], "plain_seconds": p["seconds"],
+                        "launches": k["launches"], "batch_seconds": k["result"]["seconds"]}
+    log(f"phase 3j serve_moe (the no-mesh fallback): 3 batches of (4, 24) tokens equal the "
+        f"plain run's; batch seconds {', '.join(f'{x:.3f}' for x in k['result']['seconds'])} "
+        f"(plain {', '.join(f'{x:.3f}' for x in p['result']['seconds'])}); launches "
+        f"{launched} as predicted [{card}]")
+
+    k, p, launched = served(continuous_serving, "continuous_serving",
+                            lambda r: [torch.tensor(t) for t in r["ref"] + r["tokens"]])
+    for run, how in ((k, "kernels"), (p, "plain")):
+        if not run["result"]["parity"] or "PARITY HELD" not in run["text"]:
+            raise AssertionError(f"phase 3j continuous_serving ({how}): parity broken")
+    kr = k["result"]
+    out["continuous_serving"] = {
+        "seconds": k["seconds"], "plain_seconds": p["seconds"], "launches": k["launches"],
+        "n_preempted": kr["n_preempted"], "migrations": kr["migrations"],
+        "passes": len(k["passes"].passes)}
+    log(f"phase 3j continuous_serving: PARITY HELD with the kernels and on the plain path, "
+        f"every stream equal between them ({kr['n_faults']} faults, {kr['n_preempted']} "
+        f"preemption(s), {kr['migrations']} migration(s), {len(k['passes'].passes)} model "
+        f"passes); launches {launched} as predicted; {k['seconds']:.2f} s wall "
+        f"({p['seconds']:.2f} plain) [{card}]")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = ["--ckpt", f"{tmp}/kernels"]
+        torch.cuda.reset_peak_memory_stats()
+        k = run_example(torch, train_tiny_lm,
+                        [*cuda, *ckpt, "--steps", str(EXAMPLE_TRAIN_STEPS)], "train_tiny_lm")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        k["result"].pop("state")
+        hist = k["result"]["history"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        p = run_example(torch, train_tiny_lm, [*cuda, "--ckpt", f"{tmp}/plain", "--steps",
+                                               "3"], "train_tiny_lm", use_kernels=False)
+        p["result"].pop("state")
+        gc.collect()
+        torch.cuda.empty_cache()
+        resume = run_example(torch, train_tiny_lm, [*cuda, *ckpt, "--steps", str(
+            EXAMPLE_TRAIN_STEPS + EXAMPLE_RESUME_STEPS)], "train_tiny_lm resume")
+        resume["result"].pop("state")
+        gc.collect()
+        torch.cuda.empty_cache()
+    losses = [h["loss"] for h in hist]
+    plain = [h["loss"] for h in p["result"]["history"]]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"phase 3j train_tiny_lm: losses {losses}")
+    hold_plain_losses(losses, plain, "phase 3j train_tiny_lm")
+    want = {kk.__name__: 0 for kk in all_kernels()}
+    want["flash_attention"] = 8 * EXAMPLE_TRAIN_STEPS
+    check_example_launches(k, want, "train_tiny_lm")
+    want["flash_attention"] = 8 * EXAMPLE_RESUME_STEPS
+    check_example_launches(resume, want, "train_tiny_lm resume")
+    rh = resume["result"]["history"]
+    if resume["result"]["start"] != EXAMPLE_TRAIN_STEPS or not all(
+            math.isfinite(h["loss"]) for h in rh):
+        raise AssertionError(f"phase 3j train_tiny_lm resume: {resume['result']['start']}, "
+                             f"{[h['loss'] for h in rh]}")
+    secs = [h["seconds"] for h in hist]
+    mean_s = sum(secs[1:]) / len(secs[1:])
+    tokens = 8 * 256
+    out["train_tiny_lm"] = {
+        "steps": EXAMPLE_TRAIN_STEPS, "losses": losses, "plain_losses": plain,
+        "seconds": secs, "mean_ms": mean_s * 1e3, "tokens_per_s": tokens / mean_s,
+        "peak_gb": peak_gb, "wall_s": k["seconds"], "launches": k["launches"],
+        "resume_start": resume["result"]["start"],
+        "resume_losses": [h["loss"] for h in rh], "resume_launches": resume["launches"]}
+    log(f"phase 3j train_tiny_lm: 62.9M parameters, fp32, 8 x 256 tokens, "
+        f"{EXAMPLE_TRAIN_STEPS} steps: first step {secs[0] * 1e3:.1f} ms, then "
+        f"{mean_s * 1e3:.1f} ms a step ({mean_s:.4f} s/step) = {tokens / mean_s:.0f} "
+        f"tokens/s, peak {peak_gb:.2f} GB, loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+        f"flash_attention {k['launches']['flash_attention']} launches; plain losses "
+        f"{', '.join(f'{x:.6f}' for x in plain)} against "
+        f"{', '.join(f'{x:.6f}' for x in losses[:3])}; resumed from step "
+        f"{resume['result']['start']}, {EXAMPLE_RESUME_STEPS} more steps, losses "
+        f"{', '.join(f'{h['loss']:.4f}' for h in rh)}; {k['seconds']:.1f} s wall [{card}]")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 3j: {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 # (a) arch, moe_impl of the small fp32 models trained with the kernels and
 # on the plain path
@@ -4343,6 +4592,16 @@ def named_leaves(tree, prefix=""):
         yield prefix.rstrip("/"), tree
 
 
+def hold_plain_losses(losses: list, plain: list, what: str) -> None:
+    """A plain run's first losses against the kernel run's: step 0 within
+    1e-5 relative, later steps within 1e-4 (fp32; the steps compound the
+    rounding)."""
+    for i, x in enumerate(plain):
+        if abs(x - losses[i]) > (1e-5 if i == 0 else 1e-4) * abs(losses[i]):
+            raise AssertionError(f"{what}: step {i}'s loss {losses[i]!r} with the kernels, "
+                                 f"{x!r} on the plain path")
+
+
 def train_cli_path(torch, card: str, steps: int = 20, plain_steps: int = 3) -> dict:
     """``launch.train.main`` at full size: llama3.2-1b, fp32, all 16 layers,
     batch 8 x 512, ``steps`` steps logged every step, with the reference
@@ -4385,10 +4644,7 @@ def train_cli_path(torch, card: str, steps: int = 20, plain_steps: int = 3) -> d
     gc.collect()
     torch.cuda.empty_cache()
     plain = [r["loss"] for r in off]
-    for i, x in enumerate(plain):
-        if abs(x - losses[i]) > (1e-5 if i == 0 else 1e-4) * abs(losses[i]):
-            raise AssertionError(f"phase 3h (c): step {i}'s loss {losses[i]!r} with the "
-                                 f"kernels, {x!r} on the plain path")
+    hold_plain_losses(losses, plain, "phase 3h (c)")
     secs = [r["seconds"] for r in hist]
     steady = secs[1:]
     mean_s = sum(steady) / len(steady)
@@ -4669,6 +4925,9 @@ def main(argv=None) -> int:
     bench = kernel_bench_path(torch, card)
     gc.collect()
     torch.cuda.empty_cache()
+    examples = examples_path(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     op_launches, op_excess = op_layer_path(torch, groups, mesh_rows, card)
 
     timer = Timer(torch)
@@ -4735,6 +4994,22 @@ def main(argv=None) -> int:
             f"merged vs the normalised kernel {pp['excess_merge_vs_normalised']:.3g}, a "
             f"request of length 0 (acc, m, l) = (0, -1e30, 0)")
         torch.cuda.empty_cache()
+
+    # flash_attention's fp32 body (the CUDA-core one) at the training
+    # shapes that run it: train_tiny_lm's (8 launches a step) and the
+    # train CLI's llama3.2-1b (16 a step); SDPA fp32 with TF32 off, GQA by
+    # enable_gqa=True
+    fa32 = {what: attention_cell(torch, "float32", timer, True, B=8, S=s, H=h, KV=kv, hd=64,
+                                 seed=seed)
+            for what, s, h, kv, seed in (("train_tiny_lm", 256, 12, 4, 23),
+                                         ("train CLI llama3.2-1b", 512, 32, 8, 24))}
+    for what, c in fa32.items():
+        log(f"time flash_attention fp32 at {what} [{c['shape']}]: kernel {c['ms']:.4f} ms, "
+            f"plain {c['plain_ms']:.4f} ms, sdpa (fp32, TF32 off, enable_gqa) "
+            f"{c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms ({c['bound_by']} at "
+            f"{PEAK_OPS['float32'] / 1e12:.0f} TFLOP/s fp32 outside the tensor cores), error "
+            f"over its limit {c['excess']:.3g} [{card}]")
+    torch.cuda.empty_cache()
 
     bf = cells["bfloat16"]
     for name in ("gmm_dual_act_ragged", "gmm_ragged"):
@@ -5025,6 +5300,10 @@ def main(argv=None) -> int:
                                          "device_ms", "library_device_ms") if k in c},
                     "excess_fp32": fp["family"][what]["excess"], "faults": c["faults"]}
                 for what, c in bf["family"].items() if what.startswith(name + " ")}
+        if name == "flash_attention":
+            extra["fp32_cells"] = {what: {k: c[k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err", "excess",
+                "shape")} for what, c in fa32.items()}
         extra["launches_family_paths"] = {
             arch: r["launches"].get(name, 0) for arch, r in family_runs.items()}
         extra["launches_family_mesh_paths"] = {
@@ -5044,6 +5323,8 @@ def main(argv=None) -> int:
                 training["mesh"]["cli"]["launches_flash_attention"]
                 if name == "flash_attention" else 0)}
         extra["launches_kernel_bench"] = bench["launch_totals"].get(name, {})
+        extra["launches_examples"] = {ex: examples[ex]["launches"].get(name, 0)
+                                      for ex in EXAMPLES}
         if name in op_names:
             extra["launches_served_paths"] = {
                 "EP": launches[name], "ESP": esp_launches[name], "mesh": mesh_launches[name]}
@@ -5070,6 +5351,7 @@ def main(argv=None) -> int:
                       "small_families_mesh": small_family_mesh,
                       "run_training": training,
                       "run_kernel_bench": {k: v for k, v in bench.items() if k != "smoke"},
+                      "run_examples": examples,
                       "op_layer_excess": op_excess}), flush=True)
     import torch.distributed as dist
 

@@ -330,6 +330,27 @@ def test_paged_and_chunked_refused_off_the_attn_pattern(arch):
                       chunk={k: torch.as_tensor(v) for k, v in chunk.items()})
 
 
+@pytest.mark.parametrize("paged", (False, True), ids=("dense", "paged"))
+@pytest.mark.parametrize("arch", ("zamba2-1.2b", "seamless-m4t-medium"))
+def test_no_scheduler_off_the_attn_pattern(arch, paged):
+    """No ``RequestScheduler`` serves zamba2 or seamless, so neither package
+    can take a scheduler snapshot of them (under a mesh or not): over a
+    dense Server the scheduler refuses (it needs a paged one), and a paged
+    one refuses its cache, each with the reference's ``ValueError``."""
+    from repro.runtime.scheduler import RequestScheduler as JScheduler
+    from repro_torch.runtime.scheduler import RequestScheduler
+
+    cfg, jcfg, np_params = _model(arch)
+    jp, p = _both(np_params)
+    scfg = dict(max_seq=16, batch=2, paged=paged, page_size=4)
+    msg = ("paged KV cache requires block_pattern=" if paged
+           else r"RequestScheduler needs ServeConfig\(paged=True\)")
+    with pytest.raises(ValueError, match=msg):
+        JScheduler(JServer(jcfg, JCtx(), jp, JServeConfig(**scfg)))
+    with pytest.raises(ValueError, match=msg):
+        RequestScheduler(Server(cfg, ParallelCtx(), p, ServeConfig(**scfg), device="cpu"))
+
+
 def test_xlstm_depth_refused():
     cfg, jcfg = _cfgs("xlstm-350m", n_layers=6)
     with pytest.raises(AssertionError, match="xlstm depth % 4 != 0"):

@@ -63,7 +63,10 @@ def test_port_imports_neither_jax_nor_repro():
                 "core/comm_model.py", "core/ftd.py", "core/workloads.py", "core/traces.py",
                 "core/simulator.py", "figures/run.py", "figures/common.py",
                 "launch/mesh.py", "launch/dryrun.py", "benchmarks/bench_kernels.py",
-                "figures/roofline.py", "parallel/grad_compress.py"):
+                "figures/roofline.py", "parallel/grad_compress.py",
+                "examples/__init__.py", "examples/balancer_demo.py",
+                "examples/quickstart.py", "examples/continuous_serving.py",
+                "examples/serve_moe.py", "examples/train_tiny_lm.py"):
         assert f"src/repro_torch/{mod}" in names
 
 
@@ -159,6 +162,13 @@ def test_entry_points_default_to_cuda(monkeypatch):
         init_state(cfg)
     with pytest.raises(RuntimeError, match="cuda"):
         train_cli.main(["--arch", "dbrx-132b", "--smoke", "--steps", "1"])
+    from repro_torch.examples import (balancer_demo, continuous_serving, quickstart,
+                                      serve_moe, train_tiny_lm)
+
+    for example in (balancer_demo, quickstart, continuous_serving, serve_moe,
+                    train_tiny_lm):
+        with pytest.raises(RuntimeError, match="cuda"):
+            example.main([])
 
 
 def test_kernel_request_on_cpu_tensor_raises():
