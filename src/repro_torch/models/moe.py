@@ -50,6 +50,7 @@ from repro_torch.parallel.collectives import (
 )
 from repro_torch.parallel.ctx import ParallelCtx
 from repro_torch.parallel.placement import PlacementTable
+from repro_torch.runtime import tracing as TR
 
 
 def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
@@ -153,8 +154,9 @@ def moe_esp(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: ParallelCtx,
     call. ``use_kernels=False`` takes the padded path: ``(E, cap, d)``
     buckets, einsums, ``bucket_combine``. Under a mesh:
     :func:`_moe_esp_mesh`."""
-    ids, w, aux = route(p, x, cfg, ctx)
-    ids = _mask_ids(ids, token_mask, cfg)
+    with TR.span(TR.MOE_ROUTE):
+        ids, w, aux = route(p, x, cfg, ctx)
+        ids = _mask_ids(ids, token_mask, cfg)
     if ctx.mesh is not None:
         return _moe_esp_mesh(p, x, ids, w, cfg, ctx), _aux(aux, ids, cfg)
     b, s, d = x.shape
@@ -168,8 +170,9 @@ def moe_esp(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: ParallelCtx,
     ids2, w2 = ids.reshape(n, k), w.reshape(n, k)
 
     if ctx.use_kernels is not False:
-        row_ids, offsets, counts, slots, keep = dispatch_metadata(ids2, e, cap)
-        rows = x.reshape(n, d)[row_ids.long()]
+        with TR.span(TR.MOE_DISPATCH):
+            row_ids, offsets, counts, slots, keep = dispatch_metadata(ids2, e, cap)
+            rows = x.reshape(n, d)[row_ids.long()]
         epc = e // kc
 
         def chunk_ffn(c):
@@ -180,28 +183,33 @@ def moe_esp(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: ParallelCtx,
                 fused=True,
             )
 
-        y = chunk_ffn(0)
-        if kc > 1:
-            # owning bucket of each flat row (offsets are the buckets' first
-            # rows); rows past the live span map to the last chunk and are
-            # never addressed by the combine
-            r_idx = torch.arange(rows.shape[0], dtype=torch.int32, device=x.device)
-            owner = torch.searchsorted(offsets, r_idx, right=True) - 1
-            owner_c = owner.clamp(0, e - 1) // epc
-            for c in range(1, kc):
-                y = torch.where((owner_c == c)[:, None], chunk_ffn(c), y)
-        # the masked-token sentinel E reads the last bucket's offset (JAX
-        # clamps the gather); its copy is never kept
-        flat_rows = offsets[ids2.long().clamp(max=e - 1)] + slots
-        out = combine_from_rows(y, flat_rows, keep, w2)
-        return out.reshape(b, s, d), _aux(aux, ids, cfg)
+        with TR.span(TR.MOE_FFN):
+            y = chunk_ffn(0)
+            if kc > 1:
+                # owning bucket of each flat row (offsets are the buckets'
+                # first rows); rows past the live span map to the last chunk
+                # and are never addressed by the combine
+                r_idx = torch.arange(rows.shape[0], dtype=torch.int32, device=x.device)
+                owner = torch.searchsorted(offsets, r_idx, right=True) - 1
+                owner_c = owner.clamp(0, e - 1) // epc
+                for c in range(1, kc):
+                    y = torch.where((owner_c == c)[:, None], chunk_ffn(c), y)
+        with TR.span(TR.MOE_COMBINE):
+            # the masked-token sentinel E reads the last bucket's offset (JAX
+            # clamps the gather); its copy is never kept
+            flat_rows = offsets[ids2.long().clamp(max=e - 1)] + slots
+            out = combine_from_rows(y, flat_rows, keep, w2)
+            return out.reshape(b, s, d), _aux(aux, ids, cfg)
 
-    bufs, slots, keep = bucket_dispatch(x.reshape(n, d), ids2, e, cap)   # (E, cap, d)
-    h = torch.einsum("ecd,edf->ecf", bufs, p["w_gate"])
-    u = torch.einsum("ecd,edf->ecf", bufs, p["w_up"])
-    y = torch.einsum("ecf,efd->ecd", F.silu(h) * u, p["w_down"])
-    out = bucket_combine(y, ids2, slots, keep, w2)
-    return out.reshape(b, s, d), _aux(aux, ids, cfg)
+    with TR.span(TR.MOE_DISPATCH):
+        bufs, slots, keep = bucket_dispatch(x.reshape(n, d), ids2, e, cap)   # (E, cap, d)
+    with TR.span(TR.MOE_FFN):
+        h = torch.einsum("ecd,edf->ecf", bufs, p["w_gate"])
+        u = torch.einsum("ecd,edf->ecf", bufs, p["w_up"])
+        y = torch.einsum("ecf,efd->ecd", F.silu(h) * u, p["w_down"])
+    with TR.span(TR.MOE_COMBINE):
+        out = bucket_combine(y, ids2, slots, keep, w2)
+        return out.reshape(b, s, d), _aux(aux, ids, cfg)
 
 
 def _moe_esp_mesh(p: dict, x: torch.Tensor, ids, w, cfg: ModelConfig,
@@ -239,24 +247,29 @@ def _moe_esp_mesh(p: dict, x: torch.Tensor, ids, w, cfg: ModelConfig,
     ids2, w2 = ids.reshape(n, k), w.reshape(n, k)
     group = ctx.mesh.model_group
     # the replicated tokens meet the rank's hidden shard
-    xs = enter(x, group) if sharding.is_split(f, m) else x
-    bufs, slots, keep = bucket_dispatch(xs.reshape(n, d), ids2, e, cap)  # (E, cap, d)
+    with TR.span(TR.MOE_DISPATCH):
+        xs = enter(x, group) if sharding.is_split(f, m) else x
+        bufs, slots, keep = bucket_dispatch(xs.reshape(n, d), ids2, e, cap)  # (E, cap, d)
     kernel_ok = (ctx.use_kernels is not False and d % m == 0 and f % m == 0
                  and ctx.batch_split)
     if kernel_ok:
-        counts = kept_counts(ids2, keep, e)
-        y = esp_expert_ffn(bufs[None], counts[None], p["w_gate"], p["w_up"],
-                           p["w_down"], ctx)[0]                        # (E, cap, d/M)
-        # the replicated combine weights meet the rank's d-shard
-        ws = enter(w2, group) if sharding.is_split(d, m) else w2
-        out = bucket_combine(y, ids2, slots, keep, ws)
-        return all_gather_dim(out, 1, group, ctx.mesh.model_order).reshape(b, s, d)
-    h = torch.einsum("ecd,edf->ecf", bufs, p["w_gate"])
-    u = torch.einsum("ecd,edf->ecf", bufs, p["w_up"])
-    y = torch.einsum("ecf,efd->ecd", F.silu(h) * u, p["w_down"])
-    if sharding.is_split(f, m):
-        y = reduce_sum(y, group)
-    return bucket_combine(y, ids2, slots, keep, w2).reshape(b, s, d)
+        with TR.span(TR.MOE_FFN):
+            counts = kept_counts(ids2, keep, e)
+            y = esp_expert_ffn(bufs[None], counts[None], p["w_gate"], p["w_up"],
+                               p["w_down"], ctx)[0]                    # (E, cap, d/M)
+        with TR.span(TR.MOE_COMBINE):
+            # the replicated combine weights meet the rank's d-shard
+            ws = enter(w2, group) if sharding.is_split(d, m) else w2
+            out = bucket_combine(y, ids2, slots, keep, ws)
+            return all_gather_dim(out, 1, group, ctx.mesh.model_order).reshape(b, s, d)
+    with TR.span(TR.MOE_FFN):
+        h = torch.einsum("ecd,edf->ecf", bufs, p["w_gate"])
+        u = torch.einsum("ecd,edf->ecf", bufs, p["w_up"])
+        y = torch.einsum("ecf,efd->ecd", F.silu(h) * u, p["w_down"])
+        if sharding.is_split(f, m):
+            y = reduce_sum(y, group)
+    with TR.span(TR.MOE_COMBINE):
+        return bucket_combine(y, ids2, slots, keep, w2).reshape(b, s, d)
 
 
 def moe_ep(
@@ -314,8 +327,9 @@ def moe_ep(
     else:
         slot_of, n_replicas = placement
 
-    ids, w, aux = route(p, x, cfg, ctx)
-    ids = _mask_ids(ids, token_mask, cfg)
+    with TR.span(TR.MOE_ROUTE):
+        ids, w, aux = route(p, x, cfg, ctx)
+        ids = _mask_ids(ids, token_mask, cfg)
     if ctx.mesh is None:
         out = ep_moe_local(
             x, ids, w, slot_weights, slot_of, n_replicas, ctx,

@@ -86,6 +86,7 @@ from repro_torch.models.layers import mlp_apply, mlp_init, mm, normal_init, rms_
 from repro_torch.models.moe import moe_apply, moe_init, zero_aux
 from repro_torch.parallel.collectives import all_gather_dim, enter, reduce_sum
 from repro_torch.parallel.ctx import NO_MESH, ParallelCtx
+from repro_torch.runtime import tracing as TR
 
 XLSTM_UNIT_M = 3  # mLSTM blocks per unit (then 1 sLSTM)
 PATTERNS = ("attn", "zamba", "xlstm", "encdec")
@@ -343,9 +344,11 @@ def _mlp(p, x, cfg, ctx):
 
 def _block_ffn(p_l, z2, cfg, ctx, placement, token_mask):
     if cfg.is_moe:
-        return moe_apply(p_l["moe"], z2, cfg, ctx, placement=placement,
-                         token_mask=token_mask)
-    return _mlp(p_l["mlp"], z2, cfg, ctx), zero_aux(cfg, z2.device)
+        with TR.span(TR.MODEL_MOE):
+            return moe_apply(p_l["moe"], z2, cfg, ctx, placement=placement,
+                             token_mask=token_mask)
+    with TR.span(TR.MODEL_MLP):
+        return _mlp(p_l["mlp"], z2, cfg, ctx), zero_aux(cfg, z2.device)
 
 
 # ---------------------------------------------------------------------------
@@ -639,20 +642,22 @@ def decode_step(
     for l in range(cfg.n_layers):
         p_l = layer_view(params["layers"], l)
         c_l = _layer_cache(cache["layers"], l)
-        z = rms_norm(x, p_l["ln1"], cfg.norm_eps)
-        o, c_new = decode_attention(p_l["attn"], z, c_l, pos, cfg, ctx,
-                                    cache.get("len"))
-        if is_paged(c_new):
-            cache["layers"]["lengths"][l].copy_(c_new["lengths"])
-        x = x + o
+        with TR.span(TR.MODEL_ATTENTION):
+            z = rms_norm(x, p_l["ln1"], cfg.norm_eps)
+            o, c_new = decode_attention(p_l["attn"], z, c_l, pos, cfg, ctx,
+                                        cache.get("len"))
+            if is_paged(c_new):
+                cache["layers"]["lengths"][l].copy_(c_new["lengths"])
+            x = x + o
         z2 = rms_norm(x, p_l["ln2"], cfg.norm_eps)
         y, a = _block_ffn(p_l, z2, cfg, ctx, placement, token_mask)
         x = x + y
         if chunk is not None:
-            zc = rms_norm(xc, p_l["ln1"], cfg.norm_eps)
-            oc, _ = chunk_prefill_attention(p_l["attn"], zc, c_l, chunk["table"],
-                                            chunk["start"], chunk["length"], cfg, cctx)
-            xc = xc + oc
+            with TR.span(TR.MODEL_ATTENTION):
+                zc = rms_norm(xc, p_l["ln1"], cfg.norm_eps)
+                oc, _ = chunk_prefill_attention(p_l["attn"], zc, c_l, chunk["table"],
+                                                chunk["start"], chunk["length"], cfg, cctx)
+                xc = xc + oc
             z2c = rms_norm(xc, p_l["ln2"], cfg.norm_eps)
             yc, ac = _block_ffn(p_l, z2c, cfg, cctx, placement, cvalid)
             xc = xc + yc
@@ -661,10 +666,11 @@ def decode_step(
         aux = {k: aux[k] + a[k] for k in aux}
     cache["pos"] = pos + 1
     stats = {"expert_counts": aux["counts"]}
-    if chunk is not None:
-        last = min(max(int(chunk["length"]) - 1, 0), n_chunk - 1)
-        stats["chunk_logits"] = _logits(params, xc[:, last : last + 1], cfg, ctx)
-    return _logits(params, x, cfg, ctx), cache, stats
+    with TR.span(TR.MODEL_LOGITS):
+        if chunk is not None:
+            last = min(max(int(chunk["length"]) - 1, 0), n_chunk - 1)
+            stats["chunk_logits"] = _logits(params, xc[:, last : last + 1], cfg, ctx)
+        return _logits(params, x, cfg, ctx), cache, stats
 
 
 # ---------------------------------------------------------------------------
@@ -732,22 +738,24 @@ def prefill(
         for l in range(cfg.n_layers):
             p_l = layer_view(params["layers"], l)
             c_l = _layer_cache(cache["layers"], l)
-            z = rms_norm(x, p_l["ln1"], cfg.norm_eps)
-            o, (k, v) = attention(p_l["attn"], z, cfg, ctx, positions, return_kv=True)
-            x = x + o
-            k, v = cache_kv(k, v, cfg, ctx, heads)
-            if paged:
-                c_new = paged_prefill_fill(c_l, k, v, s, lengths)
-                cache["layers"]["lengths"][l].copy_(c_new["lengths"])
-            else:
-                dense_prefill_fill(c_l, k, v, cfg, length, slots.start)
+            with TR.span(TR.MODEL_ATTENTION):
+                z = rms_norm(x, p_l["ln1"], cfg.norm_eps)
+                o, (k, v) = attention(p_l["attn"], z, cfg, ctx, positions, return_kv=True)
+                x = x + o
+                k, v = cache_kv(k, v, cfg, ctx, heads)
+                if paged:
+                    c_new = paged_prefill_fill(c_l, k, v, s, lengths)
+                    cache["layers"]["lengths"][l].copy_(c_new["lengths"])
+                else:
+                    dense_prefill_fill(c_l, k, v, cfg, length, slots.start)
             z2 = rms_norm(x, p_l["ln2"], cfg.norm_eps)
             y, _ = _block_ffn(p_l, z2, cfg, ctx, placement, None)
             x = x + y
     cache["pos"] = s
-    if lengths is not None:
-        last = (lengths.long() - 1).clamp(0, s - 1)
-        x = x[torch.arange(b, device=x.device), last][:, None]
-    else:
-        x = x[:, -1:]
-    return _logits(params, x, cfg, ctx), cache
+    with TR.span(TR.MODEL_LOGITS):
+        if lengths is not None:
+            last = (lengths.long() - 1).clamp(0, s - 1)
+            x = x[torch.arange(b, device=x.device), last][:, None]
+        else:
+            x = x[:, -1:]
+        return _logits(params, x, cfg, ctx), cache

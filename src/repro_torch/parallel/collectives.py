@@ -48,6 +48,7 @@ from repro_torch.kernels import registry
 from repro_torch.kernels.gmm.ref import expert_ffn_ragged
 from repro_torch.parallel.ctx import ParallelCtx
 from repro_torch.parallel.placement import PlacementTable
+from repro_torch.runtime import tracing as TR
 
 
 def bucket_capacity(n_tok: int, k: int, capacity_factor: float, n_buckets: int) -> int:
@@ -233,7 +234,8 @@ def ep_moe_local(
     for real on one process (``ServeConfig.virtual_ep``). With
     ``ctx.ep_chunks = K`` the grouped FFN runs as K calls over slot ranges;
     per-bucket results do not depend on the batching, so the output is
-    bit-identical to one call."""
+    bit-identical to one call. A decode call (``S == 1``) counts its kept
+    rows per EP device into the tracer (``ctx.virtual_ep`` devices)."""
     b, s, d = x.shape
     k = expert_ids.shape[-1]
     n = b * s
@@ -241,27 +243,32 @@ def ep_moe_local(
     eid = expert_ids.reshape(n, k)
     w = weights.reshape(n, k)
     cap = bucket_capacity(n, k, capacity_factor, total_slots)
-    slots = choose_slots(eid, slot_of, n_replicas, sentinel=total_slots + 1)
-    bufs, pos, keep = bucket_dispatch(xt, slots, total_slots, cap)
-    counts = kept_counts(slots, keep, total_slots)
+    with TR.span(TR.MOE_DISPATCH):
+        slots = choose_slots(eid, slot_of, n_replicas, sentinel=total_slots + 1)
+        bufs, pos, keep = bucket_dispatch(xt, slots, total_slots, cap)
+        counts = kept_counts(slots, keep, total_slots)
+    if s == 1:
+        TR.count_ep_rows(counts, ctx.virtual_ep)
     kc = validate_ep_chunks(ctx.ep_chunks, where="ep_moe_local")
     if kc > 1:
         validate_ep_chunks(kc, total_slots, where="ep_moe_local total_slots")
     spt = total_slots // kc
     ffn = registry.expert_ffn if ctx.kernels_on(x) else expert_ffn_ragged
-    ys = [
-        ffn(
-            bufs[c * spt : (c + 1) * spt],
-            slot_weights["w_gate"][c * spt : (c + 1) * spt],
-            slot_weights["w_up"][c * spt : (c + 1) * spt],
-            slot_weights["w_down"][c * spt : (c + 1) * spt],
-            counts[c * spt : (c + 1) * spt],
-        )
-        for c in range(kc)
-    ]
-    y = ys[0] if kc == 1 else torch.cat(ys, dim=0)
-    out = bucket_combine(y, slots, pos, keep, w)
-    return out.reshape(b, s, d)
+    with TR.span(TR.MOE_FFN):
+        ys = [
+            ffn(
+                bufs[c * spt : (c + 1) * spt],
+                slot_weights["w_gate"][c * spt : (c + 1) * spt],
+                slot_weights["w_up"][c * spt : (c + 1) * spt],
+                slot_weights["w_down"][c * spt : (c + 1) * spt],
+                counts[c * spt : (c + 1) * spt],
+            )
+            for c in range(kc)
+        ]
+        y = ys[0] if kc == 1 else torch.cat(ys, dim=0)
+    with TR.span(TR.MOE_COMBINE):
+        out = bucket_combine(y, slots, pos, keep, w)
+        return out.reshape(b, s, d)
 
 
 # ---------------------------------------------------------------------------
@@ -600,35 +607,42 @@ def ep_moe_shardmap(
     xt = x.reshape(n, d)
     eid = expert_ids.reshape(n, k)
     w = weights.reshape(n, k)
-    slots = choose_slots(eid, slot_of, n_replicas, sentinel=total_slots + 1)
-    if decode:
-        owned = (torch.arange(n, device=x.device) % ep) == rank
-        slots = torch.where(owned[:, None], slots, torch.full_like(slots, total_slots + 1))
+    with TR.span(TR.MOE_DISPATCH):
+        slots = choose_slots(eid, slot_of, n_replicas, sentinel=total_slots + 1)
+        if decode:
+            owned = (torch.arange(n, device=x.device) % ep) == rank
+            slots = torch.where(owned[:, None], slots, torch.full_like(slots, total_slots + 1))
+        if fused:
+            sends, kept_ck, keep, chunk_of, dest, posr = dispatch_fused(
+                xt, slots, total_slots, cap, ep, kc)
+        else:
+            bufs, pos, keep = bucket_dispatch(xt, slots, total_slots, cap)
+            counts = kept_counts(slots, keep, total_slots)
 
     if fused:
-        sends, kept_ck, keep, chunk_of, dest, posr = dispatch_fused(
-            xt, slots, total_slots, cap, ep, kc)
-
         def exchange(c):
-            return (all_to_all(sends[c], group, order),
-                    all_to_all(kept_ck[:, c].contiguous(), group, order))
+            with TR.span(TR.MOE_ALL_TO_ALL):
+                return (all_to_all(sends[c], group, order),
+                        all_to_all(kept_ck[:, c].contiguous(), group, order))
 
         def chunk_ffn(recv, cnt, c):
             # recv[r'] = my chunk's spc buckets' rows from source rank r',
             # bucket-compacted; cnt[r', s] that segment's fill. Group
             # gi = s*ep + r' (weight row gi // ep) starts at flat row
             # r'*spc*cap + roff.
-            roff = torch.cumsum(cnt, dim=1, dtype=torch.int32) - cnt
-            base = torch.arange(ep, dtype=torch.int32, device=x.device)[:, None] * (spc * cap)
-            offsets_g = (roff + base).transpose(0, 1).reshape(-1)
-            counts_g = cnt.transpose(0, 1).reshape(-1)
-            ws = slice(c * spc, (c + 1) * spc)
-            y = registry.expert_ffn_from_rows(
-                recv.reshape(ep * spc * cap, d), wg[ws], wu[ws], wd[ws],
-                offsets_g, counts_g, capacity=cap, groups_per_weight=ep,
-                compact_out=True, fused=True,
-            )
-            return all_to_all(y.reshape(ep, spc * cap, d), group, order)
+            with TR.span(TR.MOE_FFN):
+                roff = torch.cumsum(cnt, dim=1, dtype=torch.int32) - cnt
+                base = torch.arange(ep, dtype=torch.int32, device=x.device)[:, None] * (spc * cap)
+                offsets_g = (roff + base).transpose(0, 1).reshape(-1)
+                counts_g = cnt.transpose(0, 1).reshape(-1)
+                ws = slice(c * spc, (c + 1) * spc)
+                y = registry.expert_ffn_from_rows(
+                    recv.reshape(ep * spc * cap, d), wg[ws], wu[ws], wd[ws],
+                    offsets_g, counts_g, capacity=cap, groups_per_weight=ep,
+                    compact_out=True, fused=True,
+                )
+            with TR.span(TR.MOE_ALL_TO_ALL):
+                return all_to_all(y.reshape(ep, spc * cap, d), group, order)
 
         recv = [None] * kc
         recv[0] = exchange(0)
@@ -638,25 +652,29 @@ def ep_moe_shardmap(
                 recv[c + 1] = exchange(c + 1)
             backs.append(chunk_ffn(*recv[c], c))
             recv[c] = None
-        back = torch.cat(backs, dim=0)
-        rows = chunk_of * (ep * spc * cap) + dest * (spc * cap) + posr
-        out = combine_from_rows(back.reshape(kc * ep * spc * cap, d),
-                                rows.reshape(n, k), keep.reshape(n, k), w)
     else:
-        bufs, pos, keep = bucket_dispatch(xt, slots, total_slots, cap)
-        counts = kept_counts(slots, keep, total_slots)
-        recv = all_to_all(bufs.reshape(ep, spd, cap, d), group, order)
-        cnt = all_to_all(counts.reshape(ep, spd), group, order)
-        recv = recv.transpose(0, 1)                      # (spd, ep, cap, d)
-        y = expert_ffn_ragged(recv.reshape(spd * ep, cap, d), wg, wu, wd,
-                              cnt.transpose(0, 1).reshape(-1), ep)
-        y = y.reshape(spd, ep, cap, d).transpose(0, 1)
-        back = all_to_all(y, group, order).reshape(total_slots, cap, d)
-        out = bucket_combine(back, slots, pos, keep, w)
-    out = out.reshape(bl, sl, d)
-    if decode:
-        return reduce_sum(out, group)                   # the owners' results
-    return all_gather_dim(out, 1, group, order)
+        with TR.span(TR.MOE_ALL_TO_ALL):
+            recv = all_to_all(bufs.reshape(ep, spd, cap, d), group, order)
+            cnt = all_to_all(counts.reshape(ep, spd), group, order)
+        with TR.span(TR.MOE_FFN):
+            recv = recv.transpose(0, 1)                  # (spd, ep, cap, d)
+            y = expert_ffn_ragged(recv.reshape(spd * ep, cap, d), wg, wu, wd,
+                                  cnt.transpose(0, 1).reshape(-1), ep)
+            y = y.reshape(spd, ep, cap, d).transpose(0, 1)
+        with TR.span(TR.MOE_ALL_TO_ALL):
+            back = all_to_all(y, group, order).reshape(total_slots, cap, d)
+    with TR.span(TR.MOE_COMBINE):
+        if fused:
+            back = torch.cat(backs, dim=0)
+            rows = chunk_of * (ep * spc * cap) + dest * (spc * cap) + posr
+            out = combine_from_rows(back.reshape(kc * ep * spc * cap, d),
+                                    rows.reshape(n, k), keep.reshape(n, k), w)
+        else:
+            out = bucket_combine(back, slots, pos, keep, w)
+        out = out.reshape(bl, sl, d)
+        if decode:
+            return reduce_sum(out, group)               # the owners' results
+        return all_gather_dim(out, 1, group, order)
 
 
 # ---------------------------------------------------------------------------

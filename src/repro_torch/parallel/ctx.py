@@ -65,6 +65,10 @@ class ParallelCtx:
     # training: recompute each layer's activations in the backward
     # (``torch.utils.checkpoint``) instead of keeping them
     remat: bool = False
+    # one process: the logical EP devices its slot rows spread over, device
+    # after device (the Server's ``ServeConfig.virtual_ep``); what the EP
+    # path's per-device row counters group by
+    virtual_ep: int = 1
 
     def __post_init__(self):
         if self.use_kernels not in ("auto", True, False):

@@ -45,6 +45,7 @@ from repro_torch.core.migration import Migration, MigStep, decompose
 from repro_torch.core.topology import MeshTopology
 from repro_torch.parallel.mesh import Mesh
 from repro_torch.parallel.placement import PlacementTable
+from repro_torch.runtime import tracing as TR
 
 MOE_WEIGHTS = ("w_gate", "w_up", "w_down")
 
@@ -165,12 +166,13 @@ class MigrationDriver:
 
     def _issue_slice(self, moe: dict, fl: InFlightMigration, t: int) -> None:
         i = fl.next_slice
-        for name in MOE_WEIGHTS:
-            w = moe[name]
-            total = w.shape[2]
-            chunk = min(total, -(-total // fl.n_slices))
-            lo = max(0, min(i * chunk, total - chunk))
-            copy_row_slice(w, fl.src_slot, fl.dst_slot, lo, chunk, self.mesh)
+        with TR.span(TR.BALANCE_SLICE):
+            for name in MOE_WEIGHTS:
+                w = moe[name]
+                total = w.shape[2]
+                chunk = min(total, -(-total // fl.n_slices))
+                lo = max(0, min(i * chunk, total - chunk))
+                copy_row_slice(w, fl.src_slot, fl.dst_slot, lo, chunk, self.mesh)
         fl.next_slice += 1
         fl.issue_ticks.append(t)
 

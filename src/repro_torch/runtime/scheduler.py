@@ -79,6 +79,7 @@ import dataclasses
 import numpy as np
 
 from repro_torch.runtime import faults as F
+from repro_torch.runtime import tracing as TR
 
 QUEUED = "QUEUED"
 PREFILLING = "PREFILLING"
@@ -270,6 +271,8 @@ class RequestScheduler:
         true_len = len(ctx_tokens)
         padded = np.zeros(self._bucket(true_len), np.int32)
         padded[:true_len] = ctx_tokens
+        TR.count(TR.ADMIT_REAL_TOKENS, true_len)
+        TR.count(TR.ADMIT_BUCKET_TOKENS, len(padded))
         logits, self.cache = self.server.prefill_into_slot(
             slot, padded[None, :], self.cache, length=true_len
         )
@@ -282,8 +285,9 @@ class RequestScheduler:
         # have produced next. fp32 on the device first (numpy has no bf16;
         # exact for an argmax), the argmax on the host so ties break as the
         # reference's do.
-        row = logits[0, -1].float().cpu().numpy()
-        self._push_token(req, int(np.argmax(row)))
+        with TR.span(TR.SCHED_ADMIT_READ):
+            tok = int(np.argmax(logits[0, -1].float().cpu().numpy()))
+        self._push_token(req, tok)
 
     def _push_token(self, req: Request, tok: int) -> bool:
         """Append an emitted token; retire on EOS / max-token. Returns
@@ -385,7 +389,8 @@ class RequestScheduler:
             if head is None or not self._admissible(head):
                 return
             self.queue.remove(head)
-            self._admit(head, free[0])
+            with TR.span(TR.SCHED_ADMIT):
+                self._admit(head, free[0])
 
     def _ensure_headroom(self) -> None:
         """Preempt until this step's lazy page growth cannot exhaust the
@@ -452,39 +457,48 @@ class RequestScheduler:
         if crash is not None:
             snap = self.save_snapshot(crash.path or None)
             raise F.SimulatedCrash(self.step_no, snap, crash.path)
-        self._apply_faults()
+        with TR.span(TR.SCHED_FAULTS):
+            self._apply_faults()
         self._admit_ready()
-        self._ensure_headroom()
-        self._drain_migrations()
+        with TR.span(TR.SCHED_HEADROOM):
+            self._ensure_headroom()
+        with TR.span(TR.SCHED_DRAIN):
+            self._drain_migrations()
         finished: list[Request] = []
         if self._live():
             pf = self._prefilling
-            chunk, chunk_n = self._chunk_operand() if pf is not None else (None, 0)
-            logits, self.cache = self.server.decode(self.next_tok, self.cache, chunk=chunk)
-            # (B, V) on the host in fp32 (numpy has no bf16; exact for the
-            # argmax), poisoned there as the reference does.
-            rows = logits[:, -1].float().cpu().numpy()
-            poison = self._poison or set()
-            if poison:
-                rows = rows.copy()   # on the CPU, .numpy() shares the logits
-                rows[sorted(poison)] = np.nan
-            for slot, req in enumerate(self.slots):
-                if req is None or req.state != DECODING:
-                    continue    # a PREFILLING row is masked garbage
-                row = rows[slot]
-                if not np.isfinite(row).all():
-                    # Numerics blew up for this row only: requeue it for a
-                    # clean recompute instead of emitting garbage.
-                    self._preempt(req, "non-finite-logits")
-                    continue
-                if self._push_token(req, int(np.argmax(row))):
-                    finished.append(req)
+            with TR.span(TR.SCHED_DECODE):
+                chunk, chunk_n = self._chunk_operand() if pf is not None else (None, 0)
+                logits, self.cache = self.server.decode(self.next_tok, self.cache,
+                                                        chunk=chunk)
+            with TR.span(TR.SCHED_SAMPLE):
+                # (B, V) on the host in fp32 (numpy has no bf16; exact for the
+                # argmax), poisoned there as the reference does.
+                with TR.span(TR.SCHED_LOGITS_READ):
+                    rows = logits[:, -1].float().cpu().numpy()
+                with TR.span(TR.SCHED_ARGMAX):
+                    poison = self._poison or set()
+                    if poison:
+                        rows = rows.copy()   # on the CPU, .numpy() shares the logits
+                        rows[sorted(poison)] = np.nan
+                    for slot, req in enumerate(self.slots):
+                        if req is None or req.state != DECODING:
+                            continue    # a PREFILLING row is masked garbage
+                        row = rows[slot]
+                        if not np.isfinite(row).all():
+                            # Numerics blew up for this row only: requeue it
+                            # for a clean recompute instead of emitting garbage.
+                            self._preempt(req, "non-finite-logits")
+                            continue
+                        if self._push_token(req, int(np.argmax(row))):
+                            finished.append(req)
             if pf is not None:
                 pf.prefill_pos += chunk_n
                 if pf.prefill_pos >= pf.context_len:
                     # The last chunk: its last valid position's logits emit
                     # the first token, and the slot flips live.
-                    crow = self.server.last_chunk_logits[0, -1].float().cpu().numpy()
+                    with TR.span(TR.SCHED_ADMIT_READ):
+                        crow = self.server.last_chunk_logits[0, -1].float().cpu().numpy()
                     if pf.slot in poison or not np.isfinite(crow).all():
                         self._preempt(pf, "non-finite-logits")
                     else:

@@ -91,6 +91,7 @@ from repro_torch.parallel import sharding
 from repro_torch.parallel.collectives import all_gather_dim, validate_ep_chunks
 from repro_torch.parallel.ctx import ParallelCtx
 from repro_torch.parallel.placement import PlacementTable
+from repro_torch.runtime import tracing as TR
 from repro_torch.runtime.migration_driver import (
     MOE_WEIGHTS,
     MigrationDriver,
@@ -238,6 +239,7 @@ class Server:
         self.ep = ctx.n_model
         if self.ep == 1 and serve_cfg.virtual_ep:
             self.ep = serve_cfg.virtual_ep
+            self.ctx = ctx = dataclasses.replace(ctx, virtual_ep=self.ep)
         # ESP under a mesh serves every expert's hidden-dim shard: no slot
         # rows to balance (the reference expands slots beside it, which ESP
         # never reads)
@@ -599,8 +601,9 @@ class Server:
         pages = self.page_pool.alloc(need)
         row = np.full((1, self.n_blocks), self.trash_page, np.int32)
         row[0, :need] = pages
-        logits, small = self._prefill(tokens, row, np.asarray([true_len], np.int32),
-                                      replicated=True)
+        with TR.span(TR.SERVER_PREFILL):
+            logits, small = self._prefill(tokens, row, np.asarray([true_len], np.int32),
+                                          replicated=True)
         self._pages[slot] = pages
         self._tables[slot] = row[0]
         self._released.discard(slot)
@@ -778,16 +781,18 @@ class Server:
         if self.use_balancer:
             # Step boundary: commit migrations whose last slice landed, then
             # queue this tick's weight slices ahead of the step's kernels.
-            self.drain_migrations()
+            with TR.span(TR.BALANCE_DRAIN):
+                self.drain_migrations()
         placement = self.table.device_view(self.device) if self.use_balancer else None
         # paged serving masks released rows out of MoE routing; a dense
         # batch is all live
         slot_mask = self._slot_mask(token.shape[0]) if self.scfg.paged else None
-        logits, cache, stats = T.decode_step(
-            self.params, self._tokens(token)[self._rows], cache, self.cfg, self.ctx,
-            placement=placement, slot_mask=slot_mask, chunk=chunk,
-        )
-        logits = self._gather_rows(logits)
+        with TR.span(TR.SERVER_STEP):
+            logits, cache, stats = T.decode_step(
+                self.params, self._tokens(token)[self._rows], cache, self.cfg, self.ctx,
+                placement=placement, slot_mask=slot_mask, chunk=chunk,
+            )
+            logits = self._gather_rows(logits)
         self.last_chunk_logits = stats.get("chunk_logits")
         if self.scfg.paged and self._written is not None:
             for slot in range(len(self._written)):
@@ -801,14 +806,16 @@ class Server:
         self._pos = pos + 1
         self.t += 1
         if self.use_balancer:
-            counts = stats["expert_counts"]
-            if self.mesh is not None:
-                # every rank observes the global batch's counts, so every
-                # rank plans the same migrations
-                dist.all_reduce(counts, group=self.mesh.data_group)
-            counts = counts.cpu().numpy()
-            self.state.observe(counts)
-            self._maybe_balance(counts)
+            with TR.span(TR.BALANCE_OBSERVE):
+                counts = stats["expert_counts"]
+                if self.mesh is not None:
+                    # every rank observes the global batch's counts, so every
+                    # rank plans the same migrations
+                    dist.all_reduce(counts, group=self.mesh.data_group)
+                with TR.span(TR.BALANCE_READ):
+                    counts = counts.cpu().numpy()
+                self.state.observe(counts)
+                self._maybe_balance(counts)
         return logits, cache
 
     def generate(self, prompt, n_tokens: int, embeds=None) -> torch.Tensor:
